@@ -8,18 +8,21 @@ public function names of its counterpart there, and the tests in
 
 This package imports ``torch`` and never ``jax``.  Its jax-free host pieces
 (configuration, FITS, WCS, PSF models, the sphere grid, layer helpers) are
-imported from ``pyimcom_tpu``.  The one TPU kernel on the coadd's path, the
+imported from ``pyimcom_tpu``.  The TPU kernel on the coadd's path, the
 D5512 interpolation, is a hand-written CUDA kernel pair for Hopper
-(``csrc/interp_d5512.cu``), built with ``nvcc`` at first use.
+(``csrc/interp_d5512.cu``); the relay's compile probe is a hand-written
+build-and-launch probe (``csrc/probe.cu``, ``python -m
+pyimcom_tpu_torch.probe``).  Both are built with ``nvcc`` at first use.
 
 Modules:
     device      device check and the float64 policy
     convert     reference arrays -> port tensors
     ops         interpolation, CUDA kernels, Fourier overlaps, assembly
     psfgrp      PSF groups and overlap stacks
-    solvers     single-kappa Cholesky solve
-    layer       input layer cubes and star injection
+    solvers     Cholesky (any kappa nodes), Eigen, Iterative, Empirical
+    layer       input layer cubes, star and galaxy injection
     coadd       the block coadd (``Block(cfg, this_sub, device=...)``)
+    probe       the toolchain probe of the card
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,8 @@
 Carry the reference's state across to the port.
 
 The JAX package's intermediate arrays -- overlap stacks, sweep tables and
-metadata, A, -B/2, data, one-hot and fade -- reach the port as NumPy arrays
+metadata, A, -B/2, data, one-hot and fade, the kappa node array, the
+acceptance mask and distances -- reach the port as NumPy arrays
 (``np.asarray`` of the JAX outputs).  :func:`from_numpy` turns a tree of
 them into port tensors on one device, so both packages can be fed identical
 inputs.
@@ -20,7 +21,8 @@ def from_numpy(tree, device):
     """Convert a tree (dict / list / tuple) of arrays to tensors on `device`.
 
     Floating arrays become float64 tensors; integer and boolean arrays keep
-    their dtype (the kernels' metadata is int32).
+    their dtype (the kernels' metadata is int32, the Iterative kernel's
+    acceptance mask bool).
     """
     device = torch.device(device)
     if isinstance(tree, dict):

@@ -4,11 +4,13 @@ Input layer cubes and star injection on PyTorch.
 Counterpart of pyimcom_tpu/layer.py.  Star injection (``cstar``,
 ``gsstar``, ``gstrstar``, ``gsfdstar``, ``nstar`` layers) draws each star by
 D5512 interpolation of its oversampled PSF through the dense entry, so on
-the card the patches of a chunk of stars are one launch of kernel K1.  The
-layer dispatch and the cache-backed :func:`get_all_data` are copied so that
-they call this injector; everything else -- masks, seeds, noise frames, the
-star grid, file readers -- is jax-free and imported from the reference.
-The extended-object injector (``gsext`` layers) is not ported yet.
+the card the patches of a chunk of stars are one launch of kernel K1.
+Galaxy injection (``gsext``, ``gsextchrom`` layers) convolves each PSF with
+the analytic galaxy profile on the host (NumPy FFT) and resamples the
+result the same way.  The layer dispatch and the cache-backed
+:func:`get_all_data` are copied so that they call these injectors;
+everything else -- masks, seeds, noise frames, the star grid, the galaxy
+profiles, file readers -- is jax-free and imported from the reference.
 """
 
 from __future__ import annotations
@@ -26,15 +28,71 @@ from pyimcom_tpu.config import Settings as Stn
 from pyimcom_tpu.fitsio import HDUList, ImageHDU, fits_read, fits_write
 from pyimcom_tpu.layer import (
     _sciwcs_hdu,
+    _shear_expm,
+    _shear_matrix,
+    galaxy_ft,
     generate_star_grid,
     get_sca_imagefile,
     layer_seed,
     noise_1f_frame,
+    parse_gsext_args,
     read_sci_frame,
 )
+from pyimcom_tpu.ops import psfmodels
+from pyimcom_tpu.wcsutil import local_partial_pixel_derivatives2
 
 from .device import DTYPE
 from .ops.interp import interp2d_dense
+
+
+_GUARD = 6    # interpolation guard padding around each oversampled image
+
+
+def _padded_stack(frames, p=_GUARD):
+    """(ns, shp + 2p, shp + 2p) stack of the frames, each centred in its
+    shp x shp slot (shp the largest frame)."""
+    shp = max(f.shape[0] for f in frames)
+    stack = np.zeros((len(frames), shp + 2 * p, shp + 2 * p))
+    for k, f in enumerate(frames):
+        o = (shp - f.shape[0]) // 2
+        stack[k, p + o:p + o + f.shape[0], p + o:p + o + f.shape[1]] = f
+    return stack
+
+
+def _draw_patches(stack, xsca, ysca, ov, patch_half, device):
+    """Resample one chunk of objects: object k is the oversampled image
+    stack[k] (from :func:`_padded_stack`) centred at SCA pixel (xsca[k],
+    ysca[k]), drawn on a (2*patch_half)^2 pixel patch by one dense
+    interpolation (kernel K1 on the card).  Returns the patch values (ns,
+    P, P) and their pixel grids gx, gy."""
+    ns = len(xsca)
+    p = _GUARD
+    ctr = (stack.shape[1] - 2 * p - 1) / 2.0
+    x0 = np.clip(np.floor(xsca).astype(int) - patch_half, 0, None)
+    y0 = np.clip(np.floor(ysca).astype(int) - patch_half, 0, None)
+    P = 2 * patch_half
+    gx = x0[:, None, None] + np.arange(P)[None, None, :]
+    gy = y0[:, None, None] + np.arange(P)[None, :, None]
+    qx = ov * (gx - xsca[:, None, None]) + ctr + p
+    qy = ov * (gy - ysca[:, None, None]) + ctr + p
+    qx, qy = np.broadcast_arrays(qx, qy)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=DTYPE, device=device)
+
+    vals = interp2d_dense(put(stack), put(qx.reshape(ns, -1)), put(qy.reshape(ns, -1)))
+    return vals.cpu().numpy().reshape(ns, P, P) * ov ** 2, gx, gy
+
+
+def _add_patches(image, vals, gx, gy):
+    """Add the patches of :func:`_draw_patches` into `image`, dropping
+    pixels beyond the SCA."""
+    nside, P = image.shape[0], vals.shape[1]
+    inb = (gx < nside) & (gy < nside)
+    for k in range(len(vals)):
+        m = inb[k]
+        np.add.at(image, (gy[k].repeat(P, axis=1)[m], gx[k].repeat(P, axis=0)[m]),
+                  vals[k][m])
 
 
 def make_image_from_grid(res, inpsf, idsca, obsdata, mywcs, nside_sca,
@@ -51,9 +109,7 @@ def make_image_from_grid(res, inpsf, idsca, obsdata, mywcs, nside_sca,
     ipix, xsca, ysca, rapix, decpix = generate_star_grid(res, mywcs)
     if len(ipix) == 0:
         return image
-    p = 6  # interpolation guard padding
     d = patch_half
-
     # keep stars whose patch intersects the SCA
     keep = (xsca > -d) & (xsca < nside_sca + d) & (ysca > -d) & (ysca < nside_sca + d)
     idx = np.nonzero(keep)[0]
@@ -62,44 +118,82 @@ def make_image_from_grid(res, inpsf, idsca, obsdata, mywcs, nside_sca,
                           "get_psf_pos_batch", None)
     for start in range(0, len(idx), chunk):
         sel = idx[start:start + chunk]
-        ns = len(sel)
         if inpsf_batch is not None:
             psfs = list(inpsf_batch(np.stack([rapix[sel], decpix[sel]], axis=-1),
                                     use_drawpsf=True))
         else:
             psfs = [np.asarray(inpsf((rapix[i], decpix[i]), use_drawpsf=True))
                     for i in sel]
-        shp = max(pp.shape[0] for pp in psfs)
-        stack = np.zeros((ns, shp + 2 * p, shp + 2 * p))
-        for k, pp in enumerate(psfs):
-            o = (shp - pp.shape[0]) // 2
-            stack[k, p + o:p + o + pp.shape[0], p + o:p + o + pp.shape[1]] = pp
-        ctr = (shp - 1) / 2.0
-
-        # patch pixel grids per star (static patch size; off-image masked)
-        x0 = np.clip(np.floor(xsca[sel]).astype(int) - d, 0, None)
-        y0 = np.clip(np.floor(ysca[sel]).astype(int) - d, 0, None)
-        P = 2 * d
-        gx = x0[:, None, None] + np.arange(P)[None, None, :]
-        gy = y0[:, None, None] + np.arange(P)[None, :, None]
-        inb = (gx < nside_sca) & (gy < nside_sca)
-        qx = inpsf_oversamp * (gx - xsca[sel][:, None, None]) + ctr + p
-        qy = inpsf_oversamp * (gy - ysca[sel][:, None, None]) + ctr + p
-        qx, qy = np.broadcast_arrays(qx, qy)
-
-        def put(a):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=DTYPE,
-                                   device=device)
-
-        vals = interp2d_dense(put(stack), put(qx.reshape(ns, -1)),
-                              put(qy.reshape(ns, -1)))
-        vals = vals.cpu().numpy().reshape(ns, P, P) * inpsf_oversamp ** 2
+        vals, gx, gy = _draw_patches(_padded_stack(psfs), xsca[sel], ysca[sel],
+                                     inpsf_oversamp, d, device)
         if flux_fn is not None:
             vals = vals * np.asarray(flux_fn(xsca[sel], ysca[sel]))[:, None, None]
-        for k in range(ns):
-            m = inb[k]
-            np.add.at(image, (gy[k].repeat(P, axis=1)[m], gx[k].repeat(P, axis=0)[m]),
-                      vals[k][m])
+        _add_patches(image, vals, gx, gy)
+    return image
+
+
+def make_extobj_image_from_grid(res, inimage, nside_sca, inpsf_oversamp, args, *,
+                                device, patch_half: int = 64, chunk: int = 16,
+                                psf_source=None):
+    """
+    Draw unit-flux extended objects at every grid point (reference
+    make_extobj_image_from_grid, GalSim-free counterpart of GalSimInject
+    .galsim_extobj_grid): each oversampled PSF is convolved with the
+    analytic sheared galaxy profile in Fourier space on the host, then the
+    chunk is resampled like stars, one dense interpolation (kernel K1) per
+    chunk.  `args` from ``parse_gsext_args``; `psf_source(points)` replaces
+    the run PSF (the chromatic variant).
+    """
+    image = np.zeros((nside_sca, nside_sca), dtype=np.float64)
+    ipix, xsca, ysca, rapix, decpix = generate_star_grid(res, inimage.inwcs)
+    if len(ipix) == 0:
+        return image
+    ov = inpsf_oversamp
+    d = patch_half
+
+    # morphology transformation in sky coordinates
+    M = _shear_matrix(*args["shape"])
+    if args["rot"] is not None:
+        th = args["rot"] * np.pi / 180.0
+        M = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]]) @ M
+    if args["shear"] is not None:
+        M = _shear_expm(*args["shear"]) @ M
+
+    # local sample -> sky Jacobian at the SCA center (arcsec per sample)
+    ctr_pix = (nside_sca - 1) / 2.0
+    A_samp2sky = local_partial_pixel_derivatives2(inimage.inwcs, ctr_pix, ctr_pix) \
+        * 3600.0 / ov
+
+    keep = (xsca > -d) & (xsca < nside_sca + d) & (ysca > -d) & (ysca < nside_sca + d)
+    idx = np.nonzero(keep)[0]
+    batch_fn = getattr(inimage, "get_psf_pos_batch", None)
+    for start in range(0, len(idx), chunk):
+        sel = idx[start:start + chunk]
+        points = np.stack([rapix[sel], decpix[sel]], axis=-1)
+        if psf_source is not None:
+            psfs = list(psf_source(points))
+        elif batch_fn is not None:
+            psfs = list(batch_fn(points, use_drawpsf=True))
+        else:
+            psfs = [np.asarray(inimage.get_psf_pos((rapix[i], decpix[i]),
+                                                   use_drawpsf=True)) for i in sel]
+        frames = _padded_stack(psfs, p=0)
+        shp = frames.shape[1]
+        uy = np.fft.fftfreq(shp)[:, None]
+        ux = np.fft.rfftfreq(shp)[None, :]
+        convs = []
+        for k, frame in enumerate(frames):
+            hlr_k = args["hlr"]
+            if args["seed"] is not None:
+                # reproducible per-object size (RNG subsequence keyed by the
+                # HEALPix index, cf. reference GalSimInject.subgen)
+                sub = np.random.default_rng([args["seed"], int(ipix[sel[k]])])
+                hlr_k = args["hlr"] * (0.8 + 0.4 * sub.uniform())
+            gft = galaxy_ft(ux, uy, args["n"], hlr_k, M, A_samp2sky)
+            convs.append(np.fft.irfft2(np.fft.rfft2(frame) * gft, s=(shp, shp)))
+        vals, gx, gy = _draw_patches(_padded_stack(convs), xsca[sel], ysca[sel],
+                                     ov, d, device)
+        _add_patches(image, vals, gx, gy)
     return image
 
 
@@ -154,10 +248,32 @@ def _build_extra_layer(spec: str, inimage) -> np.ndarray | None:
                                     device=device, flux_fn=flux_fn
                                     ).astype(np.float32)
 
-    if re.search(r"^(gsext|gsextchrom)(\d+)(,|$)", spec, re.IGNORECASE):
-        raise NotImplementedError(
-            f"extended-object injection ({spec!r}) is not ported to "
-            f"pyimcom_tpu_torch yet (make_extobj_image_from_grid; ROADMAP.md)")
+    m = re.search(r"^(gsext|gsextchrom)(\d+)(,|$)", spec, re.IGNORECASE)
+    if m:
+        res = int(m.group(2))
+        raw = spec.split(",")[1:]
+        psf_source = None
+        if m.group(1).lower() == "gsextchrom" and raw and "=" not in raw[0]:
+            # chromatic variant: inject with the PSF cube from the given
+            # directory instead of the run PSF (reference layer.py:1446-1456)
+            fname = raw[0] + f"/psf_polyfit_{idsca[0]:d}.fits"
+            raw = raw[1:]
+            if not exists(fname):
+                # a missing chromatic cube is a configuration mistake: the
+                # reference opens the file unconditionally and raises
+                raise FileNotFoundError(
+                    f"gsextchrom: chromatic PSF cube {fname} not found "
+                    f"(layer spec {spec!r})")
+            cube = np.asarray(fits_read(fname)[idsca[1]].data, dtype=np.float64)
+
+            def psf_source(points):
+                px, py = inimage.inwcs.world2pix(points[:, 0], points[:, 1])
+                psfs = psfmodels.eval_psf_cube_batch(cube, px, py, nside=nside)
+                return psfmodels.smooth_and_pad_batch(
+                    psfs, tophatwidth=cfg.inpsf_oversamp)
+        return make_extobj_image_from_grid(
+            res, inimage, nside, cfg.inpsf_oversamp, parse_gsext_args(raw),
+            device=device, psf_source=psf_source).astype(np.float32)
 
     m = re.search(r"^nstar(\d+),", spec, re.IGNORECASE)
     if m:

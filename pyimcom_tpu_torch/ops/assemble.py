@@ -14,8 +14,10 @@ Counterpart of pyimcom_tpu/ops/assemble.py, for the Cholesky block coadd:
 3. :func:`init_A_canvas`, :func:`pool_to_A_dus`, :func:`canvas_to_A` -- A
    assembly: each submatrix use selects its rows and columns with
    ``index_select`` and adds the block at its slot origin.
-4. :func:`solve_finalize` / :func:`solve_finalize_batch` -- the f64 solve,
-   trapezoid fade, coaddition and per-image weight sums.
+4. :func:`solve_finalize` / :func:`solve_finalize_batch` -- the f64 solve
+   with any of the four LAKERNELs, trapezoid fade, coaddition and per-image
+   weight sums; :func:`pixel_distances` / :func:`relevance_mask` give the
+   Iterative and Empirical kernels their output-to-input geometry.
 
 Buffers are updated in place (the JAX versions donate and return them);
 each function also returns the updated buffer.  Metadata rows keep the
@@ -27,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..solvers import cholesky_solve
+from ..solvers import cholesky_solve, eigen_solve, empirical_weights, iterative_solve
 from . import interp_cuda
 
 
@@ -154,23 +156,58 @@ def pool_to_A_dus(canvas, pool, uses, selmap, n1r: int, n2r: int, sym: bool):
     return canvas
 
 
-def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, ucmin, smax,
-                   n2sq: int):
-    """
-    Per-stamp f64 Cholesky solve + coaddition (the JAX package's
-    ``solve_finalize`` at solver="monolithic").
+def pixel_distances(out_x, out_y, in_x, in_y):
+    """Output-to-input pixel distances (..., m, n_pad) from output grids
+    (..., m) and input coordinates (..., n_pad).  Padded slots sit at the
+    1e6 sentinel, outside every acceptance radius."""
+    return torch.hypot(out_y[..., :, None] - in_y[..., None, :],
+                       out_x[..., :, None] - in_x[..., None, :])
 
-    A (n_pad, n_pad); mBhalf (n_out, m, n_pad); C (n_out,); kappaC (1,);
+
+def relevance_mask(out_x, out_y, in_x, in_y, rho):
+    """(..., m, n_pad) acceptance mask |out - in| < rho of the Iterative
+    kernel (reference lakernel.py:614-620)."""
+    return pixel_distances(out_x, out_y, in_x, in_y) < rho
+
+
+def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
+                   ucmin, smax, rtol, n2sq: int, solver: str = "monolithic",
+                   exact_UC: bool = True, maxiter: int = 30, dist=None,
+                   rho_acc: float = 0.0):
+    """
+    Per-stamp f64 solve + coaddition (the JAX package's ``solve_finalize``).
+
+    A (n_pad, n_pad); mBhalf (n_out, m, n_pad); C (n_out,); kappaC (nv,);
     data (n_inframe, n_pad), zero in padding; img_onehot (n_pad, n_img);
     fade (m,) trapezoid factors; n2sq the n2**2 stamp-weight normalization.
+    solver: "monolithic" (Cholesky, any number of kappa nodes), "eigen"
+    (eigendecomposition + per-pixel bisection), "iterative" (masked CG over
+    `relevant` (m, n_pad) bool, at `rtol` / `maxiter`; `exact_UC` selects
+    the exact quality contraction) or "empirical" (distance weights from
+    `dist` (m, n_pad) and `rho_acc`).  `relevant` and `dist` are read only
+    by the solvers that need them.
 
     Returns a dict of float32 tensors: outimage (n_out, n_inframe, m),
     Tsum_stamp (n_out, n_img), Tsum_inpix, Neff, kappa, Sigma, UC
     (n_out, m), with the fade applied where the host path applies it.
     """
     f64 = torch.float64
-    T, kappa, Sigma, UC = cholesky_solve(A.to(f64), mBhalf.to(f64),
-                                         C.to(f64), kappaC.to(f64), ucmin, smax)
+    sys_ = (A.to(f64), mBhalf.to(f64), C.to(f64), kappaC.to(f64))
+    if solver == "monolithic":
+        T, kappa, Sigma, UC = cholesky_solve(*sys_, ucmin, smax)
+    elif solver == "eigen":
+        T, kappa, Sigma, UC = eigen_solve(*sys_, ucmin, smax)
+    elif solver == "iterative":
+        T, kappa, Sigma, UC = iterative_solve(*sys_, relevant, rtol, ucmin, smax,
+                                              maxiter=maxiter, exact_UC=exact_UC)
+        # CG quality estimates can round below zero; clamp like the host
+        # path does before the fade
+        UC = UC.clamp(min=1e-32)
+        Sigma = Sigma.clamp(min=1e-32)
+    elif solver == "empirical":
+        T, kappa, Sigma, UC = empirical_weights(*sys_, dist.to(f64), rho_acc)
+    else:
+        raise ValueError(f"unknown solver {solver!r}")
     fade64 = fade.to(f64)
     Tf = T * fade64[None, :, None]                           # (n_out, m, n)
 
@@ -195,11 +232,17 @@ def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, ucmin, smax,
     }
 
 
-def solve_finalize_batch(A, mBhalf, C, kappaC, data, img_onehot, fade, ucmin,
-                         smax, n2sq: int):
+def solve_finalize_batch(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
+                         ucmin, smax, rtol, n2sq: int, solver: str = "monolithic",
+                         exact_UC: bool = True, maxiter: int = 30, dist=None,
+                         rho_acc: float = 0.0):
     """:func:`solve_finalize` over the group's stamp axis: A (S, n, n),
     mBhalf (S, n_out, m, n), data (S, n_inframe, n), img_onehot (S, n,
-    n_img); each output gains a leading S axis."""
-    outs = [solve_finalize(A[s], mBhalf[s], C, kappaC, data[s], img_onehot[s],
-                           fade, ucmin, smax, n2sq) for s in range(A.shape[0])]
+    n_img), relevant (S, m, n) or (S, 1, 1), dist (S, m, n) or None; each
+    output gains a leading S axis.  The stamps are solved one after another,
+    which bounds the working set to one stamp's."""
+    outs = [solve_finalize(A[s], mBhalf[s], C, kappaC, data[s], img_onehot[s], fade,
+                           relevant[s], ucmin, smax, rtol, n2sq, solver, exact_UC,
+                           maxiter, None if dist is None else dist[s], rho_acc)
+            for s in range(A.shape[0])]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

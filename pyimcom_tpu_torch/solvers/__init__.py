@@ -1,3 +1,9 @@
 """Linear-algebra kernels producing the coaddition matrix T and quality maps."""
 
-from .kernels import cholesky_solve  # noqa: F401
+from .kernels import (  # noqa: F401
+    KERNELS,
+    cholesky_solve,
+    eigen_solve,
+    empirical_weights,
+    iterative_solve,
+)

@@ -5,6 +5,8 @@ Sweep values agree to 1e-12 (two summation orders, and the reference's
 hi/lo table split reconstructs the f64 positions only to the ulp); the
 placements (constant addend, A assembly) to 1e-14; the solve + coadd maps to
 1e-6 of their scale (float32 output rounding), and U/C to 1e-12 absolute.
+The acceptance distances agree to 1e-15 relative (torch's and NumPy's
+hypot differ in the last ulp) and the relevance mask exactly.
 """
 
 import jax.numpy as jnp
@@ -144,8 +146,7 @@ def test_dus_A_assembly_matches_reference(sym):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-14)
 
 
-def test_solve_finalize_batch_matches_reference():
-    """Monolithic single-kappa solve + coadd on identical A and -B/2."""
+def _solve_case(nv=1):
     rng = np.random.default_rng(2)
     S, n, m, n_out, nfr, nimg = 2, 96, 25, 1, 2, 3
     A = np.zeros((S, n, n))
@@ -154,19 +155,17 @@ def test_solve_finalize_batch_matches_reference():
         A[s] = X @ X.T / 40 + 1e-3 * np.eye(n)
     B = rng.standard_normal((S, n_out, m, n)) * 0.3
     C = np.array([1.5])
-    kC = np.array([5e-4])
+    kC = np.array([5e-4, 1e-3, 2e-3][:nv])
     data = rng.standard_normal((S, nfr, n)).astype(np.float32)
     onehot = np.zeros((S, n, nimg), np.float32)
     for s in range(S):
         onehot[s, np.arange(n), rng.integers(0, nimg, n)] = 1.0
     fade = rng.uniform(0.5, 1.0, m)
-    want = ref.solve_finalize_batch(
-        jnp.asarray(A), jnp.asarray(B), jnp.asarray(C), jnp.asarray(kC),
-        jnp.asarray(data), jnp.asarray(onehot), jnp.asarray(fade),
-        jnp.zeros((S, 1, 1), bool), 1e-6, 0.5, 1e-3, 25, "monolithic")
-    got = assemble.solve_finalize_batch(
-        _t(A), _t(B), _t(C), _t(kC), _t(data), _t(onehot), _t(fade),
-        1e-6, 0.5, 25)
+    rel = rng.random((S, m, n)) < 0.7
+    return A, B, C, kC, data, onehot, fade, rel
+
+
+def _compare_maps(got, want):
     for k, w in want.items():
         w = np.asarray(w, np.float64)
         g = got[k].numpy().astype(np.float64)
@@ -176,3 +175,56 @@ def test_solve_finalize_batch_matches_reference():
         else:
             scale = max(np.abs(w).max(), 1e-30)
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-6 * scale, err_msg=k)
+
+
+def test_solve_finalize_batch_matches_reference():
+    """Monolithic single-kappa solve + coadd on identical A and -B/2."""
+    A, B, C, kC, data, onehot, fade, _rel = _solve_case()
+    S = A.shape[0]
+    want = ref.solve_finalize_batch(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(C), jnp.asarray(kC),
+        jnp.asarray(data), jnp.asarray(onehot), jnp.asarray(fade),
+        jnp.zeros((S, 1, 1), bool), 1e-6, 0.5, 1e-3, 25, "monolithic")
+    got = assemble.solve_finalize_batch(
+        _t(A), _t(B), _t(C), _t(kC), _t(data), _t(onehot), _t(fade),
+        _t(np.zeros((S, 1, 1), bool)), 1e-6, 0.5, 1e-3, 25)
+    _compare_maps(got, want)
+
+
+@pytest.mark.parametrize("solver, nv, exact_UC", [("monolithic", 3, True),
+                                                  ("iterative", 1, False),
+                                                  ("iterative", 3, True)],
+                         ids=["multi-kappa", "iterative", "iterative-multi-kappa"])
+def test_solve_finalize_solvers_match_reference(solver, nv, exact_UC):
+    """The multi-kappa Cholesky and the Iterative dispatch (with its U/C and
+    Sigma clamp at 1e-32) against the reference's solve_finalize_batch; 8
+    CG iterations keep finite-precision CG out of its chaotic regime (see
+    test_torch_iterative.py)."""
+    A, B, C, kC, data, onehot, fade, rel = _solve_case(nv)
+    args = (1e-6, 0.5, 1e-3, 25, solver, exact_UC, 8)
+    want = ref.solve_finalize_batch(*(jnp.asarray(a) for a in
+                                      (A, B, C, kC, data, onehot, fade, rel)), *args)
+    got = assemble.solve_finalize_batch(*_t([A, B, C, kC, data, onehot, fade, rel]),
+                                        *args)
+    _compare_maps(got, want)
+
+
+def test_relevance_mask_matches_reference():
+    """Batched distances and the acceptance mask against the reference's
+    relevance_mask per stamp, padded slots at the 1e6 sentinel."""
+    rng = np.random.default_rng(4)
+    S, m, n_pad, n = 2, 30, 50, 41
+    out_x, out_y = rng.uniform(0, 20, (2, S, m))
+    in_x = np.full((S, n_pad), 1e6)
+    in_y = np.full((S, n_pad), 1e6)
+    in_x[:, :n], in_y[:, :n] = rng.uniform(-5, 25, (2, S, n))
+    got = assemble.relevance_mask(*_t([out_x, out_y, in_x, in_y]), 4.0).numpy()
+    dist = assemble.pixel_distances(*_t([out_x, out_y, in_x, in_y])).numpy()
+    for s in range(S):
+        want = np.asarray(ref.relevance_mask(*(jnp.asarray(a[s]) for a in
+                                               (out_x, out_y, in_x, in_y)), 4.0))
+        np.testing.assert_array_equal(got[s], want)
+        np.testing.assert_allclose(dist[s, :, :n], np.hypot(
+            out_y[s][:, None] - in_y[s][None, :n], out_x[s][:, None] - in_x[s][None, :n]),
+            rtol=1e-15, atol=0)
+    assert got.any() and not got[:, :, n:].any()

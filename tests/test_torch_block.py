@@ -9,7 +9,13 @@ test_device_assembly._compare_outputs does: the science cube to 1e-8 of its
 scale, the quantized maps to 1 LSB, INWEIGHT to 1e-8.  The port reads the
 input-layer cache that the reference run wrote, so star injection (tested in
 test_torch_layer.py) is paid once.
+
+The other LAKERNELs are held against the reference in the same way by
+:func:`port_vs_reference`, one solver family per test file.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -22,20 +28,68 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def small_survey(tmp_path_factory):
+    """The reduced survey, built once for the whole session: the port's
+    block tests of every solver family read it (each writes its own
+    outputs), so pytest-xdist workers share one directory under the
+    session's temporary root, and a file lock lets one of them build it."""
+    from filelock import FileLock
+
     from survey_fixture import build_survey
 
-    tmp = tmp_path_factory.mktemp("torchblk")
-    return build_survey(tmp, n_obs=8, extrainput=["cstar14"],
-                        config_overrides={"NPIXPSF": 16, "INPAD": 0.3,
-                                          "FLATPEN": 1e-7})
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent                  # the session root, not the worker's
+    root = base / "torch_small_survey"
+    with FileLock(str(root) + ".lock"):
+        if (root / "cfg.json").exists():
+            return json.loads((root / "cfg.json").read_text())
+        return build_survey(root, n_obs=8, extrainput=["cstar14"],
+                            config_overrides={"NPIXPSF": 16, "INPAD": 0.3,
+                                              "FLATPEN": 1e-7})
 
 
-def _cfg(cfg_dict, suffix, **over):
+def _cfg(cfg_dict, suffix, stop=4, **over):
     from pyimcom_tpu.config import Config
 
-    d = dict(cfg_dict, STOP=4, **over)
+    d = dict(cfg_dict, STOP=stop, **over)
     d["OUT"] = d["OUT"] + suffix
     return Config(d), d["OUT"] + "_00_01.fits"
+
+
+def compare_outputs_f32(out_a, out_b):
+    """_compare_outputs at atol_sci=1e-8, except that a science value may
+    also differ by one float32 ulp: the cube is stored in float32, whose
+    ulp near the peak is ~4e-8 of scale, so two f64 pipelines that agree to
+    ~1e-12 still round a few values to neighbouring floats."""
+    from pyimcom_tpu.fitsio import fits_read
+
+    a = np.asarray(fits_read(out_a)[0].data)
+    b = np.asarray(fits_read(out_b)[0].data)
+    assert a.dtype == b.dtype == np.float32
+    off = np.abs(b.astype(np.float64) - a) > 1e-8 * np.abs(a).max()
+    assert np.all(np.abs(b - a)[off] <= np.spacing(np.abs(a[off]))), \
+        f"{np.count_nonzero(off)} science values beyond 1e-8 of scale and 1 ulp"
+    # the maps (1 LSB) and INWEIGHT as _compare_outputs checks them; the
+    # science cube is checked above
+    _compare_outputs(out_a, out_b, atol_sci=np.inf)
+
+
+def port_vs_reference(cfg_dict, monkeypatch, suffix, assembly, stop=2, **over):
+    """Run the reference Block (PYIMCOM_DEVICE_ASSEMBLY=`assembly`: "1" its
+    device group engine, "0" its host solve path) and the port's CPU Block
+    on one configuration; compare the outputs (:func:`compare_outputs_f32`)
+    and return the port's."""
+    from pyimcom_tpu.coadd import Block as RefBlock
+    from pyimcom_tpu_torch.coadd import Block
+
+    monkeypatch.setenv("PYIMCOM_DEVICE_ASSEMBLY", assembly)
+    monkeypatch.setenv("PYIMCOM_NDEVICES", "1")
+    cfg, out_ref = _cfg(cfg_dict, suffix + "_ref", stop=stop, **over)
+    RefBlock(cfg=cfg, this_sub=1)
+    cfg, out_port = _cfg(cfg_dict, suffix + "_port", stop=stop, **over)
+    Block(cfg=cfg, this_sub=1, device="cpu")
+    compare_outputs_f32(out_ref, out_port)
+    return out_port
 
 
 def test_block_matches_reference(small_survey, monkeypatch):
@@ -65,10 +119,11 @@ def test_block_matches_reference(small_survey, monkeypatch):
     assert np.all(np.isfinite(sci)) and np.abs(sci).max() > 0
 
 
-@pytest.mark.parametrize("over", [{"LAKERNEL": "Eigen"},
-                                  {"KAPPAC": [1e-4, 1e-3]},
+@pytest.mark.parametrize("over", [{"LAKERNEL": "Empirical", "EMPIRNQC": True},
+                                  {"SOLVERPREC": "mixed"},
+                                  {"PSFSPLIT": [6.0, 7.0, 1e-3]},
                                   {"PSFINTERP": "G4460"}],
-                         ids=["eigen", "multi-kappa", "G4460"])
+                         ids=["empirnqc", "mixed", "psfsplit", "G4460"])
 def test_configs_outside_the_slice_raise(small_survey, over):
     from pyimcom_tpu_torch.coadd import Block
 

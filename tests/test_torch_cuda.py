@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 and K2 against their plain versions, on the card.
+"""The CUDA kernels K1 and K2 against their plain versions, and the probe
+kernel, on the card.
 
 These tests need a CUDA GPU (and the CUDA toolkit, to build the kernels);
 they skip without one.  On a machine with the card, run them without the
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from pyimcom_tpu_torch import probe
 from pyimcom_tpu_torch.ops import interp, interp_cuda
 
 torch.set_num_threads(1)
@@ -90,3 +92,16 @@ def test_wrappers_reject_bad_inputs_on_the_card(cuda):
         interp_cuda.interp_d5512_dense(images, q, q)
     with pytest.raises(ValueError):
         interp_cuda.interp_d5512_dense(images.double(), q.T.contiguous(), q.T.contiguous())
+
+
+def test_probe_kernel_builds_and_adds_one(cuda):
+    """csrc/probe.cu builds for sm_90a and its kernel gives exactly x + 1."""
+    probe.reset_launch_counts()
+    verdict = probe.run()
+    assert verdict["ok"] and verdict["build_s"] > 0, verdict
+    assert probe.launches["probe_add_one"] == 1
+    x = torch.as_tensor(np.random.default_rng(5).normal(size=3001),
+                        dtype=torch.float32, device=cuda)
+    assert torch.equal(probe.probe_add_one(x), probe.probe_add_one_plain(x))
+    with pytest.raises(TypeError):
+        probe.probe_add_one(x.double())

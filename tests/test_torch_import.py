@@ -13,7 +13,9 @@ torch.set_num_threads(1)
 REPO = str(Path(__file__).resolve().parents[1])
 
 MODULES = ("pyimcom_tpu_torch", "pyimcom_tpu_torch.coadd",
-           "pyimcom_tpu_torch.ops.interp_cuda")
+           "pyimcom_tpu_torch.ops.interp_cuda", "pyimcom_tpu_torch.ops.assemble",
+           "pyimcom_tpu_torch.solvers", "pyimcom_tpu_torch.layer",
+           "pyimcom_tpu_torch.probe")
 
 CASES = {
     # jax made unimportable: every import must still succeed
