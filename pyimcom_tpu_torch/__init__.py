@@ -6,9 +6,12 @@ The port of ``pyimcom_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 public function names of its counterpart there, and the tests in
 ``tests/test_torch_*.py`` run both packages on the same inputs.
 
-This package imports ``torch`` and never ``jax``.  Its jax-free host pieces
-(configuration, FITS, WCS, PSF models, the sphere grid, layer helpers) are
-imported from ``pyimcom_tpu``.  The TPU kernel on the coadd's path, the
+This package imports ``torch`` and never ``jax``, and nothing of
+``pyimcom_tpu``.  It keeps its own copies of the reference's host modules
+(``config``, ``fitsio``, ``wcsutil``, ``sphere``, ``asdfio``, ``profiling``,
+``ops/psfmodels``, ``utils/moments`` and the layer helpers in
+``layer_host``), which ``tests/test_torch_hostio.py`` holds to their
+originals.  The TPU kernel on the coadd's path, the
 D5512 interpolation, is a hand-written CUDA kernel pair for Hopper
 (``csrc/interp_d5512.cu``); the relay's compile probe is a hand-written
 build-and-launch probe (``csrc/probe.cu``, ``python -m

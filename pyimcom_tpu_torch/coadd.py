@@ -7,8 +7,8 @@ output postage stamps the device runs the group engine
 (:meth:`Block._coadd_group_device`):
 
 1. PSF resampling (kernel K1) and float64 FFT overlap stacks (psfgrp);
-2. ONE fused sweep per (kind, query bucket) that interpolates every fresh
-   system submatrix into a submatrix pool and every io rectangle into -B/2
+2. ONE fused sweep per kind that interpolates every fresh system
+   submatrix into a submatrix pool and every io rectangle into -B/2
    (kernel K2, ops/assemble.sweep_pool / sweep_b);
 3. A assembly from the pools (index_select + slice add);
 4. the f64 solve (LAKERNEL Cholesky at any number of KAPPAC nodes, Eigen,
@@ -37,17 +37,14 @@ from os.path import exists
 import numpy as np
 import torch
 
-from pyimcom_tpu.config import Config, Settings as Stn, Timer
-from pyimcom_tpu.fitsio import HDUList, Header, ImageHDU, TableHDU, fits_read, fits_write
-from pyimcom_tpu.layer import Mask, check_if_idsca_exists
-from pyimcom_tpu.ops import psfmodels
-from pyimcom_tpu.profiling import phase as _profile_phase, report as _profile_report
-from pyimcom_tpu.wcsutil import WCS, make_block_wcs
-
 from . import psfgrp as _psfgrp
+from .config import Config, Settings as Stn, Timer
 from .device import DTYPE, resolve_device
+from .fitsio import HDUList, Header, ImageHDU, TableHDU, fits_read, fits_write
 from .layer import get_all_data
-from .ops import assemble
+from .layer_host import Mask, check_if_idsca_exists
+from .ops import assemble, interp_cuda, psfmodels
+from .profiling import phase as _profile_phase, report as _profile_report
 from .psfgrp import (
     PSFGeometry,
     PSFGroup,
@@ -56,6 +53,7 @@ from .psfgrp import (
     sample_psf_rotated_batch,
     sample_psf_unrotated,
 )
+from .wcsutil import WCS, make_block_wcs
 
 # rows of the flat-field constant addend are chunked to this many entries
 CHUNK = 16384
@@ -145,7 +143,7 @@ class InImage:
         if self.exists_:
             if self.infile.endswith(".asdf"):
                 # Roman L2 ASDF: evaluable GWCS subset
-                from pyimcom_tpu.asdfio import GWCS, asdf_read
+                from .asdfio import GWCS, asdf_read
 
                 tree = asdf_read(self.infile)
                 self.inwcs = GWCS(tree["roman"]["meta"]["wcs"])
@@ -777,7 +775,10 @@ class Block:
         Every rectangle -- (image run x image run) of a fresh submatrix, or
         (selected image run x output grid) of an io block -- is cut into
         pieces of at most the largest query bucket; each piece is one row of
-        metadata in the JAX package's layout.
+        metadata in the JAX package's layout.  The rows of one kind are one
+        K2 launch, cut into its thread-block tiles by
+        ``interp_cuda.sweep_tiles`` (which also checks that the output grids
+        are the lattices K2's B mode assumes).
         """
         cfg = self.cfg
         n_out, m = cfg.n_out, cfg.n2f ** 2
@@ -901,38 +902,35 @@ class Block:
                 f"group too large for int32 sweep metadata (pool {pool_size}, "
                 f"B {len(infos) * nBflat}); reduce the group size or INPAD")
 
-        # ---- pieces and sweep rows, one launch per (kind, bucket) ----------
+        # ---- pieces, sweep rows and their tiles, one launch per kind --------
+        xt, yt = np.concatenate(parts_x), np.concatenate(parts_y)
         cols = [np.asarray(c, np.int64) for c in
                 (r_kg, r_i1, r_w1, r_i2, r_w2, r_kind, r_a, r_b)]
         kg, i1, w1, i2, w2, kind, a, b = cols
         live = np.flatnonzero((w1 > 0) & (w2 > 0))
-        buckets = np.asarray(_psfgrp._DENSE_BUCKETS)
-        maxb = int(buckets[-1])
+        maxb = _psfgrp._DENSE_BUCKETS[-1]
         nq = w1[live] * w2[live]
         npc = -(-nq // maxb)
         rid = np.repeat(live, npc)
         first = np.concatenate([[0], np.cumsum(npc)])[:-1]
         off = (np.arange(int(npc.sum())) - np.repeat(first, npc)) * maxb
         nval = np.minimum(maxb, np.repeat(nq, npc) - off)
-        bidx = np.searchsorted(buckets, nval)
         imeta = np.stack([i1[rid], i2[rid], w2[rid], off, nval], axis=1)
         pmeta = np.stack([a[rid], w2[rid], b[rid], off, nval], axis=1)
         bmeta = np.stack([a[rid], b[rid], off, nval], axis=1)
-        sweep_rows = []   # (mode, bucket, ks, imeta, dmeta)
+        sweep_rows = []   # (mode, ks, imeta, dmeta, tiles)
         for mode, dmeta in ((0, pmeta), (1, bmeta)):
-            for bi, bucket in enumerate(buckets):
-                sel = np.flatnonzero((kind[rid] == mode) & (bidx == bi))
-                if len(sel):
-                    sweep_rows.append((mode, int(bucket),
-                                       kg[rid][sel].astype(np.int32),
-                                       imeta[sel].astype(np.int32),
-                                       dmeta[sel].astype(np.int32)))
+            sel = np.flatnonzero(kind[rid] == mode)
+            if len(sel):
+                im = imeta[sel].astype(np.int32)
+                sweep_rows.append((mode, kg[rid][sel].astype(np.int32), im,
+                                   dmeta[sel].astype(np.int32),
+                                   interp_cuda.sweep_tiles(im, mode, xt, yt, cfg.n2f)))
         fp_plan = None
         if fp_rows:
             fp_plan = (np.asarray([c for _r, c in fp_rows], np.float64),
                        np.asarray([r for r, _c in fp_rows], np.int32))
-        return dict(xt=np.concatenate(parts_x), yt=np.concatenate(parts_y),
-                    stacks=stacks, pool_size=pool_size, fresh=fresh,
+        return dict(xt=xt, yt=yt, stacks=stacks, pool_size=pool_size, fresh=fresh,
                     sweep_rows=sweep_rows, fp_plan=fp_plan)
 
     def _coadd_group_device(self, group):
@@ -969,14 +967,13 @@ class Block:
             Bflat = torch.zeros(S * n_out * m * n_pad, dtype=DTYPE, device=dev)
             inv_scale = 1.0 / geom.dscale
             off_grid = geom.nc_ovl + _psfgrp.INTERP_PAD
-            for mode, bucket, ks, imeta, dmeta in plan["sweep_rows"]:
+            for mode, ks, imeta, dmeta, tiles in plan["sweep_rows"]:
+                rows = (put(ks), put(imeta), put(dmeta), put(tiles))
                 if mode == 0:
-                    assemble.sweep_pool(pool, combined, xt, yt, put(ks), put(imeta),
-                                        put(dmeta), inv_scale, off_grid, bucket)
+                    assemble.sweep_pool(pool, combined, xt, yt, *rows, inv_scale, off_grid)
                 else:
-                    assemble.sweep_b(Bflat, combined, xt, yt, put(ks), put(imeta),
-                                     put(dmeta), inv_scale, off_grid, n_pad, m,
-                                     bucket)
+                    assemble.sweep_b(Bflat, combined, xt, yt, *rows, inv_scale, off_grid,
+                                     n_pad, cfg.n2f)
             if plan["fp_plan"] is not None:
                 consts, meta = plan["fp_plan"]
                 assemble.scatter_pool_constant(

@@ -8,24 +8,50 @@
 //     fused with the pool / -B/2 scatters of
 //     pyimcom_tpu/ops/assemble.py::sweep_pool_scan and sweep_b_scan: each
 //     query is formed from the f64 coordinate tables, interpolated, and
-//     atomically added where it lands.
+//     added where it lands.
 //
 // What bounds them on this card.  Every query reads a 10x10 f64 patch
 // (800 bytes) of one overlap image of ~0.55-0.72 MB (263^2 or 299^2 doubles)
 // and spends ~250 f64 flops on it.  A launch touches at most a few tens of
-// MB of images, which stay resident in the 50 MB L2, so the loads are served
-// from L2 and the kernels are bound by L2-to-SM bandwidth and load latency,
-// not by HBM or the FP64 units.
+// MB of images, which stay resident in the 50 MB L2, so a kernel that reads
+// each patch from L2 is bound by L2-to-SM bandwidth and load latency, not by
+// HBM or the FP64 units.
 //
-// What the design does about it.  The TPU kernel expanded each query's taps
-// into a banded (Q, ny) weight matrix so that the gather became an MXU
-// matmul, because TPU gathers are slow.  On Hopper a gather from L2 is cheap,
-// so each thread reads its own patch directly: one thread per query, the
-// patch rows are 10 consecutive doubles, the phase, taps and sum are f64
-// (no int32/f32 phase split), and neighbouring threads usually hit
-// neighbouring patches of the same image.  No shared-memory tiling, tensor
-// cores or TMA yet: staging image tiles in shared memory is later work.
+// K1 reads its patches from L2, one thread per query.  K2 is built around
+// the locality of the sweep's queries, so that the patches come from shared
+// memory:
+//
+// * Pool mode (sweep_pool_kernel).  The host cuts every row's (i1, i2)
+//   rectangle into tiles of at most 1024 queries (interp_cuda.sweep_tiles).
+//   The queries of a tile are differences of two small pixel patches, so
+//   they fall in one window of the overlap image.  A block takes a tile,
+//   finds the window of its valid queries, copies it into shared memory with
+//   8-byte cp.async loads, and interpolates every query from there.  A tile
+//   whose window exceeds the shared-memory budget reads its patches from L2
+//   instead and adds one to a counter (l2_tiles).
+// * B mode (sweep_b_kernel).  A row pairs one input pixel i1 with the
+//   stamp's output grid, an exact integer lattice of n2f x n2f points (the
+//   planner raises if the tables do not hold one).  So qx depends only on
+//   the output column and qy
+//   only on the output row: a block takes one i1, computes n2f x-tap and
+//   n2f y-tap sets once, stages the window that the grid covers, forms the
+//   horizontal sums for each needed image row and output column once, then
+//   the vertical sum for each output pixel.  Both sums keep the summation
+//   order of K1's sum_a wy[a] (sum_b wx[b] img).
+//
+// Index arithmetic inside a query is 32-bit.  Within one launch every
+// destination receives at most one query (the planner's rows partition the
+// pool and -B/2; tests/test_torch_assemble.py checks it on a real group),
+// so the sum does not depend on the order of the adds.  K2 still adds with
+// atomicAdd: its result is unused, so it compiles to a reduction that the
+// SM issues and forgets, where a plain add must first wait for its load from
+// HBM (the pool and -B/2 outgrow L2).
+//
+// Launch shape: 384 threads, at most 85 registers each, so that two blocks
+// share an SM together with two 110 KB pool windows.
 
+#include <climits>
+#include <cstddef>
 #include <cuda_runtime.h>
 
 namespace {
@@ -57,7 +83,11 @@ __constant__ double kOdd[5][5] = {
      +8.993141455798455697e-01, -1.213035309579723942e+00},
 };
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 384;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 2;  // blocks an SM must hold: caps registers at 85
+// shared-memory window of a pool tile: two blocks fit on one SM
+constexpr int kPoolWindowBytes = 110 * 1024;
 
 // The ten D5512 taps for the phase fh = q - floor(q) - 0.5 (Horner in fh^2).
 __device__ __forceinline__ void d5512_taps(double fh, double w[10]) {
@@ -77,30 +107,94 @@ __device__ __forceinline__ void d5512_taps(double fh, double w[10]) {
   }
 }
 
-// Interpolate one (ny, nx) image at (qx, qy).  The query is valid iff
-// 4 <= floor(q) < n - 5 on both axes; invalid (or NaN) queries give 0.
+// True iff the query's 10x10 patch lies inside an (ny, nx) image:
+// 4 <= floor(q) < n - 5 on both axes (false for NaN).
+__device__ __forceinline__ bool on_grid(double fx, double fy, int ny, int nx) {
+  return fx >= 4.0 && fx < static_cast<double>(nx - 5) &&
+         fy >= 4.0 && fy < static_cast<double>(ny - 5);
+}
+
+// sum_a wy[a] (sum_b wx[b] p[a * stride + b]) of the patch whose corner is p.
+template <typename Load>
+__device__ __forceinline__ double patch_sum(const double* p, int stride, const double wx[10],
+                                            const double wy[10], Load load) {
+  double acc = 0.0;
+#pragma unroll
+  for (int a = 0; a < 10; ++a) {
+    const double* row = p + a * stride;
+    double s = 0.0;
+#pragma unroll
+    for (int b = 0; b < 10; ++b) s += wx[b] * load(row + b);
+    acc += wy[a] * s;
+  }
+  return acc;
+}
+
+struct LoadGlobal {
+  __device__ double operator()(const double* p) const { return __ldg(p); }
+};
+struct LoadShared {
+  __device__ double operator()(const double* p) const { return *p; }
+};
+
+// Interpolate one (ny, nx) image at (qx, qy), reading the patch from global
+// memory; 0 when the patch leaves the image.
 __device__ __forceinline__ double d5512_point(const double* __restrict__ img,
                                               int ny, int nx, double qx, double qy) {
   const double fx = floor(qx);
   const double fy = floor(qy);
-  if (!(fx >= 4.0 && fx < static_cast<double>(nx - 5) &&
-        fy >= 4.0 && fy < static_cast<double>(ny - 5))) {
-    return 0.0;
-  }
+  if (!on_grid(fx, fy, ny, nx)) return 0.0;
   double wx[10], wy[10];
   d5512_taps(qx - fx - 0.5, wx);
   d5512_taps(qy - fy - 0.5, wy);
   const double* p = img + (static_cast<long long>(fy) - 4) * nx + (static_cast<long long>(fx) - 4);
-  double acc = 0.0;
-#pragma unroll
-  for (int a = 0; a < 10; ++a) {
-    const double* row = p + static_cast<long long>(a) * nx;
-    double s = 0.0;
-#pragma unroll
-    for (int b = 0; b < 10; ++b) s += wx[b] * __ldg(row + b);
-    acc += wy[a] * s;
+  return patch_sum(p, nx, wx, wy, LoadGlobal());
+}
+
+__device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+
+// Copy rows [y0, y0 + wy) x columns [x0, x0 + wx) of img (row length nx)
+// into win (row length wx): one warp per row, neighbouring lanes on
+// neighbouring columns.
+__device__ void stage_window(double* win, const double* __restrict__ img, int nx, int x0,
+                             int y0, int wx, int wy) {
+  const int lane = threadIdx.x & 31;
+  for (int a = threadIdx.x >> 5; a < wy; a += kWarps) {
+    const double* src = img + (y0 + a) * nx + x0;
+    for (int b = lane; b < wx; b += 32) cp_async8(win + a * wx + b, src + b);
   }
-  return acc;
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+}
+
+// Block-wide [lo, hi] of ints; threads without a value pass INT_MAX / INT_MIN.
+// `box` is 4 ints of shared memory: x lo, x hi, y lo, y hi.
+__device__ void block_bounds(int* box, int xlo, int xhi, int ylo, int yhi) {
+  if (threadIdx.x == 0) {
+    box[0] = INT_MAX;
+    box[1] = INT_MIN;
+    box[2] = INT_MAX;
+    box[3] = INT_MIN;
+  }
+  __syncthreads();
+  xlo = __reduce_min_sync(0xffffffffu, xlo);
+  xhi = __reduce_max_sync(0xffffffffu, xhi);
+  ylo = __reduce_min_sync(0xffffffffu, ylo);
+  yhi = __reduce_max_sync(0xffffffffu, yhi);
+  if ((threadIdx.x & 31) == 0) {
+    if (xlo <= xhi) {
+      atomicMin(box + 0, xlo);
+      atomicMax(box + 1, xhi);
+    }
+    if (ylo <= yhi) {
+      atomicMin(box + 2, ylo);
+      atomicMax(box + 3, yhi);
+    }
+  }
+  __syncthreads();
 }
 
 __global__ void interp_dense_kernel(const double* __restrict__ images, int ny, int nx,
@@ -114,56 +208,225 @@ __global__ void interp_dense_kernel(const double* __restrict__ images, int ny, i
   out[t] = d5512_point(images + r * ny * nx, ny, nx, x[t], y[t]);
 }
 
-// mode 0 (pool):  dmeta rows [dst_base0, w2, stride, off, nval]
-//                 value j lands at dst_base0 + (f // w2) * stride + f % w2
-// mode 1 (-B/2):  dmeta rows [dst_base, col0, off, nval]
-//                 value j lands at dst_base + (f % m) * n_pad + col0 + f // m
-// imeta rows [i1_start, i2_start, w2, off, nval]: query j of a row compares
-// table entries i1 = i1_start + f // w2 and i2 = i2_start + f % w2, f = off + j.
-// Destinations outside [0, dst_len) and indices outside the tables or the
-// stack are dropped (the reference's scatter mode="drop").
-__global__ void sweep_kernel(double* __restrict__ dst, long long dst_len,
-                             const double* __restrict__ combined, int K, int ny, int nx,
-                             const double* __restrict__ xt,
-                             const double* __restrict__ yt, long long L,
-                             const int* __restrict__ ks,
-                             const int* __restrict__ imeta,
-                             const int* __restrict__ dmeta,
-                             long long nrows, int bucket, double inv_scale,
-                             double off_grid, int mode, int n_pad, int m) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= nrows * bucket) return;
-  const long long r = t / bucket;
-  const int j = static_cast<int>(t - r * bucket);
-  const int* im = imeta + 5 * r;
-  if (j >= im[4]) return;
+// Row metadata of both modes (int32): imeta [i1_start, i2_start, w2, off,
+// nval]; pool dmeta [dst_base0, w2, stride, off, nval], B dmeta [dst_base,
+// col0, off, nval].  Query j < nval of a row sits at f = off + j and compares
+// table entries i1 = i1_start + f / w2, i2 = i2_start + f % w2.  A tile
+// [row, u0, v0, nu, nv] holds the queries f = u * w2 + v of its row with
+// u0 <= u < u0 + nu, v0 <= v < v0 + nv.  Destinations outside [0, dst_len)
+// and indices outside the tables or the stack are dropped (the reference's
+// scatter mode="drop").
+struct Tile {
+  int row, u0, v0, nu, nv;
+};
 
-  long long d;
-  if (mode == 0) {
-    const int* pm = dmeta + 5 * r;
-    if (j >= pm[4]) return;
-    const long long f = static_cast<long long>(pm[3]) + j;
-    const int w2 = max(pm[1], 1);
-    d = pm[0] + (f / w2) * pm[2] + f % w2;
-  } else {
-    const int* bm = dmeta + 4 * r;
-    if (j >= bm[3]) return;
-    const long long f = static_cast<long long>(bm[2]) + j;
-    d = bm[0] + (f % m) * n_pad + bm[1] + f / m;
-  }
-  if (d < 0 || d >= dst_len) return;
+__device__ __forceinline__ Tile load_tile(const int* __restrict__ tiles) {
+  const int* t = tiles + 5 * blockIdx.x;
+  return Tile{t[0], t[1], t[2], t[3], t[4]};
+}
 
-  const int k = ks[r];
+// Pool mode: value j of a row lands at dst_base0 + (g / w2) * stride + g % w2,
+// g = off + j (dmeta's own w2 and off).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sweep_pool_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__ combined,
+                  int K, int ny, int nx, const double* __restrict__ xt,
+                  const double* __restrict__ yt, int L, const int* __restrict__ ks,
+                  const int* __restrict__ imeta, const int* __restrict__ dmeta,
+                  const int* __restrict__ tiles, double inv_scale, double off_grid,
+                  unsigned long long* __restrict__ l2_tiles) {
+  extern __shared__ double win[];
+  __shared__ int box[4];
+  const Tile t = load_tile(tiles);
+  const int* im = imeta + 5 * t.row;
+  const int* pm = dmeta + 5 * t.row;
+  const int k = ks[t.row];
+  if (k < 0 || k >= K) return;
   const int w2 = max(im[2], 1);
-  const long long f = static_cast<long long>(im[3]) + j;
-  const long long i1 = im[0] + f / w2;
-  const long long i2 = im[1] + f % w2;
-  if (k < 0 || k >= K || i1 < 0 || i1 >= L || i2 < 0 || i2 >= L) return;
+  const int pw2 = max(pm[1], 1);
+  const int nval = min(im[4], pm[4]);
+  const int nq = t.nu * t.nv;
+  const double* img = combined + static_cast<size_t>(k) * ny * nx;
 
-  const double qx = (xt[i1] - xt[i2]) * inv_scale + off_grid;
-  const double qy = (yt[i1] - yt[i2]) * inv_scale + off_grid;
-  const double v = d5512_point(combined + static_cast<long long>(k) * ny * nx, ny, nx, qx, qy);
-  atomicAdd(dst + d, v);
+  // the query q of the tile: its position, or false when it adds nothing
+  auto query = [&](int q, double& x, double& y, int& d) {
+    const int a = q / t.nv;
+    const int f = (t.u0 + a) * w2 + t.v0 + (q - a * t.nv);
+    const int j = f - im[3];
+    if (j < 0 || j >= nval) return false;
+    const int g = pm[3] + j;
+    const int gq = g / pw2;
+    d = pm[0] + gq * pm[2] + (g - gq * pw2);
+    if (d < 0 || d >= dst_len) return false;
+    const int fq = f / w2;
+    const int i1 = im[0] + fq;
+    const int i2 = im[1] + (f - fq * w2);
+    if (i1 < 0 || i1 >= L || i2 < 0 || i2 >= L) return false;
+    x = (xt[i1] - xt[i2]) * inv_scale + off_grid;
+    y = (yt[i1] - yt[i2]) * inv_scale + off_grid;
+    return on_grid(floor(x), floor(y), ny, nx);
+  };
+
+  // the window of the tile's valid queries
+  int xlo = INT_MAX, xhi = INT_MIN, ylo = INT_MAX, yhi = INT_MIN;
+  for (int q = threadIdx.x; q < nq; q += kThreads) {
+    double x, y;
+    int d;
+    if (!query(q, x, y, d)) continue;
+    const int fx = static_cast<int>(floor(x));
+    const int fy = static_cast<int>(floor(y));
+    xlo = min(xlo, fx);
+    xhi = max(xhi, fx);
+    ylo = min(ylo, fy);
+    yhi = max(yhi, fy);
+  }
+  block_bounds(box, xlo, xhi, ylo, yhi);
+  if (box[0] > box[1]) return;  // no query of the tile adds anything
+  const int x0 = box[0] - 4, y0 = box[2] - 4;
+  const int wx = box[1] - box[0] + 10, wy = box[3] - box[2] + 10;
+  const bool staged = wx * wy * static_cast<int>(sizeof(double)) <= kPoolWindowBytes;
+  if (staged) {
+    stage_window(win, img, nx, x0, y0, wx, wy);
+  } else if (threadIdx.x == 0) {
+    atomicAdd(l2_tiles, 1ull);
+  }
+
+  for (int q = threadIdx.x; q < nq; q += kThreads) {
+    double x, y;
+    int d;
+    if (!query(q, x, y, d)) continue;
+    const double fx = floor(x), fy = floor(y);
+    double wxt[10], wyt[10];
+    d5512_taps(x - fx - 0.5, wxt);
+    d5512_taps(y - fy - 0.5, wyt);
+    const int ix = static_cast<int>(fx) - 4, iy = static_cast<int>(fy) - 4;
+    const double v = staged
+        ? patch_sum(win + (iy - y0) * wx + (ix - x0), wx, wxt, wyt, LoadShared())
+        : patch_sum(img + iy * nx + ix, nx, wxt, wyt, LoadGlobal());
+    atomicAdd(dst + d, v);
+  }
+}
+
+// B mode: value j of a row lands at dst_base + (g % m) * n_pad + col0 + g / m,
+// g = off + j (dmeta's off), m = n2f^2.  Query f = off + j pairs table entry
+// i1 = i1_start + f / m with output pixel p = f % m of the row's lattice,
+// whose origin is table entry i2_start: (xt[i2_start] + p % n2f,
+// yt[i2_start] + p / n2f).  The planner (interp_cuda.sweep_tiles) raises
+// unless the tables hold exactly that lattice, so this is the same as
+// reading the tables at i2_start + p.  A block takes one tile: one i1 (u0)
+// and the output pixels [v0, v0 + nv) it pairs with.
+//
+// Shared memory (host-sized, interp_cuda.b_window): x taps (n2f, 10), y taps
+// (n2f, 10), horizontal sums (wmax, n2f), the window (wmax, wmax) in
+// doubles, then the x and y floors (n2f each; INT_MIN off the grid).  The
+// floors of n2f lattice points spread over (n2f - 1) |inv_scale| samples
+// differ by at most floor((n2f - 1) |inv_scale|) + 2, rounding included, so
+// with the 10-tap guard a window never exceeds wmax = that + 10 samples on
+// either axis.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__ combined,
+               int K, int ny, int nx, const double* __restrict__ xt,
+               const double* __restrict__ yt, int L, const int* __restrict__ ks,
+               const int* __restrict__ imeta, const int* __restrict__ dmeta,
+               const int* __restrict__ tiles, double inv_scale, double off_grid, int n_pad,
+               int n2f, int wmax) {
+  extern __shared__ double sm[];
+  __shared__ int box[4];
+  double* tx = sm;
+  double* ty = tx + n2f * 10;
+  double* hs = ty + n2f * 10;
+  double* win = hs + wmax * n2f;
+  int* fxs = reinterpret_cast<int*>(win + wmax * wmax);
+  int* fys = fxs + n2f;
+
+  const Tile t = load_tile(tiles);
+  const int* im = imeta + 5 * t.row;
+  const int* bm = dmeta + 4 * t.row;
+  const int k = ks[t.row];
+  const int m = n2f * n2f;
+  const int i2s = im[1];
+  const int u = t.u0;
+  const int i1 = im[0] + u;
+  if (k < 0 || k >= K || i2s < 0 || i2s + m > L || i1 < 0 || i1 >= L) return;
+  // outputs p of this i1 that are queries of the row: off <= u m + p < off + nval
+  const int nval = min(im[4], bm[3]);
+  const int plo = max(t.v0, im[3] - u * m);
+  const int phi = min(t.v0 + t.nv, im[3] + nval - u * m);
+  if (plo >= phi) return;
+  const int rlo = plo / n2f, rhi = (phi - 1) / n2f;
+  const int clo = rlo == rhi ? plo % n2f : 0;
+  const int chi = rlo == rhi ? (phi - 1) % n2f : n2f - 1;
+  const double X0 = xt[i2s], Y0 = yt[i2s];
+  const double x1 = xt[i1], y1 = yt[i1];
+  const double* img = combined + static_cast<size_t>(k) * ny * nx;
+
+  // taps of the needed columns (threads [0, n2f)) and rows ([n2f, 2 n2f))
+  int xlo = INT_MAX, xhi = INT_MIN, ylo = INT_MAX, yhi = INT_MIN;
+  for (int s = threadIdx.x; s < 2 * n2f; s += kThreads) {
+    const bool col = s < n2f;
+    const int c = col ? s : s - n2f;
+    if (col ? (c < clo || c > chi) : (c < rlo || c > rhi)) continue;
+    const double q = col ? (x1 - (X0 + c)) * inv_scale + off_grid
+                         : (y1 - (Y0 + c)) * inv_scale + off_grid;
+    const double fq = floor(q);
+    const int n = col ? nx : ny;
+    int* fl = col ? fxs : fys;
+    if (!(fq >= 4.0 && fq < static_cast<double>(n - 5))) {
+      fl[c] = INT_MIN;
+      continue;
+    }
+    d5512_taps(q - fq - 0.5, (col ? tx : ty) + c * 10);
+    fl[c] = static_cast<int>(fq);
+    if (col) {
+      xlo = min(xlo, fl[c]);
+      xhi = max(xhi, fl[c]);
+    } else {
+      ylo = min(ylo, fl[c]);
+      yhi = max(yhi, fl[c]);
+    }
+  }
+  block_bounds(box, xlo, xhi, ylo, yhi);
+  // no column or no row on the grid: every output of this i1 is 0
+  if (box[0] > box[1] || box[2] > box[3]) return;
+  const int x0 = box[0] - 4, y0 = box[2] - 4;
+  const int wx = box[1] - box[0] + 10, wy = box[3] - box[2] + 10;
+
+  stage_window(win, img, nx, x0, y0, wx, wy);
+  // horizontal sums: window row a, output column c; a thread keeps one
+  // column's taps in registers and walks a stride of rows
+  const int ncol = chi - clo + 1;
+  const int nrg = kThreads / ncol;
+  if (threadIdx.x < nrg * ncol) {
+    const int c = clo + threadIdx.x % ncol;
+    if (fxs[c] != INT_MIN) {
+      double w[10];
+#pragma unroll
+      for (int b = 0; b < 10; ++b) w[b] = tx[c * 10 + b];
+      const int cx = fxs[c] - 4 - x0;
+      for (int a = threadIdx.x / ncol; a < wy; a += nrg) {
+        const double* row = win + a * wx + cx;
+        double s = 0.0;
+#pragma unroll
+        for (int b = 0; b < 10; ++b) s += w[b] * row[b];
+        hs[a * n2f + c] = s;
+      }
+    }
+  }
+  __syncthreads();
+  // vertical sums and the scatter
+  for (int p = plo + threadIdx.x; p < phi; p += kThreads) {
+    const int r = p / n2f, c = p - r * n2f;
+    if (fxs[c] == INT_MIN || fys[r] == INT_MIN) continue;
+    const int g = bm[2] + u * m + p - im[3];
+    const int gq = g / m;
+    const int d = bm[0] + (g - gq * m) * n_pad + bm[1] + gq;
+    if (d < 0 || d >= dst_len) continue;
+    const double* col = hs + (fys[r] - 4 - y0) * n2f + c;
+    const double* w = ty + r * 10;
+    double acc = 0.0;
+#pragma unroll
+    for (int a = 0; a < 10; ++a) acc += w[a] * col[a * n2f];
+    atomicAdd(dst + d, acc);
+  }
 }
 
 unsigned int blocks_for(long long total) {
@@ -186,19 +449,39 @@ int interp_d5512_dense(const double* images, int R, int ny, int nx, const double
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared-memory bytes a B-mode block needs for n2f and a window of at most
+// wmax x wmax samples.
+size_t sweep_b_smem_bytes(int n2f, int wmax) {
+  return sizeof(double) * (static_cast<size_t>(n2f) * 20 + static_cast<size_t>(wmax) * n2f +
+                           static_cast<size_t>(wmax) * wmax) +
+         sizeof(int) * 2 * static_cast<size_t>(n2f);
+}
+
 // dst (dst_len,) f64, updated in place; combined (K, ny, nx) f64; xt / yt (L,)
 // f64; ks (nrows,) int32; imeta (nrows, 5) int32; dmeta (nrows, 5) in mode 0
-// or (nrows, 4) in mode 1, int32.  Returns cudaGetLastError() after the launch.
-int sweep_d5512_scatter(double* dst, long long dst_len, const double* combined, int K,
-                        int ny, int nx, const double* xt, const double* yt, long long L,
-                        const int* ks, const int* imeta, const int* dmeta, long long nrows,
-                        int bucket, double inv_scale, double off_grid, int mode, int n_pad,
-                        int m, void* stream) {
-  const long long total = nrows * bucket;
-  if (total > 0) {
-    sweep_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        dst, dst_len, combined, K, ny, nx, xt, yt, L, ks, imeta, dmeta, nrows, bucket,
-        inv_scale, off_grid, mode, n_pad, m);
+// (pool) or (nrows, 4) in mode 1 (B), int32; tiles (ntiles, 5) int32, one
+// block each; l2_tiles one counter on the device (mode 0).  Mode 1 needs
+// n_pad, n2f and wmax.  Returns cudaGetLastError() after the launch.
+int sweep_d5512_scatter(double* dst, int dst_len, const double* combined, int K, int ny,
+                        int nx, const double* xt, const double* yt, int L, const int* ks,
+                        const int* imeta, const int* dmeta, const int* tiles, int ntiles,
+                        double inv_scale, double off_grid, int mode, int n_pad, int n2f,
+                        int wmax, unsigned long long* l2_tiles, void* stream) {
+  if (ntiles <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0) {
+    cudaFuncSetAttribute(sweep_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kPoolWindowBytes);
+    sweep_pool_kernel<<<ntiles, kThreads, kPoolWindowBytes, s>>>(
+        dst, dst_len, combined, K, ny, nx, xt, yt, L, ks, imeta, dmeta, tiles, inv_scale,
+        off_grid, l2_tiles);
+  } else {
+    const size_t smem = sweep_b_smem_bytes(n2f, wmax);
+    cudaFuncSetAttribute(sweep_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    sweep_b_kernel<<<ntiles, kThreads, smem, s>>>(dst, dst_len, combined, K, ny, nx, xt, yt, L,
+                                                  ks, imeta, dmeta, tiles, inv_scale, off_grid,
+                                                  n_pad, n2f, wmax);
   }
   return static_cast<int>(cudaGetLastError());
 }

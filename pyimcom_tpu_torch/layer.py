@@ -8,9 +8,9 @@ the card the patches of a chunk of stars are one launch of kernel K1.
 Galaxy injection (``gsext``, ``gsextchrom`` layers) convolves each PSF with
 the analytic galaxy profile on the host (NumPy FFT) and resamples the
 result the same way.  The layer dispatch and the cache-backed
-:func:`get_all_data` are copied so that they call these injectors;
-everything else -- masks, seeds, noise frames, the star grid, the galaxy
-profiles, file readers -- is jax-free and imported from the reference.
+:func:`get_all_data` follow the JAX package's so that they call these
+injectors; the host helpers they use -- file readers, seeds, noise frames,
+the star grid, the galaxy profiles, masks -- are in :mod:`.layer_host`.
 """
 
 from __future__ import annotations
@@ -24,9 +24,10 @@ import numpy as np
 import torch
 from filelock import FileLock, Timeout
 
-from pyimcom_tpu.config import Settings as Stn
-from pyimcom_tpu.fitsio import HDUList, ImageHDU, fits_read, fits_write
-from pyimcom_tpu.layer import (
+from .config import Settings as Stn
+from .device import DTYPE
+from .fitsio import HDUList, ImageHDU, fits_read, fits_write
+from .layer_host import (
     _sciwcs_hdu,
     _shear_expm,
     _shear_matrix,
@@ -38,11 +39,9 @@ from pyimcom_tpu.layer import (
     parse_gsext_args,
     read_sci_frame,
 )
-from pyimcom_tpu.ops import psfmodels
-from pyimcom_tpu.wcsutil import local_partial_pixel_derivatives2
-
-from .device import DTYPE
+from .ops import psfmodels
 from .ops.interp import interp2d_dense
+from .wcsutil import local_partial_pixel_derivatives2
 
 
 _GUARD = 6    # interpolation guard padding around each oversampled image
@@ -233,7 +232,7 @@ def _build_extra_layer(spec: str, inimage) -> np.ndarray | None:
     if m:
         # field-dependent star flux: 1 at the FPA center rising to 1+amp at
         # the corners (reference layer.py:1419-1434, 273-276)
-        from pyimcom_tpu.config import fpaCoords
+        from .config import fpaCoords
 
         res = int(m.group(1))
         amp = float(m.group(2))
@@ -297,7 +296,7 @@ def _build_extra_layer(spec: str, inimage) -> np.ndarray | None:
                                      extraargs={"type": "noise"})
         if filename and exists(filename):
             if filename.endswith(".asdf"):
-                from pyimcom_tpu.asdfio import asdf_read
+                from .asdfio import asdf_read
 
                 tree = asdf_read(filename)
                 labels = list(tree["config"]["NOISE"]["LAYER"])

@@ -33,20 +33,19 @@ from ..solvers import cholesky_solve, eigen_solve, empirical_weights, iterative_
 from . import interp_cuda
 
 
-def _sweep(dst, combined, xt, yt, ks, imeta, dmeta, inv_scale, off_grid,
-           bucket, mode, n_pad=0, m=0):
+def _sweep(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scale, off_grid,
+           mode, n_pad=0, n2f=0):
     if combined.is_cuda:
         fn = interp_cuda.sweep_d5512_scatter
     elif combined.device.type == "cpu":
         fn = interp_cuda.sweep_d5512_scatter_plain
     else:
         raise ValueError(f"sweep: unsupported device {combined.device}")
-    return fn(dst, combined, xt, yt, ks, imeta, dmeta, inv_scale, off_grid,
-              bucket, mode, n_pad, m)
+    return fn(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scale, off_grid,
+              mode, n_pad, n2f)
 
 
-def sweep_pool(pool, combined, xt, yt, ks, imeta, pmeta, inv_scale, off_grid,
-               bucket: int):
+def sweep_pool(pool, combined, xt, yt, ks, imeta, pmeta, tiles, inv_scale, off_grid):
     """
     Fused sweep over POOL rectangles (contract of the JAX package's
     ``sweep_pool_scan``): query j of row r compares table entries
@@ -58,24 +57,27 @@ def sweep_pool(pool, combined, xt, yt, ks, imeta, pmeta, inv_scale, off_grid,
     pool (P,) f64, updated in place; combined (K, ny, nx) f64; xt, yt (L,)
     f64; ks (..., ) int32; imeta (..., 5) int32 rows [i1_start, i2_start,
     w2, off, nval]; pmeta (..., 5) int32 rows [dst_base0, w2, stride, off,
-    nval].  `bucket` bounds the query index j (nval <= bucket).
+    nval]; tiles (T, 5) int32, ``interp_cuda.sweep_tiles(imeta, 0)``.
     """
-    return _sweep(pool, combined, xt, yt, ks, imeta, pmeta, inv_scale,
-                  off_grid, bucket, 0)
+    return _sweep(pool, combined, xt, yt, ks, imeta, pmeta, tiles, inv_scale,
+                  off_grid, 0)
 
 
-def sweep_b(Bflat, combined, xt, yt, ks, imeta, bmeta, inv_scale, off_grid,
-            n_pad: int, m: int, bucket: int):
+def sweep_b(Bflat, combined, xt, yt, ks, imeta, bmeta, tiles, inv_scale, off_grid,
+            n_pad: int, n2f: int):
     """
     Fused sweep over -B/2 rectangles (contract of ``sweep_b_scan``): as
-    :func:`sweep_pool` with w2 == m, the value landing at
-    Bflat[dst_base + (f % m) * n_pad + col0 + f // m].
+    :func:`sweep_pool` with w2 == m == n2f**2, the value landing at
+    Bflat[dst_base + (f % m) * n_pad + col0 + f // m].  The i2 entries of
+    every row must be an output grid, an exact n2f x n2f integer lattice:
+    the tiles, ``interp_cuda.sweep_tiles(imeta, 1, xt, yt, n2f)``, raise
+    otherwise.
 
     Bflat (S*n_out*m*n_pad,) f64, updated in place; bmeta (..., 4) int32
     rows [dst_base, col0, off, nval].
     """
-    return _sweep(Bflat, combined, xt, yt, ks, imeta, bmeta, inv_scale,
-                  off_grid, bucket, 1, n_pad, m)
+    return _sweep(Bflat, combined, xt, yt, ks, imeta, bmeta, tiles, inv_scale,
+                  off_grid, 1, n_pad, n2f)
 
 
 def scatter_pool_constant(pool, consts, meta, bucket: int):

@@ -27,21 +27,25 @@ holds each kernel against its plain version on the card.
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from .. import _build
 from . import interp as _interp
 
 # launches of each kernel since the last reset_launch_counts(); incremented
-# by the wrappers where they launch, and nowhere else
-launches = {"interp_d5512_dense": 0, "sweep_d5512_scatter": 0}
+# by the wrappers where they launch, and nowhere else (K2 by mode: its pool
+# and B forms are two kernels)
+launches = {"interp_d5512_dense": 0, "sweep_d5512_scatter.pool": 0,
+            "sweep_d5512_scatter.B": 0}
 
 _p, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
     "interp_d5512_dense": (_p, _i, _i, _i, _p, _p, _ll, _p, _p),
-    "sweep_d5512_scatter": (_p, _ll, _p, _i, _i, _i, _p, _p, _ll, _p, _p, _p,
-                            _ll, _i, _d, _d, _i, _i, _i, _p),
+    "sweep_d5512_scatter": (_p, _i, _p, _i, _i, _i, _p, _p, _i, _p, _p, _p, _p, _i,
+                            _d, _d, _i, _i, _i, _i, _p, _p),
 }
 
 
@@ -69,14 +73,14 @@ def _check(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, count: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _cfunc(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    launches[name] += 1
+    launches[count] += 1
 
 
 # --------------------------------------------------------------------------
@@ -95,7 +99,7 @@ def interp_d5512_dense(images: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"x, y must be (R={R}, Nq); got {tuple(x.shape)}, "
                          f"{tuple(y.shape)}")
     out = torch.empty(x.shape, dtype=torch.float64, device=dev)
-    _launch("interp_d5512_dense", dev, images.data_ptr(), R, ny, nx,
+    _launch("interp_d5512_dense", "interp_d5512_dense", dev, images.data_ptr(), R, ny, nx,
             x.data_ptr(), y.data_ptr(), x.shape[1], out.data_ptr())
     return out
 
@@ -109,89 +113,243 @@ def interp_d5512_dense_plain(images: torch.Tensor, x: torch.Tensor,
                                   which).reshape(R, Nq)
 
 
+
+
 # --------------------------------------------------------------------------
 # K2: fused sweep (query formation + interpolation + scatter-add)
 # --------------------------------------------------------------------------
 
-def _sweep_args(ks, imeta, dmeta, mode, n_pad, m):
+# the most queries of one pool tile, and the most i2 columns it spans; the
+# windows of such tiles fit the 110 KB that a pool block stages on the main
+# path's groups, but for ~1 % of the production group's tiles
+TILE_QUERIES = 1024
+TILE_COLS = 32
+# shared memory a block may use on the card (sm_90)
+_SMEM_LIMIT = 232448
+# the launch count of each mode's kernel
+SWEEP_KERNELS = {0: "sweep_d5512_scatter.pool", 1: "sweep_d5512_scatter.B"}
+_LATTICE_ERROR = ("the output coordinates of a B row are not an exact {n2f} x {n2f} "
+                  "integer lattice inside the coordinate tables (or its w2 is not "
+                  "n2f**2); K2's B mode needs one")
+
+
+def sweep_tiles(imeta, mode: int, xt=None, yt=None, n2f: int = 0) -> np.ndarray:
+    """
+    The tiles of K2's launch: (T, 5) int32 rows [row, u0, v0, nu, nv], one
+    thread block each.  Tile t holds the queries f = u * w2 + v of its row
+    with u0 <= u < u0 + nu and v0 <= v < v0 + nv, i.e. table entries
+    i1 = i1_start + u and i2 = i2_start + v; every query of every row (f in
+    [off, off + nval)) falls in exactly one tile, and rows with nval 0 get
+    none.  Pool rows (mode 0) are cut into near-square tiles of at most
+    TILE_QUERIES queries and TILE_COLS columns; a B row (mode 1) gets one
+    tile for each i1, spanning the output pixels it pairs with.  Host
+    numpy: `imeta` (..., 5) rows [i1_start, i2_start, w2, off, nval].
+
+    B tiles need the host coordinate tables `xt`, `yt` and the lattice's
+    `n2f`: K2's B mode computes each row's output coordinates from the
+    lattice at i2_start, so this raises ValueError unless the tables hold
+    it (:func:`check_output_lattice`).
+    """
+    im = np.asarray(imeta, np.int64).reshape(-1, 5)
+    if mode == 1:
+        if xt is None or yt is None or n2f <= 0:
+            raise ValueError("B tiles need the coordinate tables xt, yt and n2f")
+        check_output_lattice(xt, yt, im, n2f)
+    w2 = np.maximum(im[:, 2], 1)
+    off, nval = im[:, 3], im[:, 4]
+    rows = np.flatnonzero(nval > 0)
+    w2, off, nval = w2[rows], off[rows], nval[rows]
+    u_lo = off // w2
+    h = (off + nval - 1) // w2 + 1 - u_lo          # i1 entries of each row
+    if mode == 1:
+        r = np.repeat(np.arange(len(rows)), h)
+        u = u_lo[r] + np.arange(len(r)) - np.repeat(np.cumsum(h) - h, h)
+        v0 = np.maximum(off[r] - u * w2[r], 0)
+        v1 = np.minimum(off[r] + nval[r] - u * w2[r], w2[r])
+        tiles = np.stack([rows[r], u, v0, np.ones_like(u), v1 - v0], axis=1)
+    else:
+        nt2 = -(-w2 // TILE_COLS)
+        tv = -(-w2 // nt2)
+        nt1 = -(-h // np.maximum(TILE_QUERIES // tv, 1))
+        tu = -(-h // nt1)
+        per = nt1 * nt2
+        r = np.repeat(np.arange(len(rows)), per)
+        t = np.arange(len(r)) - np.repeat(np.cumsum(per) - per, per)
+        a, b = t // nt2[r], t % nt2[r]
+        u0 = u_lo[r] + a * tu[r]
+        v0 = b * tv[r]
+        nu = np.minimum(tu[r], u_lo[r] + h[r] - u0)
+        nv = np.minimum(tv[r], w2[r] - v0)
+        tiles = np.stack([rows[r], u0, v0, nu, nv], axis=1)
+    return tiles.astype(np.int32).reshape(-1, 5)
+
+
+def b_window(n2f: int, inv_scale: float) -> int:
+    """The widest window (samples per axis) that the query floors of one
+    n2f-point lattice axis can span, with the 10-tap guard."""
+    return int(math.floor((n2f - 1) * abs(inv_scale))) + 12
+
+
+def _sweep_args(ks, imeta, dmeta, tiles, mode, n_pad, n2f):
     if mode not in (0, 1):
         raise ValueError(f"mode must be 0 (pool) or 1 (B), got {mode}")
-    if mode == 1 and (m <= 0 or n_pad <= 0):
-        raise ValueError(f"B mode needs m > 0 and n_pad > 0, got {m}, {n_pad}")
+    if mode == 1 and (n2f <= 0 or n_pad <= 0):
+        raise ValueError(f"B mode needs n2f > 0 and n_pad > 0, got {n2f}, {n_pad}")
     dw = 5 if mode == 0 else 4
     ks = ks.reshape(-1)
     imeta = imeta.reshape(-1, 5)
     dmeta = dmeta.reshape(-1, dw)
+    tiles = tiles.reshape(-1, 5)
     if not (ks.shape[0] == imeta.shape[0] == dmeta.shape[0]):
         raise ValueError("ks, imeta and the scatter metadata need one row each "
                          f"({ks.shape[0]}, {imeta.shape[0]}, {dmeta.shape[0]})")
-    return ks, imeta, dmeta
+    return ks, imeta, dmeta, tiles
 
 
-def sweep_d5512_scatter(dst, combined, xt, yt, ks, imeta, dmeta, inv_scale,
-                        off_grid, bucket: int, mode: int, n_pad: int = 0,
-                        m: int = 0) -> torch.Tensor:
+def check_output_lattice(xt, yt, imeta, n2f: int) -> None:
+    """
+    Raise ValueError unless every live B row (nval > 0) pairs with an exact
+    output lattice: w2 == n2f**2, and from its i2_start on, the tables hold
+    xt[i2_start + p] == xt[i2_start] + p % n2f and yt[i2_start + p] ==
+    yt[i2_start] + p // n2f for p < n2f**2.  Host numpy, on the plan.
+    """
+    m = n2f * n2f
+    xt, yt = np.asarray(xt), np.asarray(yt)
+    im = np.asarray(imeta, np.int64).reshape(-1, 5)
+    live = im[im[:, 4] > 0]
+    starts = np.unique(live[:, 1])
+    ok = bool(np.all(live[:, 2] == m) and np.all(starts >= 0)
+              and np.all(starts + m <= len(xt)))
+    if ok:
+        p = np.arange(m)
+        idx = starts[:, None] + p
+        ok = (np.array_equal(xt[idx], xt[starts][:, None] + p % n2f)
+              and np.array_equal(yt[idx], yt[starts][:, None] + p // n2f))
+    if not ok:
+        raise ValueError(_LATTICE_ERROR.format(n2f=n2f))
+
+
+def _l2_counter(device: torch.device) -> torch.Tensor:
+    c = _l2_counters.get(device)
+    if c is None:
+        c = _l2_counters[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return c
+
+
+_l2_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def l2_tiles(device) -> int:
+    """Pool tiles that K2 interpolated from L2 (their window outgrew shared
+    memory) on `device` since the last :func:`reset_l2_tiles`."""
+    return int(_l2_counter(torch.device(device)).item())
+
+
+def reset_l2_tiles() -> None:
+    for c in _l2_counters.values():
+        c.zero_()
+
+
+def sweep_d5512_scatter(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scale,
+                        off_grid, mode: int, n_pad: int = 0,
+                        n2f: int = 0) -> torch.Tensor:
     """
     K2: add the interpolated overlap value of every query into `dst` (in
     place; returned).
 
-    dst (P,) f64; combined (K, ny, nx) f64; xt, yt (L,) f64; ks (..., ) int32
-    image per row; imeta (..., 5) int32 rows [i1_start, i2_start, w2, off,
-    nval]; dmeta (..., 5) pool rows [dst_base0, w2, stride, off, nval] in
-    mode 0, or (..., 4) B rows [dst_base, col0, off, nval] in mode 1.  Query
-    j < bucket of a row sits at f = off + j.
+    dst (P,) f64; combined (K, ny, nx) f64; xt, yt (L,) f64; ks (..., )
+    int32 image per row; imeta (..., 5) int32 rows [i1_start, i2_start, w2,
+    off, nval]; dmeta (..., 5) pool rows [dst_base0, w2, stride, off, nval]
+    in mode 0, or (..., 4) B rows [dst_base, col0, off, nval] in mode 1;
+    tiles (T, 5) int32 from :func:`sweep_tiles`.  Query j < nval of a row
+    sits at f = off + j.  Mode 1 needs the output lattice's n2f and n_pad,
+    and takes output pixel p of a row at (xt[i2_start] + p % n2f,
+    yt[i2_start] + p // n2f): its tiles come from :func:`sweep_tiles`, which
+    raises unless the tables hold that lattice.  The kernel adds with f64
+    atomics, in no fixed order: where no destination receives two queries
+    (as on the coadd's path) its result does not depend on it.
     """
     dev = dst.device
-    ks, imeta, dmeta = _sweep_args(ks, imeta, dmeta, mode, n_pad, m)
+    ks, imeta, dmeta, tiles = _sweep_args(ks, imeta, dmeta, tiles, mode, n_pad, n2f)
     _check(dst, "dst", torch.float64, dev, 1)
     _check(combined, "combined", torch.float64, dev, 3)
     _check(xt, "xt", torch.float64, dev, 1)
     _check(yt, "yt", torch.float64, dev, 1)
-    _check(ks, "ks", torch.int32, dev, 1)
-    _check(imeta, "imeta", torch.int32, dev, 2)
-    _check(dmeta, "dmeta", torch.int32, dev, 2)
+    for name, t in (("ks", ks), ("imeta", imeta), ("dmeta", dmeta), ("tiles", tiles)):
+        _check(t, name, torch.int32, dev, t.dim())
     if yt.shape != xt.shape:
         raise ValueError("xt and yt must have one length")
+    if max(dst.shape[0], xt.shape[0], combined.numel()) >= 2 ** 31:
+        raise ValueError("K2 indexes with int32: dst, the tables and the stack "
+                         "must hold fewer than 2**31 entries")
+    wmax = 0
+    if mode == 1:
+        wmax = b_window(n2f, inv_scale)
+        smem = 8 * (20 * n2f + wmax * n2f + wmax * wmax) + 8 * n2f
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"B mode: n2f {n2f} at {inv_scale} samples per output "
+                             f"pixel needs {smem} bytes of shared memory a block")
+    if tiles.shape[0] == 0:
+        return dst
     K, ny, nx = combined.shape
-    _launch("sweep_d5512_scatter", dev, dst.data_ptr(), dst.shape[0],
+    _launch("sweep_d5512_scatter", SWEEP_KERNELS[mode], dev, dst.data_ptr(), dst.shape[0],
             combined.data_ptr(), K, ny, nx, xt.data_ptr(), yt.data_ptr(),
             xt.shape[0], ks.data_ptr(), imeta.data_ptr(), dmeta.data_ptr(),
-            ks.shape[0], int(bucket), float(inv_scale), float(off_grid),
-            mode, int(n_pad), int(m))
+            tiles.data_ptr(), tiles.shape[0], float(inv_scale), float(off_grid),
+            mode, int(n_pad), int(n2f), wmax, _l2_counter(dev).data_ptr())
     return dst
 
 
-def sweep_d5512_scatter_plain(dst, combined, xt, yt, ks, imeta, dmeta,
-                              inv_scale, off_grid, bucket: int, mode: int,
-                              n_pad: int = 0, m: int = 0) -> torch.Tensor:
-    """Plain version of K2 (same function, any device); updates dst in place."""
-    ks, imeta, dmeta = _sweep_args(ks, imeta, dmeta, mode, n_pad, m)
+def sweep_d5512_scatter_plain(dst, combined, xt, yt, ks, imeta, dmeta, tiles,
+                              inv_scale, off_grid, mode: int, n_pad: int = 0,
+                              n2f: int = 0) -> torch.Tensor:
+    """Plain version of K2 (same function and arguments, any device): the
+    queries of every tile, interpolated and added with ``index_add_``;
+    updates dst in place."""
+    ks, imeta, dmeta, tiles = _sweep_args(ks, imeta, dmeta, tiles, mode, n_pad, n2f)
     dev = dst.device
-    ks, imeta, dmeta = ks.long(), imeta.long(), dmeta.long()
+    ks, imeta, dmeta, tiles = ks.long(), imeta.long(), dmeta.long(), tiles.long()
     K = combined.shape[0]
     L = xt.shape[0]
-    j = torch.arange(bucket, device=dev)[None, :]
-    step = max(1, (1 << 16) // max(bucket, 1))
-    for r0 in range(0, ks.shape[0], step):
-        im, dm, kr = imeta[r0:r0 + step], dmeta[r0:r0 + step], ks[r0:r0 + step]
+    m = n2f * n2f
+    nq = tiles[:, 3] * tiles[:, 4]
+    width = int(nq.max()) if len(nq) else 0
+    q = torch.arange(width, device=dev)[None, :]
+    step = max(1, (1 << 16) // max(width, 1))
+    for t0 in range(0, tiles.shape[0], step):
+        tl = tiles[t0:t0 + step]
+        r = tl[:, 0]
+        im, dm = imeta[r], dmeta[r]
+        nv = tl[:, 4:5].clamp(min=1)
+        w2 = im[:, 2:3].clamp(min=1) if mode == 0 else torch.full_like(nv, m)
+        f = (tl[:, 1:2] + q // nv) * w2 + tl[:, 2:3] + q % nv
+        j = f - im[:, 3:4]
+        ok = (q < nq[t0:t0 + step, None]) & (j >= 0) & (j < im[:, 4:5])
         if mode == 0:
-            fd = dm[:, 3:4] + j
+            g = dm[:, 3:4] + j
             w2d = dm[:, 1:2].clamp(min=1)
-            d = dm[:, 0:1] + (fd // w2d) * dm[:, 2:3] + fd % w2d
-            ok = j < dm[:, 4:5]
+            d = dm[:, 0:1] + (g // w2d) * dm[:, 2:3] + g % w2d
+            ok &= j < dm[:, 4:5]
         else:
-            fd = dm[:, 2:3] + j
-            d = dm[:, 0:1] + (fd % m) * n_pad + dm[:, 1:2] + fd // m
-            ok = j < dm[:, 3:4]
-        f = im[:, 3:4] + j
-        w2 = im[:, 2:3].clamp(min=1)
-        i1 = im[:, 0:1] + f // w2
-        i2 = im[:, 1:2] + f % w2
-        k = kr[:, None].expand_as(f)
-        ok = (ok & (j < im[:, 4:5]) & (d >= 0) & (d < dst.shape[0])
-              & (k >= 0) & (k < K) & (i1 >= 0) & (i1 < L) & (i2 >= 0) & (i2 < L))
-        i1, i2, k, d = (t[ok] for t in (i1, i2, k, d))
-        qx = (xt[i1] - xt[i2]) * inv_scale + off_grid
-        qy = (yt[i1] - yt[i2]) * inv_scale + off_grid
+            g = dm[:, 2:3] + j
+            d = dm[:, 0:1] + (g % m) * n_pad + dm[:, 1:2] + g // m
+            ok &= j < dm[:, 3:4]
+        i1, v = im[:, 0:1] + f // w2, f % w2
+        i2 = im[:, 1:2] + v
+        k = ks[r][:, None].expand_as(f)
+        ok = (ok & (d >= 0) & (d < dst.shape[0]) & (k >= 0) & (k < K)
+              & (i1 >= 0) & (i1 < L) & (i2 >= 0) & (i2 < L))
+        if mode == 1:
+            # B: the row's whole lattice lies inside the tables
+            ok &= (im[:, 1:2] >= 0) & (im[:, 1:2] + m <= L)
+        i1, i2, v, k, d = (t[ok] for t in (i1, i2, v, k, d))
+        if mode == 0:
+            x2, y2 = xt[i2], yt[i2]
+        else:
+            # output pixel v of the lattice at i2_start, formed as the kernel does
+            i2s = i2 - v
+            x2, y2 = xt[i2s] + v % n2f, yt[i2s] + v // n2f
+        qx = (xt[i1] - x2) * inv_scale + off_grid
+        qy = (yt[i1] - y2) * inv_scale + off_grid
         dst.index_add_(0, d, _interp.interp2d_stack(combined, qx, qy, k))
     return dst

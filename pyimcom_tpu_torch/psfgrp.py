@@ -18,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pyimcom_tpu.config import Settings as Stn
-
+from .config import Settings as Stn
 from .device import DTYPE
 from .ops.fourier import (apply_amp_penalty, overlap_from_rft, pad_and_rfft2,
                           zero_lag_from_rft)
@@ -28,9 +27,9 @@ from .ops.interp import check_kern, grid_interp, interp2d_dense
 INTERP_PAD = 6  # guard pixels for the 10x10 interpolation kernel
 
 # query-count buckets of the sweep and the rectangle batch the JAX package
-# sized for each; the port launches all rows of a bucket at once, and the
-# batch sizes remain the main path's kernel shapes (R x Nq = 128 x 1024,
-# 64 x 4096, 32 x 16384)
+# sized for each; the port cuts every sweep rectangle into rows of at most
+# the largest bucket, as the JAX package does, and K2 takes all rows of one
+# kind in one launch
 _DENSE_BUCKETS = (1024, 4096, 16384)
 _DENSE_RBATCH_BY_BUCKET = {1024: 128, 4096: 64, 16384: 32}
 

@@ -7,6 +7,11 @@ placements (constant addend, A assembly) to 1e-14; the solve + coadd maps to
 1e-6 of their scale (float32 output rounding), and U/C to 1e-12 absolute.
 The acceptance distances agree to 1e-15 relative (torch's and NumPy's
 hypot differ in the last ulp) and the relevance mask exactly.
+
+K2's host side -- its thread-block tiles, the output lattice its B mode
+assumes (checked where the tiles are made), and the uniqueness of the destinations that makes its result
+independent of the order of its adds -- is checked on the plan of the bench
+block's first 2x2 group.
 """
 
 import jax.numpy as jnp
@@ -16,7 +21,7 @@ import torch
 
 from pyimcom_tpu.ops import assemble as ref
 from pyimcom_tpu_torch.convert import from_numpy
-from pyimcom_tpu_torch.ops import assemble, interp_cuda
+from pyimcom_tpu_torch.ops import assemble, interp, interp_cuda
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -48,6 +53,9 @@ def sweep_case():
             for off in range(0, w1 * w2, bucket)]
     rows += [(4, 200, 300, m, off, min(bucket, 6 * m - off), 0, 3, 1)
              for off in range(0, 6 * m, bucket)]
+    # the B rows' i2 entries are an output grid: a 5 x 5 integer lattice
+    p = np.arange(m)
+    xt[300:300 + m], yt[300:300 + m] = 10.0 + p % 5, 11.0 + p // 5
     for j, (kg_, i1_, i2_, w2_, off, nval, a_, b_, kind) in enumerate(rows):
         nb, r = divmod(j, R)
         ks[nb, r] = kg_
@@ -58,7 +66,7 @@ def sweep_case():
             im_b[nb, r] = (i1_, i2_, w2_, off, nval)
             bmeta[nb, r] = (a_, b_, off, nval)
     return dict(combined=combined, xt=xt, yt=yt, ks=ks, im_p=im_p, im_b=im_b,
-                pmeta=pmeta, bmeta=bmeta, bucket=bucket, m=m, n_pad=n_pad,
+                pmeta=pmeta, bmeta=bmeta, bucket=bucket, m=m, n2f=5, n_pad=n_pad,
                 inv_scale=2.0, off_grid=32.0, P=512)
 
 
@@ -73,8 +81,9 @@ def test_sweep_pool_matches_reference(sweep_case):
     got = assemble.sweep_pool(
         torch.zeros(c["P"], dtype=torch.float64), _t(c["combined"]), _t(c["xt"]),
         _t(c["yt"]), _t(c["ks"]), _t(c["im_p"]), _t(c["pmeta"]),
-        c["inv_scale"], c["off_grid"], c["bucket"]).numpy()
-    assert interp_cuda.launches["sweep_d5512_scatter"] == 0   # CPU: plain
+        _t(interp_cuda.sweep_tiles(c["im_p"], 0)), c["inv_scale"],
+        c["off_grid"]).numpy()
+    assert interp_cuda.launches["sweep_d5512_scatter.pool"] == 0   # CPU: plain
     assert np.count_nonzero(want) > 50
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
@@ -90,7 +99,8 @@ def test_sweep_b_matches_reference(sweep_case):
     got = assemble.sweep_b(
         torch.zeros(nB, dtype=torch.float64), _t(c["combined"]), _t(c["xt"]),
         _t(c["yt"]), _t(c["ks"]), _t(c["im_b"]), _t(c["bmeta"]),
-        c["inv_scale"], c["off_grid"], c["n_pad"], c["m"], c["bucket"]).numpy()
+        _t(interp_cuda.sweep_tiles(c["im_b"], 1, c["xt"], c["yt"], c["n2f"])),
+        c["inv_scale"], c["off_grid"], c["n_pad"], c["n2f"]).numpy()
     assert np.count_nonzero(want) > 50
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
@@ -228,3 +238,197 @@ def test_relevance_mask_matches_reference():
             out_y[s][:, None] - in_y[s][None, :n], out_x[s][:, None] - in_x[s][None, :n]),
             rtol=1e-15, atol=0)
     assert got.any() and not got[:, :, n:].any()
+
+
+# --------------------------------------------------------------------------
+# K2's host side on a real plan
+# --------------------------------------------------------------------------
+
+def _sweep_by_rows(dst, combined, xt, yt, ks, imeta, dmeta, inv_scale, off_grid,
+                   mode, n_pad=0, m=0):
+    """The sweep as the rows alone define it, query j < nval of each row at
+    f = off + j (the plain K2 before it took tiles): the yardstick for the
+    tiles."""
+    ks, imeta, dmeta = ks.long(), imeta.long(), dmeta.long()
+    bucket = int(imeta[:, 4].max())
+    j = torch.arange(bucket)[None, :]
+    if mode == 0:
+        g = dmeta[:, 3:4] + j
+        w2d = dmeta[:, 1:2].clamp(min=1)
+        d = dmeta[:, 0:1] + (g // w2d) * dmeta[:, 2:3] + g % w2d
+        ok = j < dmeta[:, 4:5]
+    else:
+        g = dmeta[:, 2:3] + j
+        d = dmeta[:, 0:1] + (g % m) * n_pad + dmeta[:, 1:2] + g // m
+        ok = j < dmeta[:, 3:4]
+    f = imeta[:, 3:4] + j
+    w2 = imeta[:, 2:3].clamp(min=1)
+    i1, i2 = imeta[:, 0:1] + f // w2, imeta[:, 1:2] + f % w2
+    k = ks[:, None].expand_as(f)
+    ok &= (j < imeta[:, 4:5]) & (d >= 0) & (d < dst.shape[0])
+    i1, i2, k, d = (t[ok] for t in (i1, i2, k, d))
+    qx = (xt[i1] - xt[i2]) * inv_scale + off_grid
+    qy = (yt[i1] - yt[i2]) * inv_scale + off_grid
+    return dst.index_add_(0, d, interp.interp2d_stack(combined, qx, qy, k))
+
+
+def _destinations(imeta, dmeta, mode, n_pad=0, m=0, chunk=128):
+    """Every destination of every query of the rows, as int64."""
+    out = []
+    for r0 in range(0, len(imeta), chunk):
+        im, dm = imeta[r0:r0 + chunk].astype(np.int64), dmeta[r0:r0 + chunk].astype(np.int64)
+        j = np.arange(int(im[:, 4].max()))[None, :]
+        ok = (j < im[:, 4:5]) & (j < dm[:, -1:])
+        if mode == 0:
+            g = dm[:, 3:4] + j
+            d = dm[:, 0:1] + (g // dm[:, 1:2]) * dm[:, 2:3] + g % dm[:, 1:2]
+        else:
+            g = dm[:, 2:3] + j
+            d = dm[:, 0:1] + (g % m) * n_pad + dm[:, 1:2] + g // m
+        out.append(d[ok])
+    return np.concatenate(out)
+
+
+@pytest.fixture(scope="module")
+def bench_plan(tmp_path_factory):
+    """The sweep plan of the first 2x2 group of the bench block
+    (BASELINE.json configs[0], the survey of chip_smoke.py's bench block).
+    The plan depends on the geometry alone, so the survey carries only its
+    science layer."""
+    from survey_fixture_torch import build_survey
+
+    from pyimcom_tpu_torch.coadd import Block
+    from pyimcom_tpu_torch.config import Config
+    from pyimcom_tpu_torch.psfgrp import INTERP_PAD
+
+    class Planned(Exception):
+        pass
+
+    class FirstPlan(Block):
+        def _plan_group(self, infos, n_pad):
+            plan = super()._plan_group(infos, n_pad)
+            raise Planned(dict(plan, n_pad=n_pad, S=len(infos), n2f=self.cfg.n2f,
+                               n_out=self.cfg.n_out, inv_scale=1.0 / self.geom.dscale,
+                               off_grid=self.geom.nc_ovl + INTERP_PAD))
+
+    cfg = build_survey(tmp_path_factory.mktemp("bench"), n_obs=8, extrainput=[])
+    with pytest.raises(Planned) as got:
+        FirstPlan(cfg=Config(cfg), this_sub=1, device="cpu")
+    plan = got.value.args[0]
+    plan["rows"] = {mode: rest for mode, *rest in plan["sweep_rows"]}
+    assert sorted(plan["rows"]) == [0, 1]
+    return plan
+
+
+def test_bench_plan_destinations_are_unique(bench_plan):
+    """No two queries of a group land on one pool or -B/2 entry, so K2's
+    result does not depend on the order of its adds (a plain add would do;
+    the kernel keeps its atomics for speed, csrc/interp_d5512.cu)."""
+    p = bench_plan
+    m = p["n2f"] ** 2
+    sizes = {0: p["pool_size"], 1: p["S"] * p["n_out"] * m * p["n_pad"]}
+    for mode, (ks, imeta, dmeta, tiles) in p["rows"].items():
+        d = _destinations(imeta, dmeta, mode, p["n_pad"], m)
+        assert len(d) == int(imeta[:, 4].sum()) > 0
+        assert d.min() >= 0 and d.max() < sizes[mode]
+        d.sort()
+        assert np.all(d[1:] != d[:-1]), f"mode {mode}: a destination receives two queries"
+
+
+def test_bench_plan_tiles_cover_every_query_once(bench_plan):
+    """Over all rows of the group, each mode's tiles hold as many queries as
+    the rows; that they hold each query once is checked value by value in
+    test_bench_plan_tiles_match_rows."""
+    for mode, (ks, imeta, dmeta, tiles) in bench_plan["rows"].items():
+        im = imeta.astype(np.int64)[tiles[:, 0]]
+        t = tiles.astype(np.int64)
+        # queries of tile i1 entry u: v in [v0, v0 + nv) with off <= u w2 + v < off + nval
+        u = t[:, 1:2] + np.arange(int(t[:, 3].max()))[None, :]
+        live = u < t[:, 1:2] + t[:, 3:4]
+        lo = np.maximum(t[:, 2:3], im[:, 3:4] - u * im[:, 2:3])
+        hi = np.minimum(t[:, 2:3] + t[:, 4:5], im[:, 3:4] + im[:, 4:5] - u * im[:, 2:3])
+        assert int((np.maximum(hi - lo, 0) * live).sum()) == int(imeta[:, 4].sum())
+        if mode == 0:
+            assert (t[:, 3] * t[:, 4]).max() <= interp_cuda.TILE_QUERIES
+        else:
+            assert np.all(t[:, 3] == 1)
+
+
+@pytest.mark.parametrize("mode", [0, 1], ids=["pool", "B"])
+def test_bench_plan_tiles_match_rows(bench_plan, mode):
+    """The tiles fed to the plain K2 give the same pool / -B/2 as the rows
+    alone (every 25th row of the group, seeded overlap images of the real
+    size) to 1e-15 of scale."""
+    p = bench_plan
+    ks, imeta, dmeta, _tiles = p["rows"][mode]
+    sub = np.arange(0, len(ks), 25)
+    used, kmap = np.unique(ks[sub], return_inverse=True)
+    ks, imeta, dmeta = kmap.astype(np.int32), imeta[sub], dmeta[sub]
+    ny, nx = p["stacks"][0].shape[1:]
+    combined = np.random.default_rng(8).normal(size=(len(used), ny, nx))
+    m = p["n2f"] ** 2
+    size = p["pool_size"] if mode == 0 else p["S"] * p["n_out"] * m * p["n_pad"]
+    xt, yt = _t(p["xt"]), _t(p["yt"])
+    want = _sweep_by_rows(torch.zeros(size, dtype=torch.float64), _t(combined), xt, yt,
+                          _t(ks), _t(imeta), _t(dmeta), p["inv_scale"], p["off_grid"],
+                          mode, p["n_pad"], m)
+    got = interp_cuda.sweep_d5512_scatter_plain(
+        torch.zeros(size, dtype=torch.float64), _t(combined), xt, yt, _t(ks), _t(imeta),
+        _t(dmeta), _t(interp_cuda.sweep_tiles(imeta, mode, p["xt"], p["yt"], p["n2f"])),
+        p["inv_scale"], p["off_grid"], mode, p["n_pad"], p["n2f"])
+    assert int((want != 0).sum()) > 0.5 * int(imeta[:, 4].sum())
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-15 * scale)
+
+
+def test_bench_plan_output_grids_are_lattices(bench_plan):
+    """The B rows' output coordinates are the exact integer lattice that K2's
+    B mode computes them from.  Moving one output pixel by 1e-9, a wrong
+    n2f, a w2 other than n2f**2 or a lattice that leaves the tables makes
+    the check, and with it the planning of the B tiles, raise."""
+    p = bench_plan
+    _ks, imeta, _dmeta, tiles = p["rows"][1]
+    xt, yt, n2f = p["xt"], p["yt"], p["n2f"]
+    interp_cuda.check_output_lattice(xt, yt, imeta, n2f)
+    np.testing.assert_array_equal(interp_cuda.sweep_tiles(imeta, 1, xt, yt, n2f), tiles)
+    bad = xt.copy()
+    bad[int(imeta[0, 1]) + n2f + 3] += 1e-9
+    w2 = imeta.copy()
+    w2[:, 2] -= 1
+    past = imeta.copy()
+    past[-1, 1] = len(xt) - n2f
+    for args, what in (((bad, yt, imeta, n2f), "lattice"), ((xt, yt, imeta, n2f - 1), "n2f"),
+                       ((xt, yt, w2, n2f), "w2"), ((xt, yt, past, n2f), "tables")):
+        with pytest.raises(ValueError, match=what):
+            interp_cuda.check_output_lattice(*args)
+        with pytest.raises(ValueError, match=what):
+            interp_cuda.sweep_tiles(args[2], 1, args[0], args[1], args[3])
+    with pytest.raises(ValueError, match="tables"):
+        interp_cuda.sweep_tiles(imeta, 1)
+
+
+@pytest.mark.parametrize("mode", [0, 1], ids=["pool", "B"])
+def test_sweep_tiles_partition_odd_rows(mode):
+    """Tiles of rows with odd offsets, partial i1 entries, narrow and empty
+    rectangles hold every query once."""
+    rng = np.random.default_rng(11 + mode)
+    rows = 40
+    n2f = 7
+    w2 = np.full(rows, n2f * n2f) if mode else rng.integers(1, 90, rows)
+    off = rng.integers(0, 300, rows)
+    nval = rng.integers(0, 2000, rows)
+    nval[::7] = 0
+    imeta = np.stack([np.zeros(rows), np.zeros(rows), w2, off, nval], 1).astype(np.int32)
+    lattice = np.arange(n2f * n2f)        # the B rows' output grid at i2_start 0
+    tiles = interp_cuda.sweep_tiles(imeta, mode, lattice % n2f, lattice // n2f, n2f)
+    seen = []
+    for r, u0, v0, nu, nv in tiles.astype(np.int64):
+        u, v = np.meshgrid(np.arange(u0, u0 + nu), np.arange(v0, v0 + nv), indexing="ij")
+        f = (u * w2[r] + v).ravel()
+        f = f[(f >= off[r]) & (f < off[r] + nval[r])]
+        assert np.all(v < w2[r])
+        seen.append(r * 10 ** 6 + f)
+    seen = np.sort(np.concatenate(seen))
+    want = np.sort(np.concatenate([r * 10 ** 6 + np.arange(off[r], off[r] + nval[r])
+                                   for r in range(rows)]))
+    np.testing.assert_array_equal(seen, want)

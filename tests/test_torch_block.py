@@ -107,7 +107,8 @@ def test_block_matches_reference(small_survey, monkeypatch):
     blk = Block(cfg=cfg, this_sub=1, device="cpu")
     # on the CPU every interpolation takes the kernels' plain versions
     assert interp_cuda.launches == {"interp_d5512_dense": 0,
-                                    "sweep_d5512_scatter": 0}
+                                    "sweep_d5512_scatter.pool": 0,
+                                    "sweep_d5512_scatter.B": 0}
     times = blk.phase_times()
     assert times["stamp.sweep"]["calls"] == 1
     assert times["stamp.sweep"]["device_ms"] is None

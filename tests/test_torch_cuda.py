@@ -49,25 +49,30 @@ def test_k1_matches_plain_and_counts_launches(cuda):
     assert torch.equal(got == 0, want == 0)
 
 
-@pytest.mark.parametrize("mode", [0, 1], ids=["pool", "B"])
-def test_k2_matches_plain(cuda, mode):
+def _k2_case(cuda, mode, spread):
+    """Seeded K2 rows with odd offsets and a padded row: pool rows, or B rows
+    on a 6 x 6 output lattice at table entry 400.  Returns (dst size, the
+    wrapper's arguments after dst, the tiles, nval)."""
     rng = np.random.default_rng(1 + mode)
-    K, ns, L, rows, bucket = 4, 75, 500, 6, 1024
-    m, n_pad = 37, 200
+    K, ns, L, rows, nmax = 4, 231, 500, 6, 1024
+    n2f, n_pad = 6, 200
+    m = n2f * n2f
     combined = torch.as_tensor(rng.normal(size=(K, ns, ns)), device=cuda)
-    xt = torch.as_tensor(rng.uniform(0, 20, L), device=cuda)
-    yt = torch.as_tensor(rng.uniform(0, 20, L), device=cuda)
+    xt_np, yt_np = rng.uniform(0, spread, L), rng.uniform(0, spread, L)
+    p = np.arange(m)
+    xt_np[400:400 + m], yt_np[400:400 + m] = 8.0 + p % n2f, 9.0 + p // n2f
+    xt, yt = torch.as_tensor(xt_np, device=cuda), torch.as_tensor(yt_np, device=cuda)
     ks = rng.integers(0, K, rows)
     w2 = np.full(rows, m) if mode else rng.integers(5, 60, rows)
-    nval = rng.integers(bucket // 2, bucket + 1, rows)
+    nval = rng.integers(nmax // 2, nmax + 1, rows)
     nval[-1] = 0                                # a padded row
     off = rng.integers(0, 50, rows)
-    imeta = np.stack([rng.integers(0, 100, rows), rng.integers(0, 100, rows),
-                      w2, off, nval], 1)
+    i2 = np.full(rows, 400) if mode else rng.integers(0, 100, rows)
+    imeta = np.stack([rng.integers(0, 100, rows), i2, w2, off, nval], 1)
     if mode == 0:
-        base = np.arange(rows) * 4 * bucket
+        base = np.arange(rows) * 4 * nmax
         dmeta = np.stack([base, w2, w2 + 3, off, nval], 1)
-        size = rows * 4 * bucket
+        size = rows * 4 * nmax
     else:
         dmeta = np.stack([np.zeros(rows, int), np.arange(rows) * 30, off, nval], 1)
         size = m * n_pad
@@ -75,14 +80,55 @@ def test_k2_matches_plain(cuda, mode):
     def put(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=cuda)
 
-    args = (combined, xt, yt, put(ks), put(imeta), put(dmeta), 1.7, 37.0, bucket,
-            mode, n_pad, m)
+    tiles = interp_cuda.sweep_tiles(imeta, mode, xt_np, yt_np, n2f)
+    args = (combined, xt, yt, put(ks), put(imeta), put(dmeta), put(tiles),
+            1.0 if spread > 100 else 1.7, 115.0, mode, n_pad, n2f)
+    return size, args, tiles, nval
+
+
+@pytest.mark.parametrize("mode, spread", [(0, 20.0), (0, 120.0), (1, 20.0)],
+                         ids=["pool", "pool-l2", "B"])
+def test_k2_matches_plain(cuda, mode, spread):
+    """K2 against its plain version: pool tiles staged in shared memory, pool
+    tiles whose window outgrows it (coordinates spread over 120 pixels:
+    such tiles read from L2 and are counted), and B rows on an output
+    lattice, with odd offsets and a padded row."""
+    size, args, tiles, nval = _k2_case(cuda, mode, spread)
+    interp_cuda.reset_launch_counts()
+    interp_cuda.reset_l2_tiles()
     got = interp_cuda.sweep_d5512_scatter(
         torch.zeros(size, dtype=torch.float64, device=cuda), *args)
+    assert interp_cuda.launches[interp_cuda.SWEEP_KERNELS[mode]] == 1
+    l2 = interp_cuda.l2_tiles(cuda)
     want = interp_cuda.sweep_d5512_scatter_plain(
         torch.zeros(size, dtype=torch.float64, device=cuda), *args)
-    assert int((want != 0).sum()) > rows * bucket // 4
+    assert interp_cuda.launches[interp_cuda.SWEEP_KERNELS[mode]] == 1
+    assert int((want != 0).sum()) > int(nval.sum()) // 2
     assert _rel(got, want) < TOL
+    assert (0 < l2 <= len(tiles)) if spread > 100 else (l2 == 0), (l2, len(tiles))
+
+
+def test_k2_raises_on_what_it_cannot_take(cuda):
+    """No fallback: a wrong dtype, a non-contiguous stack and a CPU tensor
+    raise on the card (a B plan off the lattice raises where its tiles are
+    made, tests/test_torch_assemble.py); a good plan after a bad one runs."""
+    size, args, _tiles, _nval = _k2_case(cuda, 1, 20.0)
+    combined, xt, yt, ks, imeta, dmeta, tiles, *rest = args
+
+    def sweep(**over):
+        a = dict(combined=combined, xt=xt, yt=yt, imeta=imeta)
+        a.update(over)
+        return interp_cuda.sweep_d5512_scatter(
+            torch.zeros(size, dtype=torch.float64, device=cuda), a["combined"], a["xt"],
+            a["yt"], ks, a["imeta"], dmeta, tiles, *rest)
+
+    with pytest.raises(ValueError, match="CUDA"):
+        sweep(xt=xt.cpu())
+    with pytest.raises(TypeError):
+        sweep(combined=combined.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        sweep(combined=combined.transpose(1, 2))
+    assert float(sweep().abs().max()) > 0
 
 
 def test_wrappers_reject_bad_inputs_on_the_card(cuda):

@@ -1,0 +1,313 @@
+"""The port's copies of the JAX package's host modules against their originals.
+
+pyimcom_tpu_torch keeps its own copy of every jax-free host module it uses
+(config, fitsio, wcsutil, sphere, asdfio, profiling, ops/psfmodels,
+utils/moments and layer's helpers in layer_host).  Each case runs the copy
+and the original on the same seeded inputs: configurations, FITS files,
+WCS transforms and every helper must agree exactly (bit for bit, or equal
+objects), since the copies are the same code.
+"""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import pyimcom_tpu.asdfio as ref_asdfio
+import pyimcom_tpu.config as ref_config
+import pyimcom_tpu.fitsio as ref_fitsio
+import pyimcom_tpu.layer as ref_layer
+import pyimcom_tpu.ops.psfmodels as ref_psfmodels
+import pyimcom_tpu.profiling as ref_profiling
+import pyimcom_tpu.sphere as ref_sphere
+import pyimcom_tpu.utils.moments as ref_moments
+import pyimcom_tpu.wcsutil as ref_wcsutil
+from pyimcom_tpu_torch import asdfio, config, fitsio, layer_host, profiling, sphere, wcsutil
+from pyimcom_tpu_torch.ops import psfmodels
+from pyimcom_tpu_torch.utils import moments
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
+
+
+def _same(a, b):
+    """Equal values: arrays element for element (NaN where NaN), nested
+    containers item by item, everything else with ==."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+            a, b, equal_nan=a.dtype.kind in "fc")
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b or (a != a and b != b)
+
+
+# --------------------------------------------------------------------------
+# config
+# --------------------------------------------------------------------------
+
+def _bench_cfg(tmp_path):
+    from survey_fixture_torch import CONFIG_TEMPLATE
+
+    d = {k: (v.replace("$DIR", str(tmp_path)) if isinstance(v, str) else
+             [x.replace("$DIR", str(tmp_path)) if isinstance(x, str) else x for x in v]
+             if isinstance(v, list) else v) for k, v in CONFIG_TEMPLATE.items()}
+    return dict(d, EXTRAINPUT=["cstar14"])
+
+
+CONFIGS = {
+    # the bench survey's cfg.json (BASELINE.json configs[0])
+    "bench": lambda tmp: _bench_cfg(tmp),
+    # the production group's overrides
+    "production": lambda tmp: dict(_bench_cfg(tmp), OUTSIZE=[80, 32, 0.0390625],
+                                   INPAD=1.055, NPIXPSF=48, STOP=4),
+    # Eigen with a kappa sweep (BASELINE.json configs[1])
+    "eigen": lambda tmp: dict(_bench_cfg(tmp), LAKERNEL="Eigen",
+                              KAPPAC=[5e-4, 1e-3, 2e-3]),
+    # the production defaults, read from their file
+    "default_file": lambda tmp: str(REPO / "configs" / "default_config.json"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_config_derived_attributes_match(name, tmp_path):
+    src = CONFIGS[name](tmp_path)
+    if isinstance(src, dict):
+        path = tmp_path / "cfg.json"
+        path.write_text(json.dumps(src))
+        src = str(path)
+    a, b = ref_config.Config(src), config.Config(src)
+    assert vars(a).keys() == vars(b).keys()
+    for k in vars(a):
+        assert _same(vars(a)[k], vars(b)[k]), k
+    assert _same(a.to_dict(), b.to_dict())
+    assert a.to_file(None) == b.to_file(None)
+
+
+def test_settings_and_fpa_coords_match():
+    names = [k for k in vars(ref_config.Settings) if not k.startswith("_")
+             and not callable(getattr(ref_config.Settings, k))]
+    assert names
+    for k in names:
+        assert _same(getattr(ref_config.Settings, k), getattr(config.Settings, k)), k
+    rng = np.random.default_rng(0)
+    x, y = rng.uniform(0, 4088, (2, 50))
+    for sca in (1, 9, 18):
+        assert _same(ref_config.fpaCoords.pix2fpa(sca, x, y),
+                     config.fpaCoords.pix2fpa(sca, x, y))
+
+
+# --------------------------------------------------------------------------
+# FITS
+# --------------------------------------------------------------------------
+
+def _hdus(mod, rng):
+    hdr = mod.Header({"EXPTIME": 139.8, "FILTER": "F184", "GOODVAL": 0, "FLAG": True})
+    return mod.HDUList([
+        mod.ImageHDU(rng.normal(size=(7, 9)).astype(np.float32), header=hdr),
+        mod.ImageHDU(rng.normal(size=(3, 4, 5)), name="CUBE"),
+        mod.ImageHDU(rng.integers(-300, 300, (6, 6)).astype(np.int16), name="I16"),
+        mod.TableHDU({"ra": rng.normal(size=5), "n": np.arange(5, dtype=np.int32),
+                      "f": np.array(["F184", "H158", "F184", "J129", "Y106"])}, name="OBS"),
+        mod.TableHDU({"text": np.array(["{", '"A": 1', "}"])}, name="CONFIG",
+                     ascii_table=True),
+    ])
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_fits_written_by_one_package_reads_the_same_in_the_other(writer, tmp_path):
+    w, r = (ref_fitsio, fitsio) if writer == "ref" else (fitsio, ref_fitsio)
+    path = tmp_path / "x.fits"
+    w.fits_write(path, _hdus(w, np.random.default_rng(1)))
+    got, want = r.fits_read(path), w.fits_read(path)
+    assert len(got) == len(want) == 5
+    for g, h in zip(got, want):
+        assert dict(g.header) == dict(h.header)
+        if g.is_table:
+            assert g.names == h.names
+            for col in g.names:
+                assert _same(np.asarray(g[col]), np.asarray(h[col])), col
+        else:
+            assert _same(np.asarray(g.data), np.asarray(h.data))
+
+
+# --------------------------------------------------------------------------
+# WCS
+# --------------------------------------------------------------------------
+
+WCS_CASES = {
+    "STG": dict(ctype=("RA---STG", "DEC--STG"), crval=(60.05, -3.8), crpix=(1250.0, 1250.0),
+                cd=np.diag([-0.04, 0.04]) / 3600, lonpole=240.0),
+    "TAN": dict(ctype=("RA---TAN", "DEC--TAN"), crval=(10.0, 45.0), crpix=(2043.5, 2043.5),
+                cd=np.array([[-0.11, 0.02], [0.02, 0.11]]) / 3600),
+    "ARC": dict(ctype=("RA---ARC", "DEC--ARC"), crval=(60.1, -3.75), crpix=(2043.5, 2043.5),
+                cd=np.array([[-0.9, 0.4], [0.4, 0.9]]) * 0.11 / 3600, lonpole=200.0),
+}
+
+
+@pytest.mark.parametrize("proj", sorted(WCS_CASES))
+def test_wcs_transforms_are_bit_equal(proj):
+    a, b = ref_wcsutil.WCS(**WCS_CASES[proj]), wcsutil.WCS(**WCS_CASES[proj])
+    rng = np.random.default_rng(2)
+    x, y = rng.uniform(-100, 4200, (2, 300))
+    ra, dec = a.pix2world(x, y)
+    assert _same((ra, dec), b.pix2world(x, y))
+    assert _same(a.world2pix(ra, dec), b.world2pix(ra, dec))
+    assert _same(a.to_header(), b.to_header())
+    for px, py in ((0.0, 0.0), (2043.5, 1000.25)):
+        assert _same(ref_wcsutil.local_partial_pixel_derivatives2(a, px, py),
+                     wcsutil.local_partial_pixel_derivatives2(b, px, py))
+
+
+@pytest.mark.parametrize("name", ["bench", "production"])
+def test_block_wcs_is_bit_equal(name, tmp_path):
+    src = CONFIGS[name](tmp_path)
+    a = ref_wcsutil.make_block_wcs(ref_config.Config(src), 1, 0)
+    b = wcsutil.make_block_wcs(config.Config(src), 1, 0)
+    assert _same(a.to_header(), b.to_header())
+    x, y = np.random.default_rng(3).uniform(0, 100, (2, 200))
+    assert _same(a.pix2world(x, y), b.pix2world(x, y))
+
+
+def test_wcs_header_round_trip_through_the_other_package(tmp_path):
+    a = ref_wcsutil.WCS(**WCS_CASES["TAN"])
+    b = wcsutil.WCS.from_header(fitsio.Header(a.to_header()))
+    x, y = np.random.default_rng(4).uniform(0, 4088, (2, 100))
+    assert _same(a.pix2world(x, y), b.pix2world(x, y))
+
+
+# --------------------------------------------------------------------------
+# PSF models, sphere, moments
+# --------------------------------------------------------------------------
+
+PSF_CASES = {
+    "gaussian": lambda m: m.psf_gaussian(48, 2.1, 2.6),
+    "simple_airy": lambda m: m.psf_simple_airy(48, 4.2, obsc=0.31, tophat_conv=6.0,
+                                               sigma=1.1),
+    "cplx_airy": lambda m: m.psf_cplx_airy(60, 7.956, sigma=1.8, features=5),
+    "smooth_and_pad": lambda m: m.smooth_and_pad(m.psf_gaussian(40, 3.0, 3.0),
+                                                 tophatwidth=6.0),
+    "smooth_and_pad_batch": lambda m: m.smooth_and_pad_batch(
+        np.stack([m.psf_gaussian(40, s, s) for s in (2.0, 3.0)]), tophatwidth=6.0),
+    "legendre": lambda m: m.legendre_poly_array(3, 0.3, -0.6),
+    "cube": lambda m: m.eval_psf_cube(np.random.default_rng(5).normal(size=(16, 20, 20)),
+                                      1234.5, 321.0),
+    "cube_batch": lambda m: m.eval_psf_cube_batch(
+        np.random.default_rng(5).normal(size=(9, 24, 24)),
+        np.array([100.0, 2000.0]), np.array([3000.0, 40.0])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PSF_CASES))
+def test_psfmodels_match(name):
+    assert _same(PSF_CASES[name](ref_psfmodels), PSF_CASES[name](psfmodels))
+
+
+def test_healpix_patch_matches():
+    for res, ra, dec, rad in ((10, 1.05, -0.066, 0.002), (14, 0.3, 0.9, 0.0007)):
+        assert _same(ref_sphere.healpix_patch(res, ra, dec, rad),
+                     sphere.healpix_patch(res, ra, dec, rad))
+
+
+def test_generate_star_grid_matches():
+    a = ref_wcsutil.WCS(**WCS_CASES["ARC"])
+    b = wcsutil.WCS(**WCS_CASES["ARC"])
+    got = layer_host.generate_star_grid(12, b)
+    assert len(got[0]) > 10
+    assert _same(ref_layer.generate_star_grid(12, a), got)
+
+
+def test_noise_frame_and_seed_match():
+    seed = layer_host.layer_seed(2, (7, 11))
+    assert seed == ref_layer.layer_seed(2, (7, 11))
+    assert _same(ref_layer.noise_1f_frame(seed), layer_host.noise_1f_frame(seed))
+
+
+@pytest.mark.parametrize("n", [0.5, 1.0, 2.3])
+def test_galaxy_profiles_match(n):
+    u = np.fft.rfftfreq(64)[None, :]
+    v = np.fft.fftfreq(64)[:, None]
+    M = ref_layer._shear_matrix(0.2, 0.1) @ ref_layer._shear_expm(0.05, -0.02)
+    assert _same(M, layer_host._shear_matrix(0.2, 0.1) @ layer_host._shear_expm(0.05, -0.02))
+    A = np.array([[-0.015, 0.004], [0.003, 0.016]])
+    assert _same(ref_layer.galaxy_ft(u, v, n, 0.1, M, A),
+                 layer_host.galaxy_ft(u, v, n, 0.1, M, A))
+
+
+def test_gsext_args_match():
+    args = ["n=1.5", "hlr=0.2", "shape=0.2:0.1", "shear=0.01:-0.02", "rot=30", "seed=7",
+            "junk"]
+    assert layer_host.parse_gsext_args(args) == ref_layer.parse_gsext_args(args)
+
+
+def test_masks_match(tmp_path):
+    """The mask-file and permanent-mask readers (the cosmic-ray mask draws
+    an 18 x 4108^2 random cube and is left to the block tests)."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(6)
+    m = (rng.random((32, 32)) < 0.1).astype(np.uint8)
+    (tmp_path / "in").mkdir()
+    fitsio.fits_write(tmp_path / "in" / "sim_L2_F184_3_5_mask.fits",
+                      fitsio.HDUList([fitsio.ImageHDU(None), fitsio.ImageHDU(m, name="MASK")]))
+    fitsio.fits_write(tmp_path / "pmask.fits", fitsio.HDUList([fitsio.ImageHDU(
+        m, header=fitsio.Header({"GOODVAL": 0}))]))
+    cfg = SimpleNamespace(inpath=str(tmp_path / "in"), informat="L2_fits",
+                          permanent_mask=str(tmp_path / "pmask.fits"), cr_mask_rate=0.0)
+    obs = "F184"                                # the filter, as a name
+    for idsca in ((3, 5), (2, 5)):             # with and without a mask file
+        assert _same(ref_layer.Mask.load_mask_from_maskfile(cfg, obs, idsca),
+                     layer_host.Mask.load_mask_from_maskfile(cfg, obs, idsca))
+        assert _same(ref_layer.get_sca_imagefile(cfg.inpath, idsca, obs, "L2_fits"),
+                     layer_host.get_sca_imagefile(cfg.inpath, idsca, obs, "L2_fits"))
+    blk = SimpleNamespace(cfg=cfg)
+    assert _same(ref_layer.Mask.load_permanent_mask(blk),
+                 layer_host.Mask.load_permanent_mask(blk))
+    img = SimpleNamespace(blk=blk, idsca=(3, 5))
+    assert ref_layer.Mask.load_cr_mask(img) is layer_host.Mask.load_cr_mask(img) is None
+
+
+def test_adaptive_moments_match():
+    yy, xx = np.mgrid[0:41, 0:41]
+    img = np.exp(-0.5 * (((xx - 20.3) / 3.1) ** 2 + ((yy - 19.6) / 2.4) ** 2
+                         + 0.3 * (xx - 20.3) * (yy - 19.6) / 7.4))
+    img += np.random.default_rng(7).normal(scale=1e-3, size=img.shape)
+    a = ref_moments.find_adaptive_moments(img, guess_sigma=3.0)
+    b = moments.find_adaptive_moments(img, guess_sigma=3.0)
+    assert a.converged and vars(a) == vars(b)
+    assert _same(ref_moments.fourth_moments(img, a), moments.fourth_moments(img, b))
+
+
+# --------------------------------------------------------------------------
+# asdfio, profiling
+# --------------------------------------------------------------------------
+
+def test_asdf_written_by_one_package_reads_the_same_in_the_other(tmp_path):
+    tree = {"roman": {"meta": {"exptime": 139.8}, "data": np.arange(12.0).reshape(3, 4)},
+            "noise": np.ones((2, 2, 2), np.float32)}
+    ref_asdfio.asdf_write(tmp_path / "a.asdf", tree)
+    asdfio.asdf_write(tmp_path / "b.asdf", tree)
+    for path in ("a.asdf", "b.asdf"):
+        got = asdfio.asdf_read(tmp_path / path)
+        want = ref_asdfio.asdf_read(tmp_path / path)
+        assert _same(np.asarray(got["roman"]["data"]), np.asarray(want["roman"]["data"]))
+        assert _same(np.asarray(got["noise"]), np.asarray(want["noise"]))
+        assert got["roman"]["meta"] == want["roman"]["meta"]
+
+
+def test_profiling_matches(monkeypatch, capsys):
+    monkeypatch.setenv("PYIMCOM_PROFILE", "1")
+    for mod in (ref_profiling, profiling):
+        mod.reset()
+        with mod.phase("a"):
+            pass
+        mod.report("x")
+        assert mod.enabled() and set(mod._ACC) == {"a"} and mod._CNT["a"] == 1
+        mod.reset()
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 4 and out[0].split("(")[0] == out[2].split("(")[0]

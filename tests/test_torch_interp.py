@@ -121,10 +121,11 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     i32 = torch.zeros((1, 5), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         interp_cuda.sweep_d5512_scatter(torch.zeros(8, dtype=torch.float64), z3,
-                                        q[0], q[0], i32[:, 0], i32, i32, 1.0, 0.0,
-                                        4, 0)
+                                        q[0], q[0], i32[:, 0], i32, i32, i32, 1.0, 0.0,
+                                        0)
     assert interp_cuda.launches == {"interp_d5512_dense": 0,
-                                    "sweep_d5512_scatter": 0}
+                                    "sweep_d5512_scatter.pool": 0,
+                                    "sweep_d5512_scatter.B": 0}
 
 
 @pytest.mark.parametrize("fn", ["interp2d", "grid_interp", "interp2d_dense"])
