@@ -11,20 +11,22 @@ LAKERNEL, and the toolchain probe ``pyimcom_tpu_torch.probe``:
 
 1. build: the card's name and power limit, the nvcc builds of the D5512
    kernels (and, where pyimcom_tpu_torch/_build/parent/interp_d5512.cu
-   holds that source as of commit 60e58e7 -- the one-thread-a-query K2 with
-   a 20-argument C entry, pinned by its SHA-256 -- of that revision too),
+   holds that source as of commit 7671040 -- the one-thread-a-query K1 with
+   a 9-argument C entry, pinned by its SHA-256 -- of that revision too),
    started together, with their ptxas register and spill lines;
 2. probe: the probe entry point builds csrc/probe.cu and launches its
    kernel on an (8, 128) float32 tensor (its own path: counts reset before,
    read after);
-3. kernels: each kernel against its plain PyTorch version on the card, on
-   seeded inputs at its path's shapes (criterion: 1e-12 of scale in f64,
-   exact for the probe), with median CUDA-event times of both and the
-   kernel's bound;
+3. kernels: the card's launch floor (the device time of an empty kernel,
+   torch.cuda._sleep(0)); each kernel against its plain PyTorch version on
+   the card, on seeded random inputs at its path's shapes (criterion: 1e-12
+   of scale in f64, exact for the probe), with the device times of both
+   and the kernel's bounds; the sleep check of the timing on K1 and the
+   probe (below);
 4. bench_block: BASELINE.json configs[0] (8 exposures, cstar14, all 16
    stamps of block 1) -- a cold run that builds the input layers, then the
    measured warm run: blocks/hour, phase times, SL1, the U/C median, and the
-   kernel launch counts of that run;
+   kernel launch counts of both runs;
 5. eigen_block: configs[1], LAKERNEL Eigen at KAPPAC [5e-4, 1e-3, 2e-3],
    all 16 stamps, warm: blocks/hour, phase times, SL1 (|SL1-1| < 1e-3), the
    U/C median and the launch counts;
@@ -41,19 +43,31 @@ LAKERNEL, and the toolchain probe ``pyimcom_tpu_torch.probe``:
    of the first group of the warm bench block and of the Cholesky
    production group (captured while those blocks ran): every launch of each
    group timed alone and summed, against its plain version (1e-12 of
-   scale), with its bound, the tiles it took from L2, and the earlier
-   revision's K2 on the same inputs (also held to 1e-12 of scale) where the
-   build phase built it;
+   scale), with its bounds and the tiles it took from L2;
 9. galaxy_block: a gsext14 galaxy layer (n=0.5, hlr=0.1, shape=0.2:0.1) at
    STOP 4, cold: adaptive moments against the analytic covariance (5e-4
    arcsec^2), the flux (0.97-1.03), the cold input time and the K1 launches
-   of the injection (cold minus warm run; above 0).
+   of the injection (cold minus warm run; above 0);
+10. k1_main_path: K1 on the first launch of each of its callers, captured
+   while the blocks ran -- star injection in the cold bench block, PSF
+   sampling in the warm bench block and the Cholesky production group,
+   galaxy injection in the galaxy block: R, Nq, the image shape and the
+   queries on the grid, its device time against its plain version (1e-12 of
+   scale) and the earlier revision's K1 (held to the same) where built, its
+   bounds and share of the bound, and, for PSF sampling, its time with runs
+   of 32 consecutive queries instead of 8 x 4 lattice points.
 
-A bound is the least time the card could take for a kernel's work: the
-larger of the bytes it must move (each input read once, each output written
-once) over 3.35 TB/s and its f64 operations over 67 TFLOP/s (the H100 SXM
-data sheet; the f64 rate is that of the tensor cores, twice the vector
-units').
+Timing.  A kernel's time is the median CUDA-event time of single calls,
+each enqueued behind a torch.cuda._sleep of SLEEP_CYCLES, so that the
+events bracket the device's work and not the host's enqueue; the sleep
+check prints the median behind twice the sleep, which must fall inside the
+first run's spread.  A bound is the least time the card could take for a
+kernel's work: the larger of the bytes it must move (each input read once,
+each output written once) over 3.35 TB/s and its f64 operations over 67
+TFLOP/s (the H100 SXM data sheet; the f64 rate is that of the tensor cores,
+twice the vector units') -- `roofline_ms`, the kernel line's bound -- and,
+in `bound_ms`, the launch floor besides: a kernel whose bound is the floor
+is at its bound.
 
 Every block runs with the kernel launch counts set to 0 just before it and
 read just after, and fails if a kernel of its path was not launched.  Each
@@ -85,12 +99,15 @@ STAR_REGION = np.s_[0:25, 25:50]                        # the stamp with the sta
 PROD = dict(OUTSIZE=[80, 32, 0.0390625], INPAD=1.055, NPIXPSF=48, STOP=4)
 GALAXY = "gsext14,n=0.5,hlr=0.1,shape=0.2:0.1"          # tests/test_e2e_galaxy.py
 PARENT_SRC = REPO / "pyimcom_tpu_torch" / "_build" / "parent" / "interp_d5512.cu"
-# pyimcom_tpu_torch/csrc/interp_d5512.cu at commit 60e58e7, the only
-# revision whose C entry parent_k2() binds
-PARENT_SHA256 = "ffd25aae2bd686e105523d8e22f3524184dd88838e28f5be649e004dc2b7e6b7"
+# pyimcom_tpu_torch/csrc/interp_d5512.cu at commit 7671040, the only
+# revision whose K1 entry parent_k1() binds
+PARENT_SHA256 = "8aaf4ea17e3cd5b6b57ddceda891cd142db8ba5ba2f67bf43b7736a0bec0eeef"
 PEAK_BYTES_S, PEAK_F64_S = 3.35e12, 67e12               # H100 SXM data sheet
 TAPS_FLOP = 96                  # one D5512 tap set (Horner in fh^2)
 QUERY_FLOP = 2 * TAPS_FLOP + 220 + 6   # two tap sets, the 10x10 sum, the position
+# torch.cuda._sleep cycles enqueued before a timed call, so that the device
+# is still busy while the host enqueues it (about 0.2 ms at 1.98 GHz)
+SLEEP_CYCLES = 400_000
 
 
 def emit(obj):
@@ -103,21 +120,44 @@ def gpu_name_and_power():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, reps, setup=None):
-    """Median CUDA-event time of fn() over `reps` calls, after 2 warm-ups."""
+def device_times(torch, fn, reps, setup=None, sleep=SLEEP_CYCLES):
+    """CUDA-event times (ms) of fn() over `reps` calls, after 2 warm-ups.
+    Each call is enqueued behind a `sleep`-cycle device sleep, recorded
+    after it, so that the events bracket device work and not the host's
+    enqueue of fn (its argument checks, ctypes call and launch).  A
+    function that enqueues for longer than the sleep (a plain version's
+    many small launches) still shows its host time."""
     times = []
     for i in range(reps + 2):
         if setup is not None:
             setup()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep)
         e0.record()
         fn()
         e1.record()
         e1.synchronize()
         if i >= 2:
             times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+    return times
+
+
+def median_ms(torch, fn, reps, setup=None):
+    """Median device time of fn() over `reps` calls (device_times)."""
+    return statistics.median(device_times(torch, fn, reps, setup))
+
+
+def sleep_check(torch, fn, reps=20):
+    """The device time of fn() behind the sleep and behind twice the sleep:
+    if the sleep outlasts the host's enqueue, doubling it leaves the median
+    inside the first run's spread."""
+    t1 = device_times(torch, fn, reps)
+    t2 = device_times(torch, fn, reps, sleep=2 * SLEEP_CYCLES)
+    rec = dict(ms=statistics.median(t1), spread=[min(t1), max(t1)],
+               ms_double_sleep=statistics.median(t2), spread_double_sleep=[min(t2), max(t2)])
+    assert min(t1) <= rec["ms_double_sleep"] <= max(t1), rec
+    return rec
 
 
 def rel_err(torch, got, want):
@@ -126,17 +166,27 @@ def rel_err(torch, got, want):
     return float((got - want).abs().max()) / scale
 
 
-def bound(bytes_, flops):
-    """(bound ms, what sets it) of a kernel moving `bytes_` and doing `flops`."""
+def bound(bytes_, flops, floor_ms=0.0):
+    """(bound ms, what sets it) of a kernel moving `bytes_` and doing `flops`,
+    launched on a card whose empty kernel takes `floor_ms`."""
     t_b, t_f = bytes_ / PEAK_BYTES_S * 1e3, flops / PEAK_F64_S * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    return max((t_b, "bytes"), (t_f, "operations"), (floor_ms, "launch"))
 
 
-def k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv_scale):
-    """Bound of one K2 launch: the overlap images its rows use, the tables,
-    the metadata, and each destination read and written once; in pool mode
-    QUERY_FLOP a query, in B mode the separable form's tap sets and
-    horizontal and vertical sums."""
+def bounds(bytes_, flops, floor_ms):
+    """A kernel record's bounds: `bound_ms` with the launch floor (what a
+    launch can reach), `roofline_ms` without it (bytes and operations
+    alone, the `kernels` line's bound)."""
+    b, by = bound(bytes_, flops, floor_ms)
+    rb, rby = bound(bytes_, flops)
+    return dict(bound_ms=b, bound_by=by, roofline_ms=rb, roofline_by=rby)
+
+
+def k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv_scale, floor_ms):
+    """Bounds (bounds()) of one K2 launch: the overlap images its rows use,
+    the tables, the metadata, and each destination read and written once;
+    in pool mode QUERY_FLOP a query, in B mode the separable form's tap sets
+    and horizontal and vertical sums."""
     from pyimcom_tpu_torch.ops.interp_cuda import b_window
 
     queries = int(imeta[:, 4].sum())
@@ -150,33 +200,75 @@ def k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv_scale):
         m = n2f * n2f
         per_i1 = 2 * n2f * TAPS_FLOP + b_window(n2f, inv_scale) * n2f * 20 + m * 20
         flops = per_i1 * queries / m
-    return bound(bytes_, flops)
+    return bounds(bytes_, flops, floor_ms)
 
 
-def phase_kernels(torch, dev):
-    """K1 and K2 against their plain versions on seeded random inputs at
-    main-path shapes (K2's coordinates have none of the sweep's locality
-    here: its pool tiles read from L2), and the probe kernel."""
+def k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=0, reps=20):
+    """K1 on one launch's inputs (on the card; `lattice_row` as its caller
+    passed it): its device time, its runs of 32 queries, its error against
+    the plain version, the plain version's time,
+    the bounds (images, x, y and the result once; QUERY_FLOP a query on the
+    grid), and the earlier revision's K1 on the same inputs where built."""
+    from pyimcom_tpu_torch.ops import interp_cuda as ic
+
+    R, ny, nx = images.shape
+    Nq = x.shape[1]
+    fx, fy = torch.floor(x), torch.floor(y)
+    on = int(((fx >= 4) & (fx < nx - 5) & (fy >= 4) & (fy < ny - 5)).sum())
+    got = ic.interp_d5512_dense(images, x, y, lattice_row=lattice_row)
+    want = ic.interp_d5512_dense_plain(images, x, y)
+    torch.cuda.synchronize()
+    runs = (R * -(-lattice_row // 8) * -(-(Nq // lattice_row) // 4) if lattice_row
+            else R * -(-Nq // 32))
+    rec = dict(R=R, Nq=Nq, image=[ny, nx], lattice_row=lattice_row, on_grid=on, runs=runs,
+               max_abs_err=rel_err(torch, got, want),
+               ms=median_ms(torch, lambda: ic.interp_d5512_dense(
+                   images, x, y, lattice_row=lattice_row), reps),
+               plain_ms=median_ms(torch, lambda: ic.interp_d5512_dense_plain(images, x, y), 3),
+               **bounds(8 * (images.numel() + 3 * x.numel()), QUERY_FLOP * on, floor_ms),
+               launch_floor_ms=floor_ms)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    assert rec["max_abs_err"] < TOL, rec
+    if parent is not None:
+        out_p = torch.empty_like(x)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def call():
+            err = parent(images.data_ptr(), R, ny, nx, x.data_ptr(), y.data_ptr(), Nq,
+                         out_p.data_ptr(), stream)
+            assert err == 0, err
+        call()
+        torch.cuda.synchronize()
+        rec["parent_max_abs_err"] = rel_err(torch, out_p, want)
+        assert rec["parent_max_abs_err"] < TOL, rec
+        rec["parent_ms"] = median_ms(torch, call, reps)
+    return rec
+
+
+def phase_kernels(torch, dev, parent):
+    """The launch floor and the sleep check of the timing; K1 and K2 against
+    their plain versions on seeded random inputs at main-path shapes (none
+    of the main path's locality: K2's pool tiles read from L2;
+    k1_main_path and k2_main_path time the main path's own launches); and
+    the probe kernel."""
     from pyimcom_tpu_torch.ops import interp_cuda as ic
     from pyimcom_tpu_torch.psfgrp import _DENSE_RBATCH_BY_BUCKET
 
     rng = np.random.default_rng(20261016)
     ns = 263                              # bench overlap image: novl + 12
-    out = {}
+    # the card's launch floor: an empty kernel's device time
+    floor_ms = median_ms(torch, lambda: torch.cuda._sleep(0), 50)
+    out = {"launch_floor_ms": floor_ms}
 
-    # K1: R x Nq = 32 x 16384 (a chunk of star patches, 128^2 each)
+    # K1: R x Nq = 32 x 16384 (a chunk of star patches, 128^2 each), random
     R, Nq = 32, 16384
     images = torch.as_tensor(rng.normal(size=(R, ns, ns)), device=dev)
     x = torch.as_tensor(rng.uniform(0, ns, (R, Nq)), device=dev)
     y = torch.as_tensor(rng.uniform(0, ns, (R, Nq)), device=dev)
-    got = ic.interp_d5512_dense(images, x, y)
-    want = ic.interp_d5512_dense_plain(images, x, y)
-    torch.cuda.synchronize()
-    bound_ms, bound_by = bound(8 * (images.numel() + 3 * x.numel()), QUERY_FLOP * R * Nq)
-    out["K1"] = dict(shape=[R, Nq, ns, ns], max_abs_err=rel_err(torch, got, want),
-                     ms=median_ms(torch, lambda: ic.interp_d5512_dense(images, x, y), 20),
-                     plain_ms=median_ms(torch, lambda: ic.interp_d5512_dense_plain(
-                         images, x, y), 5), bound_ms=bound_ms, bound_by=bound_by)
+    out["K1"] = dict(shape=[R, Nq, ns, ns],
+                     **k1_record(torch, dev, images, x, y, floor_ms, parent))
+    out["K1"]["sleep_check"] = sleep_check(torch, lambda: ic.interp_d5512_dense(images, x, y))
+    del images, x, y
 
     # K2: 32 rows of 16384 queries (the largest bucket's JAX batch) over a
     # 64-image stack; the B rows pair random pixels with a 27 x 27 output
@@ -229,7 +321,6 @@ def phase_kernels(torch, dev):
         l2 = ic.l2_tiles(dev)
         ic.sweep_d5512_scatter_plain(dst_p, *args)
         torch.cuda.synchronize()
-        bound_ms, bound_by = k2_bound(mode, combined, xt, *plans[mode], n2f, inv_scale)
         out[name] = dict(
             shape=[rows, bucket, K, ns, ns], queries=int(plans[mode][1][:, 4].sum()),
             tiles=len(plans[mode][3]), l2_tiles=l2,
@@ -238,9 +329,10 @@ def phase_kernels(torch, dev):
                          setup=dst_k.zero_),
             plain_ms=median_ms(torch, lambda: ic.sweep_d5512_scatter_plain(dst_p, *args), 5,
                                setup=dst_p.zero_),
-            bound_ms=bound_ms, bound_by=bound_by)
+            **k2_bound(mode, combined, xt, *plans[mode], n2f, inv_scale, floor_ms))
     for name, rec in out.items():
-        assert rec["max_abs_err"] < TOL, (name, rec)
+        if name != "launch_floor_ms":
+            assert rec["max_abs_err"] < TOL, (name, rec)
 
     # the probe kernel at its entry point's shape; exact in f32; its
     # yardstick is the one PyTorch call x + 1.0, which is also its plain version
@@ -250,27 +342,27 @@ def phase_kernels(torch, dev):
     got, want = probe.probe_add_one(xp), probe.probe_add_one_plain(xp)
     torch.cuda.synchronize()
     plain_ms = median_ms(torch, lambda: probe.probe_add_one_plain(xp), 20)
-    bound_ms, bound_by = bound(8 * xp.numel(), xp.numel())
     out["probe"] = dict(shape=[8, 128], max_abs_err=float((got - want).abs().max()),
                         ms=median_ms(torch, lambda: probe.probe_add_one(xp), 20),
-                        plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
+                        plain_ms=plain_ms, library_ms=plain_ms,
+                        **bounds(8 * xp.numel(), xp.numel(), floor_ms),
+                        sleep_check=sleep_check(torch, lambda: probe.probe_add_one(xp)))
     assert out["probe"]["max_abs_err"] == 0.0, out["probe"]
     return out
 
 
 def build_parent():
     """Build the earlier revision of the D5512 source, if present; returns
-    the compiler's report.  Refuses any other revision than 60e58e7's: its
-    K2 entry takes another argument list."""
+    the compiler's report.  Refuses any other revision than 7671040's: its
+    K1 entry takes another argument list."""
     import hashlib
 
     from pyimcom_tpu_torch import _build
 
     digest = hashlib.sha256(PARENT_SRC.read_bytes()).hexdigest()
     if digest != PARENT_SHA256:
-        raise RuntimeError(f"{PARENT_SRC} is not interp_d5512.cu of commit 60e58e7 "
-                           f"(sha256 {digest}); parent_k2() binds only that revision")
+        raise RuntimeError(f"{PARENT_SRC} is not interp_d5512.cu of commit 7671040 "
+                           f"(sha256 {digest}); parent_k1() binds only that revision")
     lib = PARENT_SRC.with_name("libinterp_d5512_parent.so")
     proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(PARENT_SRC)],
                           capture_output=True, text=True, timeout=600)
@@ -279,16 +371,76 @@ def build_parent():
     return proc.stdout + proc.stderr
 
 
-def parent_k2():
-    """The K2 entry of commit 60e58e7 (rows in buckets, one thread a query,
-    f64 atomics), loaded with ctypes; build_parent() checked the source."""
+def parent_k1():
+    """The K1 entry of commit 7671040 (one thread a query, each patch read
+    from L1 / L2), loaded with ctypes; build_parent() checked the source."""
     import ctypes
 
-    fn = ctypes.CDLL(str(PARENT_SRC.with_name("libinterp_d5512_parent.so"))).sweep_d5512_scatter
-    p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    fn.argtypes = (p, ll, p, i, i, i, p, p, ll, p, p, p, ll, i, d, d, i, i, i, p)
+    fn = ctypes.CDLL(str(PARENT_SRC.with_name("libinterp_d5512_parent.so"))).interp_d5512_dense
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = (p, i, i, i, p, p, ll, p, p)
     fn.restype = ctypes.c_int
     return fn
+
+
+class capture_k1:
+    """While active, keep the first K1 launch of each caller named in
+    `callers` (its images, x and y, and its lattice row) in `into`, keyed
+    "<block>/<caller>": a copy on the card, which does not wait for the
+    card, moved to host memory when the block is done.  A caller is the
+    innermost frame among PSF sampling
+    (psfgrp.sample_psf_rotated_batch), star injection
+    (layer.make_image_from_grid) and galaxy injection
+    (layer.make_extobj_image_from_grid)."""
+
+    CALLERS = {"sample_psf_rotated_batch": "psf_sampling",
+               "make_image_from_grid": "star_injection",
+               "make_extobj_image_from_grid": "galaxy_injection"}
+
+    def __init__(self, block, callers, into):
+        self.block, self.callers, self.launches = block, set(callers), into
+
+    def __enter__(self):
+        from pyimcom_tpu_torch.ops import interp_cuda
+
+        self._mod, self._orig = interp_cuda, interp_cuda.interp_d5512_dense
+        orig = self._orig
+
+        def wrapped(images, x, y, **kw):
+            f = sys._getframe(1)
+            while f is not None and f.f_code.co_name not in self.CALLERS:
+                f = f.f_back
+            caller = self.CALLERS[f.f_code.co_name] if f is not None else None
+            key = f"{self.block}/{caller}"
+            if caller in self.callers and key not in self.launches:
+                self.launches[key] = dict(images=images.clone(), x=x.clone(), y=y.clone(),
+                                          lattice_row=kw.get("lattice_row", 0))
+            return orig(images, x, y, **kw)
+
+        interp_cuda.interp_d5512_dense = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.interp_d5512_dense = self._orig
+        for cap in self.launches.values():
+            for k in ("images", "x", "y"):
+                cap[k] = cap[k].cpu()
+
+
+def k1_main_path(torch, dev, key, cap, floor_ms, parent):
+    """K1 on one captured main-path launch (k1_record); where the caller
+    gave a lattice row, also its time with runs of 32 consecutive queries
+    (`runs_of_32_ms`), timed beside the 8 x 4 layout in this call."""
+    from pyimcom_tpu_torch.ops import interp_cuda as ic
+
+    block, caller = key.split("/")
+    images, x, y = (cap[k].to(dev) for k in ("images", "x", "y"))
+    n = cap["lattice_row"]
+    rec = {"block": block, "caller": caller,
+           **k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=n)}
+    if n:
+        rec["runs_of_32_ms"] = median_ms(torch, lambda: ic.interp_d5512_dense(images, x, y), 20)
+    return rec
 
 
 class capture_first_plan:
@@ -322,13 +474,11 @@ class capture_first_plan:
             self.plan["stacks"] = [s.cpu() for s in self.plan["stacks"]]
 
 
-def k2_main_path(torch, dev, name, cap, parent):
-    """Every K2 launch of one captured group, timed alone (median of 10 CUDA-
-    event times after 2 warm-ups), against its plain version, with its bound
-    and its L2-path tiles; and the earlier revision's launches (one per
-    mode and query bucket, as its planner made them) on the same inputs."""
+def k2_main_path(torch, dev, name, cap, floor_ms):
+    """Every K2 launch of one captured group, timed alone (median device
+    time of 10 calls after 2 warm-ups), against its plain version, with its
+    bounds and its L2-path tiles."""
     from pyimcom_tpu_torch.ops import interp_cuda as ic
-    from pyimcom_tpu_torch.psfgrp import _DENSE_BUCKETS
 
     combined = torch.cat([s.to(dev) for s in cap["stacks"]])
     xt = torch.as_tensor(cap["xt"], device=dev)
@@ -336,7 +486,6 @@ def k2_main_path(torch, dev, name, cap, parent):
     n2f, n_pad, inv, off = cap["n2f"], cap["n_pad"], cap["inv_scale"], cap["off_grid"]
     m = n2f * n2f
     size = {0: cap["pool_size"], 1: cap["S"] * cap["n_out"] * m * n_pad}
-    stream = torch.cuda.current_stream(dev).cuda_stream
     K, ny, nx = combined.shape
 
     def put(a):
@@ -353,7 +502,6 @@ def k2_main_path(torch, dev, name, cap, parent):
         l2 = ic.l2_tiles(dev)
         ic.sweep_d5512_scatter_plain(dst_p, *args)
         torch.cuda.synchronize()
-        bound_ms, bound_by = k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv)
         one = dict(mode="pool" if mode == 0 else "B", rows=len(ks), tiles=len(tiles),
                    queries=int(imeta[:, 4].sum()), l2_tiles=l2,
                    max_abs_err=rel_err(torch, dst_k, dst_p),
@@ -361,38 +509,12 @@ def k2_main_path(torch, dev, name, cap, parent):
                                 setup=dst_k.zero_),
                    plain_ms=median_ms(torch, lambda: ic.sweep_d5512_scatter_plain(
                        dst_p, *args), 1, setup=dst_p.zero_),
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   **k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv,
+                              floor_ms))
         assert one["max_abs_err"] < TOL, (name, one)
-        if parent is not None:
-            # the earlier planner's launches: this mode's rows by query bucket
-            bidx = np.searchsorted(_DENSE_BUCKETS, imeta[:, 4])
-            dst_q = torch.zeros_like(dst_k)
-            calls = []
-            for bi, bucket in enumerate(_DENSE_BUCKETS):
-                sel = np.flatnonzero(bidx == bi)
-                if not len(sel):
-                    continue
-                a = [put(np.ascontiguousarray(t[sel])) for t in (ks, imeta, dmeta)]
-
-                def call(a=a, bucket=bucket):
-                    err = parent(dst_q.data_ptr(), dst_q.numel(), combined.data_ptr(), K, ny,
-                                 nx, xt.data_ptr(), yt.data_ptr(), xt.numel(), a[0].data_ptr(),
-                                 a[1].data_ptr(), a[2].data_ptr(), a[0].numel(), bucket, inv,
-                                 off, mode, n_pad, m, stream)
-                    assert err == 0, err
-                calls.append(call)
-            dst_q.zero_()
-            for call in calls:
-                call()
-            torch.cuda.synchronize()
-            one["parent_max_abs_err"] = rel_err(torch, dst_q, dst_p)
-            assert one["parent_max_abs_err"] < TOL, (name, one)
-            one["parent_launches"] = len(calls)
-            one["parent_ms"] = sum(median_ms(torch, call, 10, setup=dst_q.zero_)
-                                   for call in calls)
         rec["launches"].append(one)
         del dst_k, dst_p
-    for key in ("ms", "plain_ms", "bound_ms", "parent_ms"):
+    for key in ("ms", "plain_ms", "bound_ms", "roofline_ms"):
         if all(key in one for one in rec["launches"]):
             rec[key + "_sum"] = sum(one[key] for one in rec["launches"])
     return rec
@@ -540,7 +662,7 @@ def main():
         reports = {k: f.result() for k, f in
                    {k: pool.submit(job) for k, job in jobs.items()}.items()}
     _build.library("interp_d5512")
-    parent = parent_k2() if PARENT_SRC.exists() else None
+    parent = parent_k1() if PARENT_SRC.exists() else None
     emit({"phase": "build", "gpu": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in r.splitlines()
@@ -557,7 +679,8 @@ def main():
     assert verdict["ok"] and probe_launches > 0, verdict
 
     # ---- 3. kernels vs plain versions -----------------------------------------
-    kern = phase_kernels(torch, dev)
+    kern = phase_kernels(torch, dev, parent)
+    floor_ms = kern["launch_floor_ms"]
     emit({"phase": "kernels", "criterion": TOL, **kern})
 
     # ---- 4. the bench block ---------------------------------------------------
@@ -565,13 +688,16 @@ def main():
 
     shutil.rmtree(WORK, ignore_errors=True)
     cfg_dict = build_survey(WORK, n_obs=8, extrainput=["cstar14"])
-    blk_cold, _out, t_cold, _launches = run_block(cfg_dict, "_cold")
-    with capture_first_plan() as bench_cap:
+    k1_caps = {}
+    with capture_k1("bench_cold", ["star_injection"], k1_caps):
+        blk_cold, _out, t_cold, cold_launches = run_block(cfg_dict, "_cold")
+    with capture_first_plan() as bench_cap, capture_k1("bench", ["psf_sampling"], k1_caps):
         blk, out, t_block, launches = run_block(cfg_dict, "_bench")
     SL1, uc_med = quality_check(out)
     emit({"phase": "bench_block", "stamps": len(blk.stamp_stats),
           "block_s": t_block, "blocks_per_hour": 3600.0 / t_block,
           "cold_block_s": t_cold, "cold_inputs_s": blk_cold.phase_times()["block.inputs"]["host_s"],
+          "cold_launches": cold_launches,
           "SL1": SL1, "uc_median": uc_med,
           "SL1_minus_cpu_record": SL1 - CPU_RECORD["SL1"],
           "uc_median_over_cpu_record": uc_med / CPU_RECORD["uc_median"],
@@ -621,7 +747,7 @@ def main():
     assert all(np.all(np.isfinite(v)) for v in img.values())
 
     # ---- 7. production geometry: one 2x2 group, three solvers -----------------
-    with capture_first_plan() as prod_cap:
+    with capture_first_plan() as prod_cap, capture_k1("production", ["psf_sampling"], k1_caps):
         run_production(torch, dev, cfg_dict, "production_group", "_prod")
     run_production(torch, dev, cfg_dict, "production_iterative", "_prodit",
                    LAKERNEL="Iterative", KAPPAC=[0.0], ITERRTOL=0.0015, ITERMAX=30)
@@ -629,8 +755,8 @@ def main():
                    LAKERNEL="Eigen", KAPPAC=MULTI_KAPPA)
 
     # ---- 8. K2 at the main path's own shapes ----------------------------------
-    main_k2 = [k2_main_path(torch, dev, "bench_group_1", bench_cap.plan, parent),
-               k2_main_path(torch, dev, "production_group", prod_cap.plan, parent)]
+    main_k2 = [k2_main_path(torch, dev, "bench_group_1", bench_cap.plan, floor_ms),
+               k2_main_path(torch, dev, "production_group", prod_cap.plan, floor_ms)]
     del bench_cap.plan, prod_cap.plan
     for rec in main_k2:
         emit({"phase": "k2_main_path", "criterion": TOL, **rec})
@@ -639,7 +765,8 @@ def main():
     (WORK / "cache_gal").mkdir()
     gal = dict(EXTRAINPUT=[GALAXY], STOP=4,
                INLAYERCACHE=str(WORK / "cache_gal" / "in"))
-    gal_cold, out_g, t_gal, gal_launches = run_block(cfg_dict, "_gal", **gal)
+    with capture_k1("galaxy", ["galaxy_injection"], k1_caps):
+        gal_cold, out_g, t_gal, gal_launches = run_block(cfg_dict, "_gal", **gal)
     _blk, _out, _t, warm_launches = run_block(cfg_dict, "_galwarm", **gal)
     k1_injection = (gal_launches["interp_d5512_dense"]
                     - warm_launches["interp_d5512_dense"])
@@ -652,33 +779,43 @@ def main():
     assert 0.97 < mom["flux"] < 1.03, mom
     assert k1_injection > 0, k1_injection
 
+    # ---- 10. K1 at the main path's own launches -------------------------------
+    want = {"bench_cold/star_injection", "bench/psf_sampling", "production/psf_sampling",
+            "galaxy/galaxy_injection"}
+    assert set(k1_caps) == want, sorted(k1_caps)
+    main_k1 = {}
+    for key in sorted(want):
+        main_k1[key] = k1_main_path(torch, dev, key, k1_caps.pop(key), floor_ms, parent)
+        emit({"phase": "k1_main_path", "criterion": TOL, **main_k1[key]})
+
     # ---- summary ---------------------------------------------------------------
+    # the kernels line's bound is bytes and operations alone (roofline_ms);
+    # its K1 and K2 times are those of the main path's own launches
     src = "pyimcom_tpu_torch/csrc/interp_d5512.cu"
     no_lib = None           # no PyTorch call computes D5512 interpolation
+
+    def line(name, source, replaces, n, err, rec, library_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": err, "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["roofline_ms"],
+                "bound_by": rec["roofline_by"], "library_ms": library_ms,
+                "launch_floor_ms": floor_ms}
+
+    k1 = main_k1["bench/psf_sampling"]
+    k1_errs = [kern["K1"]["max_abs_err"]] + [r["max_abs_err"] for r in main_k1.values()]
+    summary = [line("interp_d5512_dense", src, "pyimcom_tpu/ops/interp_pallas.py:85",
+                    launches["interp_d5512_dense"], max(k1_errs), k1, no_lib)]
     k2 = {one["mode"]: one for one in main_k2[0]["launches"]}
-    summary = [
-        {"name": "interp_d5512_dense", "route": "cuda", "source": src,
-         "replaces": "pyimcom_tpu/ops/interp_pallas.py:85",
-         "launches": launches["interp_d5512_dense"],
-         "max_abs_err": kern["K1"]["max_abs_err"], "ms": kern["K1"]["ms"],
-         "plain_ms": kern["K1"]["plain_ms"], "bound_ms": kern["K1"]["bound_ms"],
-         "bound_by": kern["K1"]["bound_by"], "library_ms": no_lib}]
     for mode, key in (("pool", "K2_pool"), ("B", "K2_B")):
         errs = [kern[key]["max_abs_err"]] + [one["max_abs_err"] for rec in main_k2
                                               for one in rec["launches"] if one["mode"] == mode]
-        summary.append(
-            {"name": f"sweep_d5512_scatter.{mode}", "route": "cuda", "source": src,
-             "replaces": "pyimcom_tpu/ops/interp_pallas.py:140",
-             "launches": launches[f"sweep_d5512_scatter.{mode}"], "max_abs_err": max(errs),
-             "ms": k2[mode]["ms"], "plain_ms": k2[mode]["plain_ms"],
-             "bound_ms": k2[mode]["bound_ms"], "bound_by": k2[mode]["bound_by"],
-             "library_ms": no_lib})
-    summary.append(
-        {"name": "probe_add_one", "route": "cuda", "source": "pyimcom_tpu_torch/csrc/probe.cu",
-         "replaces": "scripts/probe_pallas.py:33", "launches": probe_launches,
-         "max_abs_err": kern["probe"]["max_abs_err"], "ms": kern["probe"]["ms"],
-         "plain_ms": kern["probe"]["plain_ms"], "bound_ms": kern["probe"]["bound_ms"],
-         "bound_by": kern["probe"]["bound_by"], "library_ms": kern["probe"]["library_ms"]})
+        summary.append(line(f"sweep_d5512_scatter.{mode}", src,
+                            "pyimcom_tpu/ops/interp_pallas.py:140",
+                            launches[f"sweep_d5512_scatter.{mode}"], max(errs), k2[mode], no_lib))
+    summary.append(line("probe_add_one", "pyimcom_tpu_torch/csrc/probe.cu",
+                        "scripts/probe_pallas.py:33", probe_launches,
+                        kern["probe"]["max_abs_err"], kern["probe"],
+                        kern["probe"]["library_ms"]))
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,15 +11,53 @@
 //     added where it lands.
 //
 // What bounds them on this card.  Every query reads a 10x10 f64 patch
-// (800 bytes) of one overlap image of ~0.55-0.72 MB (263^2 or 299^2 doubles)
-// and spends ~250 f64 flops on it.  A launch touches at most a few tens of
-// MB of images, which stay resident in the 50 MB L2, so a kernel that reads
-// each patch from L2 is bound by L2-to-SM bandwidth and load latency, not by
-// HBM or the FP64 units.
+// (800 bytes) of one image and spends ~420 f64 flops on it.  A launch
+// touches at most a few tens of MB of images, which stay resident in the
+// 50 MB L2, so a kernel that reads each patch element on its own is bound
+// by the L1 / shared-memory path (128 bytes a clock an SM, fewer where a
+// warp's reads fall on many cache lines or on one bank), not by HBM or the
+// FP64 units.
 //
-// K1 reads its patches from L2, one thread per query.  K2 is built around
-// the locality of the sweep's queries, so that the patches come from shared
-// memory:
+// K1 (interp_dense_warp_kernel).  Its callers send lattices in row-major
+// order: PSF sampling pushes the output grid through the WCS chain (a
+// rotated, near-affine lattice about one sample apart; most of it falls off
+// the PSF image), star and galaxy injection an axis-aligned lattice 6
+// samples apart (mostly off the image too).  The least a launch must move
+// is x, y and the result, 24 bytes a query, and the images once; against
+// that stand 100 patch reads a query, 8 bytes each.  Timed on the main
+// path's own launches, the one-thread-a-query kernel this replaces spends
+// most of a PSF-sampling launch on the on-grid queries' patch reads, and
+// those run at a few lanes a cache line: a warp of 32 consecutive queries
+// lies along a slanted line and its loads touch ~20-30 lines each.  The
+// design cuts the load instructions and gathers a warp's lanes:
+// * A warp takes a run of 32 queries of one image, a lane one query.  Where
+//   the caller gives the lattice's row length (PSF sampling does), the run
+//   is 8 x 4 neighbouring lattice points, a compact patch of the image, not
+//   a slanted line; else it is 32 consecutive queries (the injection
+//   lattices, 6 samples apart and axis-aligned, measured faster so).  No
+//   host planner: the run follows from the warp's index.  Queries off the
+//   grid (or NaN) give 0 and read nothing.
+// * A lane reads each patch row as six 16-byte pairs (five where the row
+//   starts on an even column) against its ten taps shifted to those twelve
+//   samples, where the image rows are 16-byte aligned: 60 load instructions
+//   a query, not 100.  The extra samples (in the row, finite) add exact
+//   zeros, so each query keeps the order sum_a wy[a] (sum_b wx[b] img) of
+//   K2 and the plain version.
+// * The patches are read through L1 / L2, not staged: staging the box of a
+//   run's patches in shared memory with cp.async cost at least what it saved
+//   on every captured launch, at every budget from 2 to 20 KB a warp and
+//   for boxes of a block's run, of a warp's run and of a lattice patch.
+//
+// Also measured and not kept: four neighbouring queries a thread walking
+// their shared patch rows once (45 reads a query: 255 registers, lanes four
+// queries apart on even more cache lines; 1.3-1.8x slower than the kernel
+// it replaces); window rows padded to +-1 bank so that a slanted run is
+// conflict-free (slower: no 16-byte copies, larger windows); two or four
+// runs a warp (T = 256, 512) with their x and y loaded ahead; fewer
+// registers for more warps (spills).
+//
+// K2 is built around the locality of the sweep's queries, so that the
+// patches come from shared memory:
 //
 // * Pool mode (sweep_pool_kernel).  The host cuts every row's (i1, i2)
 //   rectangle into tiles of at most 1024 queries (interp_cuda.sweep_tiles).
@@ -47,11 +85,15 @@
 // SM issues and forgets, where a plain add must first wait for its load from
 // HBM (the pool and -B/2 outgrow L2).
 //
-// Launch shape: 384 threads, at most 85 registers each, so that two blocks
-// share an SM together with two 110 KB pool windows.
+// Launch shape: K2 runs 384 threads, at most 85 registers each, so that two
+// blocks share an SM together with two 110 KB pool windows.  K1 runs
+// blocks of kK1Threads threads (T = kK1Threads queries, one run a warp),
+// chosen by timing the main path's captured launches (chip_smoke.py,
+// k1_main_path).
 
 #include <climits>
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -88,6 +130,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 2;  // blocks an SM must hold: caps registers at 85
 // shared-memory window of a pool tile: two blocks fit on one SM
 constexpr int kPoolWindowBytes = 110 * 1024;
+
+// K1's block: T = kK1Threads queries, a run of 32 a warp
+constexpr int kK1Threads = 128;
 
 // The ten D5512 taps for the phase fh = q - floor(q) - 0.5 (Horner in fh^2).
 __device__ __forceinline__ void d5512_taps(double fh, double w[10]) {
@@ -137,20 +182,6 @@ struct LoadShared {
   __device__ double operator()(const double* p) const { return *p; }
 };
 
-// Interpolate one (ny, nx) image at (qx, qy), reading the patch from global
-// memory; 0 when the patch leaves the image.
-__device__ __forceinline__ double d5512_point(const double* __restrict__ img,
-                                              int ny, int nx, double qx, double qy) {
-  const double fx = floor(qx);
-  const double fy = floor(qy);
-  if (!on_grid(fx, fy, ny, nx)) return 0.0;
-  double wx[10], wy[10];
-  d5512_taps(qx - fx - 0.5, wx);
-  d5512_taps(qy - fy - 0.5, wy);
-  const double* p = img + (static_cast<long long>(fy) - 4) * nx + (static_cast<long long>(fx) - 4);
-  return patch_sum(p, nx, wx, wy, LoadGlobal());
-}
-
 __device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
@@ -197,15 +228,85 @@ __device__ void block_bounds(int* box, int xlo, int xhi, int ylo, int yhi) {
   __syncthreads();
 }
 
-__global__ void interp_dense_kernel(const double* __restrict__ images, int ny, int nx,
-                                    const double* __restrict__ x,
-                                    const double* __restrict__ y,
-                                    long long nq, long long total,
-                                    double* __restrict__ out) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const long long r = t / nq;
-  out[t] = d5512_point(images + r * ny * nx, ny, nx, x[t], y[t]);
+// sum_a wy[a] (sum_b wx[b] img[fy - 4 + a][fx - 4 + b]) read through L1 /
+// L2 with 16-byte loads: the image rows must be 16-byte aligned (nx even,
+// img on 16 bytes).  Each patch row is read as six pairs from the even
+// column at or before fx - 4 (the sixth only where fx - 4 is odd), against
+// ten taps shifted to those twelve samples: the extra samples (in the row,
+// finite) add exact zeros, so the sum and its order are the ten-tap ones.
+__device__ __forceinline__ double patch_sum_pairs(const double* __restrict__ img, int nx,
+                                                  int fx, int fy, const double wx[10],
+                                                  const double wy[10]) {
+  const int c0 = fx - 4;
+  const bool odd = c0 & 1;
+  double w[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const double even_tap = j < 10 ? wx[j] : 0.0;
+    const double odd_tap = j >= 1 && j <= 10 ? wx[j - 1] : 0.0;
+    w[j] = odd ? odd_tap : even_tap;
+  }
+  const double2* p = reinterpret_cast<const double2*>(img + (fy - 4) * nx + (c0 & ~1));
+  const int pitch = nx / 2;
+  double acc = 0.0;
+#pragma unroll
+  for (int a = 0; a < 10; ++a) {
+    const double2* row = p + a * pitch;
+    double s = 0.0;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const double2 v = k < 5 || odd ? __ldg(row + k) : make_double2(0.0, 0.0);
+      s += w[2 * k] * v.x;
+      s += w[2 * k + 1] * v.y;
+    }
+    acc += wy[a] * s;
+  }
+  return acc;
+}
+
+// The query of lane `lane` in run t of an image of nq queries, or -1: the
+// 32 consecutive queries [32 t, 32 t + 32), or, for a lattice of rows of
+// n > 0 queries (nq / n rows), its 8 x 4 points at columns [8 tc, 8 tc + 8)
+// and rows [4 tr, 4 tr + 4), t = tr * ctiles + tc.
+__device__ __forceinline__ long long run_query(long long t, int lane, long long nq, int n,
+                                               long long ctiles) {
+  if (n == 0) {
+    const long long q = t * 32 + lane;
+    return q < nq ? q : -1;
+  }
+  const long long tr = t / ctiles;
+  const long long c = (t - tr * ctiles) * 8 + (lane & 7);
+  const long long row = tr * 4 + (lane >> 3);
+  return c < n && row * n < nq ? row * n + c : -1;
+}
+
+// Warp w of the grid takes run t = w % runs of image r = w / runs
+// (run_query), a lane one query; its patch is read in 16-byte pairs where
+// `pairs` (nx even, images on 16 bytes), else sample by sample.
+__global__ void __launch_bounds__(kK1Threads)
+interp_dense_warp_kernel(const double* __restrict__ images, int ny, int nx,
+                         const double* __restrict__ x, const double* __restrict__ y,
+                         long long nq, int n, long long ctiles, long long runs,
+                         long long nruns, bool pairs, double* __restrict__ out) {
+  const long long w = static_cast<long long>(blockIdx.x) * (kK1Threads / 32) + (threadIdx.x >> 5);
+  if (w >= nruns) return;
+  const long long r = w / runs;
+  const long long q = run_query(w - r * runs, threadIdx.x & 31, nq, n, ctiles);
+  if (q < 0) return;
+  const long long i = r * nq + q;
+  const double qx = x[i], qy = y[i];
+  const double fxd = floor(qx), fyd = floor(qy);
+  double v = 0.0;
+  if (on_grid(fxd, fyd, ny, nx)) {
+    double wxt[10], wyt[10];
+    d5512_taps(qx - fxd - 0.5, wxt);
+    d5512_taps(qy - fyd - 0.5, wyt);
+    const int fx = static_cast<int>(fxd), fy = static_cast<int>(fyd);
+    const double* img = images + static_cast<size_t>(r) * ny * nx;
+    v = pairs ? patch_sum_pairs(img, nx, fx, fy, wxt, wyt)
+              : patch_sum(img + (fy - 4) * nx + (fx - 4), nx, wxt, wyt, LoadGlobal());
+  }
+  out[i] = v;
 }
 
 // Row metadata of both modes (int32): imeta [i1_start, i2_start, w2, off,
@@ -429,23 +530,29 @@ sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__
   }
 }
 
-unsigned int blocks_for(long long total) {
-  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
 
 // images (R, ny, nx), x / y / out (R, nq); all f64, contiguous, on the device
-// of `stream`.  Returns cudaGetLastError() after the launch.
+// of `stream`.  n > 0: the queries of an image are a lattice of rows of n
+// (n must divide nq), and a warp takes 8 x 4 of its points; n == 0: 32
+// consecutive queries.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a bad n or more than 2^31 - 1 blocks).
 int interp_d5512_dense(const double* images, int R, int ny, int nx, const double* x,
-                       const double* y, long long nq, double* out, void* stream) {
-  const long long total = static_cast<long long>(R) * nq;
-  if (total > 0) {
-    interp_dense_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        images, ny, nx, x, y, nq, total, out);
-  }
+                       const double* y, long long nq, int n, double* out, void* stream) {
+  if (n < 0 || (n > 0 && nq % n != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (R <= 0 || nq <= 0) return static_cast<int>(cudaGetLastError());
+  constexpr int kWarpsK1 = kK1Threads / 32;
+  const long long ctiles = n > 0 ? (n + 7) / 8 : 0;
+  const long long runs = n > 0 ? ctiles * ((nq / n + 3) / 4) : (nq + 31) / 32;
+  const long long nruns = runs * R;
+  const long long blocks = (nruns + kWarpsK1 - 1) / kWarpsK1;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const bool pairs = (nx & 1) == 0 && (reinterpret_cast<uintptr_t>(images) & 15) == 0;
+  interp_dense_warp_kernel<<<static_cast<unsigned int>(blocks), kK1Threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      images, ny, nx, x, y, nq, n, ctiles, runs, nruns, pairs, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -80,11 +80,12 @@ def kernel_weights(fh: torch.Tensor) -> torch.Tensor:
 
 
 def _split_query(x: torch.Tensor, ng: int):
-    """Clamped integer base index, fractional phase and validity mask."""
+    """Clamped integer base index, fractional phase and validity mask (a NaN
+    query is invalid, and its base index the lowest)."""
     xf = torch.floor(x)
     valid = (xf >= _LO) & (xf < ng - _HI_MARGIN)
     fh = x - xf - 0.5
-    xi = xf.clamp(_LO, ng - _HI_MARGIN - 1).to(torch.int64)
+    xi = xf.nan_to_num(nan=float(_LO)).clamp(_LO, ng - _HI_MARGIN - 1).to(torch.int64)
     return xi, fh, valid
 
 
@@ -151,20 +152,23 @@ def grid_interp(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
 
 def interp2d_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                   kern: str = "D5512") -> torch.Tensor:
+                   kern: str = "D5512", *, lattice_row: int = 0) -> torch.Tensor:
     """
     Interpolate a batch of images at per-image query sets: images (R, ny,
     nx), x, y (R, Nq) -> (R, Nq); 0 off-grid.
 
     The contract of the JAX package's TPU interpolation kernel, without its
     (8, 128) alignment rule.  A CUDA tensor launches kernel K1;
-    a CPU tensor runs its plain gather version.
+    a CPU tensor runs its plain gather version.  `lattice_row` > 0 tells K1
+    that each image's queries are a lattice in row-major order with rows of
+    that many points (it groups neighbouring points; the result is the
+    same).
     """
     from . import interp_cuda
 
     check_kern(kern)
     if images.is_cuda:
-        return interp_cuda.interp_d5512_dense(images, x, y)
+        return interp_cuda.interp_d5512_dense(images, x, y, lattice_row=lattice_row)
     if images.device.type != "cpu":
         raise ValueError(f"interp2d_dense: unsupported device {images.device}")
     return interp_cuda.interp_d5512_dense_plain(images, x, y)

@@ -5,7 +5,11 @@ ctypes wrappers, and their plain PyTorch versions.
 K1 ``interp_d5512_dense`` replaces the JAX package's TPU interpolation
 kernel (R images at R x Nq scattered points; its dense contract is
 ``pyimcom_tpu.ops.interp.interp2d_dense``).  It serves the PSF resampling
-and the star injection.
+and the star and galaxy injection, whose queries are lattices in row-major
+order: a warp takes a run of 32 queries (8 x 4 neighbouring lattice points
+where the caller gives the lattice's row length, else 32 consecutive
+queries), a lane one query, and reads each patch row in 16-byte pairs
+through L1 / L2.
 
 K2 ``sweep_d5512_scatter`` replaces that kernel's outer-difference-query
 variant, fused with the scatters of ``pyimcom_tpu/ops/assemble.py``'s
@@ -43,7 +47,7 @@ launches = {"interp_d5512_dense": 0, "sweep_d5512_scatter.pool": 0,
 
 _p, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
-    "interp_d5512_dense": (_p, _i, _i, _i, _p, _p, _ll, _p, _p),
+    "interp_d5512_dense": (_p, _i, _i, _i, _p, _p, _ll, _i, _p, _p),
     "sweep_d5512_scatter": (_p, _i, _p, _i, _i, _i, _p, _p, _i, _p, _p, _p, _p, _i,
                             _d, _d, _i, _i, _i, _i, _p, _p),
 }
@@ -87,9 +91,17 @@ def _launch(name: str, count: str, device: torch.device, *args) -> None:
 # K1: dense scattered-point interpolation
 # --------------------------------------------------------------------------
 
-def interp_d5512_dense(images: torch.Tensor, x: torch.Tensor,
-                       y: torch.Tensor) -> torch.Tensor:
-    """K1: images (R, ny, nx), x, y (R, Nq), f64 CUDA -> (R, Nq), 0 off-grid."""
+def interp_d5512_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
+                       lattice_row: int = 0) -> torch.Tensor:
+    """
+    K1: images (R, ny, nx), x, y (R, Nq), f64 CUDA -> (R, Nq), 0 off-grid.
+
+    A warp takes a run of 32 queries of one image: 32 consecutive ones, or,
+    where the caller says that each image's queries are a lattice in
+    row-major order with rows of `lattice_row` points (which must divide
+    Nq), 8 x 4 neighbouring points of it.  The result does not depend on
+    the layout.
+    """
     dev = images.device
     _check(images, "images", torch.float64, dev, 3)
     R, ny, nx = images.shape
@@ -98,9 +110,16 @@ def interp_d5512_dense(images: torch.Tensor, x: torch.Tensor,
     if x.shape[0] != R or y.shape != x.shape:
         raise ValueError(f"x, y must be (R={R}, Nq); got {tuple(x.shape)}, "
                          f"{tuple(y.shape)}")
+    if lattice_row < 0 or (lattice_row > 0 and x.shape[1] % lattice_row):
+        raise ValueError(f"lattice_row {lattice_row} does not divide Nq = {x.shape[1]}")
+    if ny * nx >= 2 ** 31:
+        raise ValueError("K1 indexes an image with int32: it must hold fewer than 2**31 "
+                         "samples")
     out = torch.empty(x.shape, dtype=torch.float64, device=dev)
+    if out.numel() == 0:
+        return out
     _launch("interp_d5512_dense", "interp_d5512_dense", dev, images.data_ptr(), R, ny, nx,
-            x.data_ptr(), y.data_ptr(), x.shape[1], out.data_ptr())
+            x.data_ptr(), y.data_ptr(), x.shape[1], int(lattice_row), out.data_ptr())
     return out
 
 
@@ -111,7 +130,6 @@ def interp_d5512_dense_plain(images: torch.Tensor, x: torch.Tensor,
     which = torch.arange(R, device=images.device).repeat_interleave(Nq)
     return _interp.interp2d_stack(images, x.reshape(-1), y.reshape(-1),
                                   which).reshape(R, Nq)
-
 
 
 

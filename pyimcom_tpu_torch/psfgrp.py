@@ -130,7 +130,8 @@ def sample_psf_rotated_batch(geom: PSFGeometry, psfs, mapfns,
     def put(a):
         return torch.as_tensor(a, dtype=DTYPE, device=device)
 
-    out = interp2d_dense(put(stack), put(qx), put(qy), geom.psfinterp)
+    out = interp2d_dense(put(stack), put(qx), put(qy), geom.psfinterp,
+                         lattice_row=geom.nsamp)
     return out.reshape(n_psf, geom.nsamp, geom.nsamp)
 
 

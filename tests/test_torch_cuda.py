@@ -34,6 +34,117 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+K1_SETS = ("rotated", "star", "random")
+
+
+def k1_query_set(kind, R, n, ns, seed):
+    """Seeded (images (R, ns, ns), x, y (R, n * n)) in the shapes of K1's
+    callers: 'rotated' -- an n x n output lattice about one sample apart,
+    rotated and sheared a little (a near-affine WCS map), as
+    psfgrp.sample_psf_rotated_batch makes it, its centre moved off the
+    image's so that part of it falls off; 'star' -- an n x n pixel patch
+    around a star, spaced 6 oversampled samples apart, as
+    layer._draw_patches makes it (most of it off the image); 'random' --
+    uniform points over the image and 5 samples past its edges."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(R, ns, ns))
+    if kind == "random":
+        return (images, rng.uniform(-5, ns + 5, (R, n * n)),
+                rng.uniform(-5, ns + 5, (R, n * n)))
+    ax = np.arange(n) - (n - 1) / 2.0
+    if kind == "rotated":
+        ang = rng.uniform(0, 2 * np.pi, R)
+        jac = np.stack([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]])
+        jac = jac * rng.uniform(0.99, 1.01, (2, 2, R))          # the WCS's distortion
+        ctr = (ns - 1) / 2.0 + rng.uniform(-0.3, 0.3, (2, R)) * ns
+        yo, xo = np.meshgrid(ax, ax, indexing="ij")
+        x = jac[0, 0][:, None] * xo.ravel() + jac[0, 1][:, None] * yo.ravel() + ctr[0][:, None]
+        y = jac[1, 0][:, None] * xo.ravel() + jac[1, 1][:, None] * yo.ravel() + ctr[1][:, None]
+        return images, x, y
+    ov, p = 6, 6
+    ctr = (ns - 2 * p - 1) / 2.0
+    xs, ys = rng.uniform(100, 200, R), rng.uniform(100, 200, R)
+    gx = np.floor(xs).astype(int)[:, None, None] - n // 2 + np.arange(n)[None, None, :]
+    gy = np.floor(ys).astype(int)[:, None, None] - n // 2 + np.arange(n)[None, :, None]
+    x = ov * (gx - xs[:, None, None]) + ctr + p
+    y = ov * (gy - ys[:, None, None]) + ctr + p
+    x, y = np.broadcast_arrays(x, y)
+    return images, x.reshape(R, -1), y.reshape(R, -1)
+
+
+def _k1_case(cuda, images, x, y, **kw):
+    """K1 (one launch, counted) and its plain version on the card; returns
+    (result, plain result)."""
+    images, x, y = (torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+                    for a in (images, x, y))
+    interp_cuda.reset_launch_counts()
+    got = interp_cuda.interp_d5512_dense(images, x, y, **kw)
+    assert interp_cuda.launches["interp_d5512_dense"] == 1
+    want = interp_cuda.interp_d5512_dense_plain(images, x, y)
+    assert interp_cuda.launches["interp_d5512_dense"] == 1
+    return got, want
+
+
+@pytest.mark.parametrize("lattice", [False, True], ids=["runs", "lattice"])
+@pytest.mark.parametrize("kind", K1_SETS)
+def test_k1_matches_plain_on_main_path_sets(cuda, kind, lattice):
+    """The callers' lattices and random points, in runs of 32 consecutive
+    queries and (where the caller says so) of 8 x 4 lattice points."""
+    images, x, y = k1_query_set(kind, 8, 40, 140, seed=K1_SETS.index(kind))
+    got, want = _k1_case(cuda, images, x, y, lattice_row=40 * lattice)
+    assert int((want != 0).sum()) > 0
+    assert _rel(got, want) < TOL
+    assert torch.equal(got == 0, want == 0)
+
+
+def test_k1_odd_rows_read_sample_by_sample(cuda):
+    """An image with an odd row length (no 16-byte pairs) and one whose
+    stack starts off 16 bytes: both take the sample-by-sample reads."""
+    images, x, y = k1_query_set("rotated", 3, 40, 141, seed=12)
+    got, want = _k1_case(cuda, images, x, y, lattice_row=40)
+    assert _rel(got, want) < TOL
+    images, x, y = k1_query_set("rotated", 3, 40, 140, seed=13)
+    stack = torch.as_tensor(np.concatenate([[0.0], images.ravel()]), device=cuda)
+    shifted = stack[1:].view(images.shape)          # 8 bytes past a 16-byte boundary
+    xq, yq = torch.as_tensor(x, device=cuda), torch.as_tensor(y, device=cuda)
+    interp_cuda.reset_launch_counts()
+    got = interp_cuda.interp_d5512_dense(shifted, xq, yq, lattice_row=40)
+    assert interp_cuda.launches["interp_d5512_dense"] == 1
+    assert _rel(got, interp_cuda.interp_d5512_dense_plain(shifted, xq, yq)) < TOL
+
+
+@pytest.mark.parametrize("lattice", [False, True], ids=["runs", "lattice"])
+@pytest.mark.parametrize("R, n", [(1, 70), (3, 33), (2, 1)],
+                         ids=["R1", "Nq-ragged", "Nq1"])
+def test_k1_edges(cuda, R, n, lattice):
+    """One image; Nq = 1089 and 1, multiples of neither T nor a warp's run;
+    lattice rows (33, 1) that are not multiples of a lattice run's 8."""
+    images, x, y = k1_query_set("rotated", R, n, 90, seed=7)
+    x[:, 0] = 45.25                                # one query surely on the grid
+    got, want = _k1_case(cuda, images, x, y, lattice_row=n * lattice)
+    assert _rel(got, want) < TOL
+    assert torch.equal(got == 0, want == 0)
+
+
+def test_k1_no_queries_launches_nothing(cuda):
+    images = torch.zeros((2, 30, 30), dtype=torch.float64, device=cuda)
+    q = torch.zeros((2, 0), dtype=torch.float64, device=cuda)
+    interp_cuda.reset_launch_counts()
+    assert interp_cuda.interp_d5512_dense(images, q, q).shape == (2, 0)
+    assert interp_cuda.launches["interp_d5512_dense"] == 0
+
+
+def test_k1_nan_queries_give_zero(cuda):
+    images, x, y = k1_query_set("rotated", 2, 40, 80, seed=3)
+    x[0, ::3] = np.nan
+    y[1, 1::5] = np.nan
+    x[1, 2] = np.inf
+    got, want = _k1_case(cuda, images, x, y)
+    assert torch.all(got[0, ::3] == 0) and torch.all(got[1, 1::5] == 0) and got[1, 2] == 0
+    assert _rel(got, want) < TOL
+    assert torch.equal(got == 0, want == 0)
+
+
 def test_k1_matches_plain_and_counts_launches(cuda):
     rng = np.random.default_rng(0)
     R, Nq, ns = 5, 3000, 91                    # no (8, 128) alignment needed
@@ -138,6 +249,8 @@ def test_wrappers_reject_bad_inputs_on_the_card(cuda):
         interp_cuda.interp_d5512_dense(images, q, q)
     with pytest.raises(ValueError):
         interp_cuda.interp_d5512_dense(images.double(), q.T.contiguous(), q.T.contiguous())
+    with pytest.raises(ValueError, match="lattice_row"):
+        interp_cuda.interp_d5512_dense(images.double(), q, q, lattice_row=3)
 
 
 def test_probe_kernel_builds_and_adds_one(cuda):

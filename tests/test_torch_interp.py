@@ -16,6 +16,7 @@ from pyimcom_tpu.ops import interp as ref
 from pyimcom_tpu.ops.interp_pallas import interp2d_dense_pallas
 from pyimcom_tpu_torch.convert import from_numpy
 from pyimcom_tpu_torch.ops import interp, interp_cuda
+from test_torch_cuda import K1_SETS, k1_query_set
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -107,6 +108,31 @@ def test_interp2d_dense_matches_pallas_interpret():
     pal = np.asarray(interp2d_dense_pallas(jnp.asarray(images), jnp.asarray(x),
                                            jnp.asarray(y), interpret=True))
     scale = np.abs(images).max()
+    np.testing.assert_allclose(got, pal, rtol=0, atol=3e-6 * scale)
+    np.testing.assert_array_equal(got == 0.0, pal == 0.0)
+
+
+@pytest.mark.parametrize("kind", K1_SETS)
+def test_k1_plain_matches_reference_on_main_path_sets(kind):
+    """K1's plain version, through the dense entry on CPU tensors with the
+    lattice row its callers pass, on the query sets of its callers (the
+    rotated PSF sampling lattice, a star patch, random points;
+    tests/test_torch_cuda.py holds the kernel to this plain version on the
+    card): against the JAX package's dense entry in f64 to 1e-12 of scale,
+    and against its Pallas kernel in interpret mode to that kernel's
+    f32-phase bound."""
+    images, x, y = k1_query_set(kind, 8, 16, 47, seed=20 + K1_SETS.index(kind))
+    interp_cuda.reset_launch_counts()
+    got = interp.interp2d_dense(_t(images), _t(x), _t(y),
+                                lattice_row=0 if kind == "random" else 16).numpy()
+    assert interp_cuda.launches["interp_d5512_dense"] == 0
+    scale = np.abs(images).max()
+    assert 0 < int((got != 0).sum()) < got.size      # on and off the grid
+    want = np.asarray(ref.interp2d_dense(jnp.asarray(images), jnp.asarray(x),
+                                         jnp.asarray(y)))
+    _close(got, want, scale)
+    pal = np.asarray(interp2d_dense_pallas(jnp.asarray(images), jnp.asarray(x),
+                                           jnp.asarray(y), interpret=True))
     np.testing.assert_allclose(got, pal, rtol=0, atol=3e-6 * scale)
     np.testing.assert_array_equal(got == 0.0, pal == 0.0)
 
