@@ -7,7 +7,8 @@ Smoke run of pyimcom_tpu_torch on one NVIDIA GPU.
 It builds the port's CUDA kernels from csrc/ and drives the port's paths
 through the user's entry points: the block coadd
 ``pyimcom_tpu_torch.coadd.Block(cfg, this_sub, device="cuda")`` with every
-LAKERNEL, and the toolchain probe ``pyimcom_tpu_torch.probe``:
+LAKERNEL, the destriping entry point ``pyimcom_tpu_torch.imdestripe.main`` and
+the toolchain probe ``pyimcom_tpu_torch.probe``:
 
 1. build: the card's name and power limit, the nvcc builds of the D5512
    kernels (and, where pyimcom_tpu_torch/_build/parent/interp_d5512.cu
@@ -55,7 +56,24 @@ LAKERNEL, and the toolchain probe ``pyimcom_tpu_torch.probe``:
    queries on the grid, its device time against its plain version (1e-12 of
    scale) and the earlier revision's K1 (held to the same) where built, its
    bounds and share of the bound, and, for PSF sampling, its time with runs
-   of 32 consecutive queries instead of 8 x 4 lattice points.
+   of 32 consecutive queries instead of 8 x 4 lattice points;
+11. destripe (in .smoke_work/destripe/): build_survey(n_obs=6) -- 4 F184
+   SCAs at 4088^2 overlapping in 12 ordered pairs -- with row stripes
+   injected as scripts/run_chained_pipeline.py does, then
+   ``pyimcom_tpu_torch.imdestripe.main(cfg, maxiter=5)`` on the card (object
+   mask and WCS gain on): the host map build and upload seconds, peak device
+   memory, seconds per CG iteration, the cost before and after, the K3 / K4
+   launches and one cost-and-gradient's device time; the kernel route of the
+   cost against its plain route (autograd through the plain gather) at zero
+   and random parameters (cost to rtol 1e-12, gradient to rtol 1e-9 and atol
+   1e-12); at least half of the SCAs destriped by 2x in their row medians
+   against the clean files (tests/test_full_pipeline.py); then K3 and K4
+   alone on the first pair (against their plain versions, their bounds, and
+   grid_sample and its input gradient as the library yardstick); and the
+   bench block coadded from the clean, striped and destriped inputs (each
+   with its own input directory and layer cache): 16 stamps, finite maps,
+   U/C medians equal to 1e-6, the destriped science nearer the clean one
+   than the striped, by RMS, and the SL1 of all three.
 
 Timing.  A kernel's time is the median CUDA-event time of single calls,
 each enqueued behind a torch.cuda._sleep of SLEEP_CYCLES, so that the
@@ -105,6 +123,11 @@ PARENT_SHA256 = "8aaf4ea17e3cd5b6b57ddceda891cd142db8ba5ba2f67bf43b7736a0bec0eee
 PEAK_BYTES_S, PEAK_F64_S = 3.35e12, 67e12               # H100 SXM data sheet
 TAPS_FLOP = 96                  # one D5512 tap set (Horner in fh^2)
 QUERY_FLOP = 2 * TAPS_FLOP + 220 + 6   # two tap sets, the 10x10 sum, the position
+# one in-bounds query of K3 (floors, weights, gain weights, norm, the sum,
+# the division, the accumulator) and of K4 (the same taps, norm and division,
+# four products and four adds)
+GATHER_FLOP, ADJOINT_FLOP = 27, 27
+DS_SEED, DS_STRIPE = 99, 0.01   # scripts/run_chained_pipeline.py's stripes
 # torch.cuda._sleep cycles enqueued before a timed call, so that the device
 # is still busy while the host enqueues it (about 0.2 ms at 1.98 GHz)
 SLEEP_CYCLES = 400_000
@@ -520,6 +543,290 @@ def k2_main_path(torch, dev, name, cap, floor_ms):
     return rec
 
 
+class capture_destripe:
+    """While active, keep the DestripeProblem that imdestripe.main makes (its
+    device cost, map and upload times) in `.problem`, and the host seconds
+    of main's other steps in `.times`: loading the SCAs (FITS reads, WCS
+    gains, object masks), the overlap matrix and conjugate gradient."""
+
+    def __enter__(self):
+        from pyimcom_tpu_torch import imdestripe
+        from pyimcom_tpu_torch.utils import compareutils
+
+        self.problem, self.times = None, {}
+        self._saved = [(imdestripe, "DestripeProblem"), (imdestripe, "get_scas"),
+                       (imdestripe, "conjugate_gradient"),
+                       (compareutils, "get_overlap_matrix")]
+        self._saved = [(m, k, getattr(m, k)) for m, k in self._saved]
+        outer = self
+
+        class Captured(imdestripe.DestripeProblem):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                outer.problem = self
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    outer.times[name] = time.perf_counter() - t0
+            return run
+
+        imdestripe.DestripeProblem = Captured
+        imdestripe.get_scas = timed("get_scas_s", imdestripe.get_scas)
+        imdestripe.conjugate_gradient = timed("cg_s", imdestripe.conjugate_gradient)
+        compareutils.get_overlap_matrix = timed("overlap_s", compareutils.get_overlap_matrix)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def bilinear_records(torch, dev, dc, floor_ms, reps=20):
+    """K3 and K4 on the first pair of a DestripeCost `dc` (the neighbour's
+    image and gain at the pair map's positions): device times,
+    errors against the plain versions, bounds, and the library times of
+    torch.nn.functional.grid_sample (bilinear, zeros, align_corners=True)
+    and of its input gradient, which compute the unweighted gather and its
+    adjoint where 0 <= floor(x) <= nx - 2 and 0 <= floor(y) <= ny - 2: they
+    are timed on the pair's points inside that region (`library_points`),
+    and so is each kernel doing the library's work there, without a gain and
+    writing its result (`library_work_ms`).
+    K3 runs as the main path runs it, adding into an accumulator; its bytes
+    are x, y and the accumulator read and written (32 a query), the image and
+    the gain once; K4's the values, x and y (24 a query), the gain once and
+    the output written once.  Operations: GATHER_FLOP / ADJOINT_FLOP an
+    in-bounds query."""
+    import torch.nn.functional as F
+
+    from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
+
+    _i, j = dc.pairs[0]
+    img, gain, x, y = dc.imgs[j], dc.ge[j], dc.xf[0], dc.yf[0]
+    ny, nx = img.shape
+    n, npix = x.numel(), ny * nx
+    inb = bilinear.in_bounds(x, y, (ny, nx))
+    n_in = int(inb.sum())
+    v = torch.as_tensor(np.random.default_rng(20261017).normal(size=n), device=dev)
+    acc = torch.zeros(n, dtype=torch.float64, device=dev)
+    got3 = bc.bilinear_gather(img, x, y, gain, out=acc.clone())
+    want3 = bilinear.bilinear_gather_plain(img, x, y, gain)
+    got4 = bc.bilinear_scatter_adjoint(v, x, y, (ny, nx), gain)
+    want4 = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (ny, nx), gain)
+    torch.cuda.synchronize()
+    # the library on the points inside its region, in its normalised coordinates
+    xs, ys, vs = x[inb], y[inb], v[inb].reshape(1, 1, 1, -1)
+    grid = torch.stack([2 * xs / (nx - 1) - 1, 2 * ys / (ny - 1) - 1], -1).reshape(1, 1, -1, 2)
+    inp = img.reshape(1, 1, ny, nx).clone().requires_grad_(True)
+    out_gs = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                           align_corners=True)
+    lib_err = rel_err(torch, out_gs.detach().reshape(-1), bc.bilinear_gather(img, xs, ys))
+
+    def lib_gather():
+        with torch.no_grad():
+            F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    def lib_adjoint():
+        torch.autograd.grad(out_gs, inp, vs, retain_graph=True)
+
+    vflat = vs.reshape(-1)
+    common = dict(pair=list(dc.pairs[0]), image=[ny, nx], queries=n, in_bounds=n_in,
+                  library_points=n_in, library_vs_unweighted_K3=lib_err,
+                  launch_floor_ms=floor_ms)
+    k3 = dict(common, mode="accumulate, gain", max_abs_err=rel_err(torch, got3, want3),
+              ms=median_ms(torch, lambda: bc.bilinear_gather(img, x, y, gain, out=acc), reps,
+                           setup=acc.zero_),
+              plain_ms=median_ms(torch, lambda: bilinear.bilinear_gather_plain(
+                  img, x, y, gain), 3),
+              library_ms=median_ms(torch, lib_gather, reps),
+              library_work_ms=median_ms(torch, lambda: bc.bilinear_gather(img, xs, ys), reps),
+              **bounds(8 * (4 * n + 2 * npix), GATHER_FLOP * n_in, floor_ms))
+    k4 = dict(common, mode="gain", max_abs_err=rel_err(torch, got4, want4),
+              ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(
+                  v, x, y, (ny, nx), gain), reps),
+              plain_ms=median_ms(torch, lambda: bilinear.bilinear_scatter_adjoint_plain(
+                  v, x, y, (ny, nx), gain), 3),
+              library_ms=median_ms(torch, lib_adjoint, reps),
+              library_work_ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(
+                  vflat, xs, ys, (ny, nx)), reps),
+              **bounds(8 * (3 * n + 2 * npix), ADJOINT_FLOP * n_in, floor_ms))
+    for rec in (k3, k4):
+        assert rec["max_abs_err"] < TOL, rec
+    return k3, k4
+
+
+def striped_survey(root):
+    """The destripe phase's survey: build_survey(n_obs=6) (4 F184 SCAs at
+    4088^2), a clean copy of each L2 image under root/clean, and row stripes
+    injected into the L2 images as scripts/run_chained_pipeline.py does
+    (default_rng(99), scale 0.01, written back as float32).  Returns (config
+    dict, the L2 paths)."""
+    from survey_fixture_torch import build_survey
+
+    from pyimcom_tpu_torch.fitsio import HDUList, Header, ImageHDU, fits_read, fits_write
+
+    cfg = build_survey(root, n_obs=6, extrainput=["cstar14"])
+    raw = sorted(p for p in (root / "in").glob("sim_L2_F184_*.fits") if "_mask" not in p.name)
+    (root / "clean").mkdir()
+    rng = np.random.default_rng(DS_SEED)
+    for p in raw:
+        shutil.copy(p, root / "clean" / p.name)
+        f = fits_read(p)
+        img = np.asarray(f[0].data, np.float64)
+        stripes = rng.normal(scale=DS_STRIPE, size=img.shape[0])
+        fits_write(p, HDUList([ImageHDU((img + stripes[:, None]).astype(np.float32),
+                                        header=Header(f[0].header))]))
+    return cfg, raw
+
+
+def destripe_quality(root, raw, dsdir):
+    """Per SCA, the std of the row medians of (striped - clean) and of
+    (destriped - clean) (tests/test_full_pipeline.py's criterion)."""
+    import re
+
+    from pyimcom_tpu_torch.fitsio import fits_read
+
+    out = {}
+    for p in raw:
+        name = re.search(r"(\w\d+)_(\d+)_(\d+)", p.name).group(0)
+        clean = np.asarray(fits_read(root / "clean" / p.name)[0].data, np.float64)
+        striped = np.asarray(fits_read(p)[0].data, np.float64)
+        ds = np.asarray(fits_read(Path(dsdir) / f"ds_{name}.fits")[0].data, np.float64)
+        out[name] = {"striped": float(np.std(np.median(striped - clean, axis=1))),
+                     "destriped": float(np.std(np.median(ds - clean, axis=1)))}
+    return out
+
+
+def destripe_inputs(root, raw, dsdir, variant):
+    """An input directory for one coadd of the destripe phase: the masks
+    linked, each L2 image from the clean copy, the striped file or the
+    destriped image (under the original L2 name, with its header, as
+    scripts/run_chained_pipeline.py feeds it back)."""
+    import re
+
+    from pyimcom_tpu_torch.fitsio import HDUList, Header, ImageHDU, fits_read, fits_write
+
+    vin = root / f"in_{variant}"
+    vin.mkdir()
+    for p in (root / "in").iterdir():
+        if "_mask" in p.name:
+            (vin / p.name).symlink_to(p)
+    for p in raw:
+        if variant == "clean":
+            shutil.copy(root / "clean" / p.name, vin / p.name)
+        elif variant == "striped":
+            shutil.copy(p, vin / p.name)
+        else:
+            name = re.search(r"(\w\d+)_(\d+)_(\d+)", p.name).group(0)
+            g = fits_read(Path(dsdir) / f"ds_{name}.fits")
+            fits_write(vin / p.name, HDUList([ImageHDU(np.asarray(g[0].data, np.float32),
+                                                       header=Header(g[0].header))]))
+    return vin
+
+
+def phase_destripe(torch, dev, floor_ms):
+    """imdestripe.main on 4 striped F184 SCAs at 4088^2 (12 ordered pairs)
+    with 5 CG iterations, object mask and WCS gain on; K3 and K4 at the
+    phase's shapes; the kernel route of the cost against the plain route;
+    then the bench block coadded from the clean, striped and destriped
+    inputs.  Returns (K3, K4 records, the main path's launches)."""
+    from pyimcom_tpu_torch import imdestripe
+    from pyimcom_tpu_torch.config import Config
+    from pyimcom_tpu_torch.fitsio import fits_read
+    from pyimcom_tpu_torch.ops import bilinear_cuda
+
+    root = WORK / "destripe"
+    root.mkdir()
+    t0 = time.perf_counter()
+    cfg_dict, raw = striped_survey(root)
+    survey_s = time.perf_counter() - t0
+    dsdir = str(root / "ds")
+    d = dict(cfg_dict, DSOUT=[dsdir, "ds"], DSOBSFILE=str(root / "in" / "sim_L2_*[0-9].fits"))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bilinear_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with capture_destripe() as cap:
+        params, history = imdestripe.main(Config(d), maxiter=5)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(bilinear_cuda.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert all(k > 0 for k in launches.values()), launches
+    prob = cap.problem
+    dc = prob.device_cost
+    assert len(dc.pairs) == 12 and dc.imgs.shape == (4, 4088, 4088), (dc.pairs, dc.imgs.shape)
+
+    cost0 = prob.cost(np.zeros_like(params))
+    ts = [h["t"] for h in history]
+    p_rand = torch.as_tensor(np.random.default_rng(5).normal(scale=0.01, size=params.size),
+                             device=dev)
+    t_host = time.perf_counter()
+    prob.cost_and_grad(p_rand.cpu().numpy())
+    cg_host_s = time.perf_counter() - t_host
+    # the whole cost and gradient enqueue for ~2 ms of host time: the sleep
+    # ahead of the timed calls is 20 times the kernels'
+    cg_ms = statistics.median(device_times(torch, lambda: dc.value_and_grad(p_rand), 5,
+                                           sleep=20 * SLEEP_CYCLES))
+    routes = {}
+    for name, p in (("zero", torch.zeros_like(p_rand)), ("random", p_rand)):
+        e_k, g_k = dc.value_and_grad(p)
+        e_p, g_p = dc.value_and_grad(p, plain=True)
+        routes[name] = {"cost_rel": abs(float(e_k - e_p)) / abs(float(e_p)),
+                        "grad_max_excess": float(((g_k - g_p).abs() - 1e-9 * g_p.abs()).max()),
+                        "grad_scale": float(g_p.abs().max())}
+        assert routes[name]["cost_rel"] < 1e-12 and routes[name]["grad_max_excess"] <= 1e-12, \
+            routes
+    quality = destripe_quality(root, raw, dsdir)
+    improved = sum(q["destriped"] < 0.5 * q["striped"] for q in quality.values())
+    emit({"phase": "destripe", "scas": list(quality), "pairs": len(dc.pairs),
+          "image": list(dc.imgs.shape[1:]), "survey_s": survey_s, "main_s": main_s,
+          **prob.times, **cap.times, "max_memory_allocated_GiB": peak / 2 ** 30,
+          "cg_iterations": len(history),
+          "cg_iter_s": [b - a for a, b in zip([0.0] + ts[:-1], ts)],
+          "cost_start": cost0, "cost_end": history[-1]["cost"], "launches": launches,
+          "cost_and_grad_device_ms": cg_ms, "cost_and_grad_host_s": cg_host_s,
+          "routes": routes, "row_median_std": quality, "improved": improved})
+    assert len(quality) == 4 and history[-1]["cost"] < cost0, quality
+    assert improved >= len(quality) // 2, quality
+
+    # ---- K3 and K4 alone at the phase's shapes ----
+    k3, k4 = bilinear_records(torch, dev, dc, floor_ms)
+    emit({"phase": "bilinear_kernels", "criterion": TOL, "K3": k3, "K4": k4})
+    del cap.problem, prob, dc
+    torch.cuda.empty_cache()
+
+    # ---- the bench block from the clean, striped and destriped inputs ----
+    runs = {}
+    for variant in ("clean", "striped", "destriped"):
+        vin = destripe_inputs(root, raw, dsdir, variant)
+        (root / f"cache_{variant}").mkdir()
+        blk, out, t_blk, blk_launches = run_block(
+            cfg_dict, f"_ds_{variant}", INDATA=[str(vin), "L2_fits"],
+            INLAYERCACHE=str(root / f"cache_{variant}" / "in"))
+        SL1, uc_med = quality_check(out)
+        hdus = fits_read(out)
+        finite = all(bool(np.all(np.isfinite(np.asarray(h.data)))) for h in hdus
+                     if getattr(h, "data", None) is not None
+                     and np.asarray(h.data).dtype.kind in "fiu")
+        runs[variant] = dict(stamps=len(blk.stamp_stats), block_s=t_blk, SL1=SL1,
+                             uc_median=uc_med, finite=finite, launches=blk_launches,
+                             sci=np.asarray(hdus[0].data[:, 0], np.float64))
+    rms = {v: float(np.sqrt(np.mean((runs[v]["sci"] - runs["clean"]["sci"]) ** 2)))
+           for v in ("striped", "destriped")}
+    uc = [r["uc_median"] for r in runs.values()]
+    emit({"phase": "destripe_coadd", "rms_vs_clean": rms,
+          **{v: {k: r[k] for k in r if k != "sci"} for v, r in runs.items()}})
+    assert all(r["stamps"] == 16 and r["finite"] for r in runs.values()), runs
+    assert max(uc) - min(uc) <= 1e-6 * min(uc), uc
+    assert rms["destriped"] < rms["striped"], rms
+    return k3, k4, launches
+
+
 def science(path):
     """Layer 0 of output PSF 0 of a block, in float64."""
     from pyimcom_tpu_torch.fitsio import fits_read
@@ -655,13 +962,15 @@ def main():
     from pyimcom_tpu_torch import _build
 
     t0 = time.perf_counter()
-    jobs = {"interp_d5512": lambda: _build.build("interp_d5512")}
+    jobs = {"interp_d5512": lambda: _build.build("interp_d5512"),
+            "bilinear": lambda: _build.build("bilinear")}
     if PARENT_SRC.exists():
         jobs["interp_d5512_parent"] = build_parent
     with ThreadPoolExecutor(len(jobs)) as pool:
         reports = {k: f.result() for k, f in
                    {k: pool.submit(job) for k, job in jobs.items()}.items()}
     _build.library("interp_d5512")
+    _build.library("bilinear")
     parent = parent_k1() if PARENT_SRC.exists() else None
     emit({"phase": "build", "gpu": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
@@ -788,6 +1097,9 @@ def main():
         main_k1[key] = k1_main_path(torch, dev, key, k1_caps.pop(key), floor_ms, parent)
         emit({"phase": "k1_main_path", "criterion": TOL, **main_k1[key]})
 
+    # ---- 11. destriping, from imdestripe.main to the coadd ------------------------
+    k3, k4, ds_launches = phase_destripe(torch, dev, floor_ms)
+
     # ---- summary ---------------------------------------------------------------
     # the kernels line's bound is bytes and operations alone (roofline_ms);
     # its K1 and K2 times are those of the main path's own launches
@@ -812,6 +1124,12 @@ def main():
         summary.append(line(f"sweep_d5512_scatter.{mode}", src,
                             "pyimcom_tpu/ops/interp_pallas.py:140",
                             launches[f"sweep_d5512_scatter.{mode}"], max(errs), k2[mode], no_lib))
+    bil = "pyimcom_tpu_torch/csrc/bilinear.cu"
+    summary.append(line("bilinear_gather", bil, "pyimcom_tpu/ops/bilinear.py:45",
+                        ds_launches["bilinear_gather"], k3["max_abs_err"], k3, k3["library_ms"]))
+    summary.append(line("bilinear_scatter_adjoint", bil, "pyimcom_tpu/ops/bilinear.py:61",
+                        ds_launches["bilinear_scatter_adjoint"], k4["max_abs_err"], k4,
+                        k4["library_ms"]))
     summary.append(line("probe_add_one", "pyimcom_tpu_torch/csrc/probe.cu",
                         "scripts/probe_pallas.py:33", probe_launches,
                         kern["probe"]["max_abs_err"], kern["probe"],

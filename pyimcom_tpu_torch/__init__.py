@@ -9,22 +9,26 @@ public function names of its counterpart there, and the tests in
 This package imports ``torch`` and never ``jax``, and nothing of
 ``pyimcom_tpu``.  It keeps its own copies of the reference's host modules
 (``config``, ``fitsio``, ``wcsutil``, ``sphere``, ``asdfio``, ``profiling``,
-``ops/psfmodels``, ``utils/moments`` and the layer helpers in
-``layer_host``), which ``tests/test_torch_hostio.py`` holds to their
+``ops/psfmodels``, ``utils/moments``, ``utils/compareutils``, the layer
+helpers in ``layer_host`` and ``imdestripe``'s host helpers), which ``tests/test_torch_hostio.py`` holds to their
 originals.  The TPU kernel on the coadd's path, the
 D5512 interpolation, is a hand-written CUDA kernel pair for Hopper
-(``csrc/interp_d5512.cu``); the relay's compile probe is a hand-written
+(``csrc/interp_d5512.cu``); the destriper's bilinear gather and its
+adjoint, which the JAX package leaves to XLA, are a hand-written CUDA pair
+too (``csrc/bilinear.cu``); the relay's compile probe is a hand-written
 build-and-launch probe (``csrc/probe.cu``, ``python -m
 pyimcom_tpu_torch.probe``).  Both are built with ``nvcc`` at first use.
 
 Modules:
     device      device check and the float64 policy
     convert     reference arrays -> port tensors
-    ops         interpolation, CUDA kernels, Fourier overlaps, assembly
+    ops         interpolation, CUDA kernels, Fourier overlaps, assembly,
+                the destriping bilinear pair and cost
     psfgrp      PSF groups and overlap stacks
     solvers     Cholesky (any kappa nodes), Eigen, Iterative, Empirical
     layer       input layer cubes, star and galaxy injection
     coadd       the block coadd (``Block(cfg, this_sub, device=...)``)
+    imdestripe  destriping (``main(cfg, device=...)``)
     probe       the toolchain probe of the card
 """
 

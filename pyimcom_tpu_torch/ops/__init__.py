@@ -1,2 +1,3 @@
 """Tensor operations of the port: interpolation (with its CUDA kernels),
-Fourier overlaps and system-matrix assembly."""
+Fourier overlaps, system-matrix assembly, and the destriping bilinear pair
+(with its CUDA kernels) and cost."""

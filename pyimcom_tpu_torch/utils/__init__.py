@@ -1,1 +1,1 @@
-"""Host-side utilities of the port: adaptive moments."""
+"""Host-side utilities of the port: adaptive moments, SCA-to-SCA geometry."""

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 and K2 against their plain versions, and the probe
+"""The CUDA kernels K1 and K2, the destriping pair K3 and K4 (and the
+destripe cost that runs them), against their plain versions, and the probe
 kernel, on the card.
 
 These tests need a CUDA GPU (and the CUDA toolkit, to build the kernels);
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from pyimcom_tpu_torch import probe
-from pyimcom_tpu_torch.ops import interp, interp_cuda
+from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda, interp, interp_cuda
+from pyimcom_tpu_torch.ops.destripe_device import DestripeCost
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -264,3 +266,148 @@ def test_probe_kernel_builds_and_adds_one(cuda):
     assert torch.equal(probe.probe_add_one(x), probe.probe_add_one_plain(x))
     with pytest.raises(TypeError):
         probe.probe_add_one(x.double())
+
+
+# --------------------------------------------------------------------------
+# K3 / K4: the destriping bilinear pair
+# --------------------------------------------------------------------------
+
+def _bil_case(cuda, seed, ny=300, nx=257, n=60_000):
+    """Seeded image, gain and values, and n points: a rotated, shifted copy
+    of the grid (the shape of a destripe pair map: neighbouring queries on
+    neighbouring pixels), part of it off the grid, with NaN and infinite
+    positions among them."""
+    rng = np.random.default_rng(seed)
+    th = 0.1
+    q = np.arange(n)
+    xx, yy = (q % nx).astype(float), (q // nx).astype(float)
+    xf = np.cos(th) * xx - np.sin(th) * yy + 12.3
+    yf = np.sin(th) * xx + np.cos(th) * yy - 17.6
+    xf[::97], yf[5::89], xf[7::101] = np.nan, np.nan, np.inf
+    put = lambda a: torch.as_tensor(a, device=cuda)          # noqa: E731
+    return (put(rng.normal(size=(ny, nx))), put(rng.uniform(0.5, 2.0, (ny, nx))),
+            put(xf), put(yf), put(rng.normal(size=n)))
+
+
+@pytest.mark.parametrize("accumulate", [False, True], ids=["write", "accumulate"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_k3_matches_plain(cuda, weighted, accumulate):
+    img, gain, x, y, v = _bil_case(cuda, 20)
+    g = gain if weighted else None
+    bilinear_cuda.reset_launch_counts()
+    got = bilinear_cuda.bilinear_gather(img, x, y, g, out=v.clone() if accumulate else None)
+    assert bilinear_cuda.launches["bilinear_gather"] == 1
+    want = bilinear.bilinear_gather_plain(img, x, y, g) + (v if accumulate else 0.0)
+    assert bilinear_cuda.launches["bilinear_gather"] == 1
+    assert _rel(got, want) < TOL
+    off = ~bilinear.in_bounds(x, y, img.shape)
+    assert int(off.sum()) > 1000 and int((~off).sum()) > 20_000
+    if not accumulate:
+        assert torch.all(got[off] == 0)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_k4_matches_plain(cuda, weighted):
+    img, gain, x, y, v = _bil_case(cuda, 21)
+    g = gain if weighted else None
+    bilinear_cuda.reset_launch_counts()
+    got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)
+    assert bilinear_cuda.launches["bilinear_scatter_adjoint"] == 1
+    want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)
+    assert _rel(got, want) < TOL
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_k3_k4_adjoint_identity_on_the_card(cuda, weighted):
+    img, gain, x, y, v = _bil_case(cuda, 22)
+    g = gain if weighted else None
+    lhs = float(torch.dot(bilinear_cuda.bilinear_gather(img, x, y, g), v))
+    rhs = float(torch.sum(img * bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)))
+    assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+def test_k3_k4_nan_and_off_grid_give_zero(cuda):
+    """Positions off the grid (the last row and column included), NaN and
+    infinite: K3 gives 0 and K4 adds nothing."""
+    img, gain, _x, _y, _v = _bil_case(cuda, 23)
+    ny, nx = img.shape
+    x = torch.tensor([-0.5, nx - 1.0, 3.0, float("nan"), 5.0, float("inf"), -float("inf"),
+                      float(nx) + 4], dtype=torch.float64, device=cuda)
+    y = torch.tensor([3.0, 3.0, ny - 1.0, 4.0, float("nan"), 6.0, 7.0, 2.0],
+                     dtype=torch.float64, device=cuda)
+    v = torch.ones_like(x)
+    for g in (None, gain):
+        assert torch.all(bilinear_cuda.bilinear_gather(img, x, y, g) == 0)
+        assert torch.all(bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g) == 0)
+
+
+def test_k3_k4_no_queries_launch_nothing(cuda):
+    img = torch.zeros((30, 30), dtype=torch.float64, device=cuda)
+    q = torch.zeros(0, dtype=torch.float64, device=cuda)
+    bilinear_cuda.reset_launch_counts()
+    assert bilinear_cuda.bilinear_gather(img, q, q).shape == (0,)
+    assert bilinear_cuda.bilinear_scatter_adjoint(q, q, q, img.shape).shape == (30, 30)
+    assert bilinear_cuda.launches == {"bilinear_gather": 0, "bilinear_scatter_adjoint": 0}
+
+
+def test_bilinear_wrappers_raise_on_bad_inputs(cuda):
+    img, gain, x, y, v = _bil_case(cuda, 24, n=1000)
+    with pytest.raises(TypeError):
+        bilinear_cuda.bilinear_gather(img.float(), x, y)
+    with pytest.raises(ValueError, match="CUDA"):
+        bilinear_cuda.bilinear_gather(img, x.cpu(), y)
+    with pytest.raises(ValueError, match="contiguous"):
+        bilinear_cuda.bilinear_gather(img.T, x, y)
+    with pytest.raises(ValueError, match="one shape"):
+        bilinear_cuda.bilinear_gather(img, x, y[:-1])
+    with pytest.raises(ValueError, match="g_eff"):
+        bilinear_cuda.bilinear_gather(img, x, y, gain[:-1])
+    with pytest.raises(ValueError, match="out"):
+        bilinear_cuda.bilinear_gather(img, x, y, out=v[:-1])
+    with pytest.raises(ValueError, match="values"):
+        bilinear_cuda.bilinear_scatter_adjoint(v[:-1], x, y, img.shape)
+    assert float(bilinear_cuda.bilinear_gather(img, x, y).abs().max()) > 0
+
+
+def test_bilinear_gather_backward_launches_k4(cuda):
+    img, gain, x, y, v = _bil_case(cuda, 25)
+    image = img.clone().requires_grad_(True)
+    bilinear_cuda.reset_launch_counts()
+    out = bilinear.BilinearGather.apply(image, x, y, gain, torch.zeros_like(v))
+    (grad,) = torch.autograd.grad(out, image, v)
+    assert bilinear_cuda.launches == {"bilinear_gather": 1, "bilinear_scatter_adjoint": 1}
+    assert _rel(grad, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, gain)) < TOL
+
+
+def test_destripe_cost_cuda_matches_cpu(cuda):
+    """DestripeCost with K3 / K4 on the card against the same module on the
+    CPU (the plain versions), and against its own plain route on the card:
+    cost to rtol 1e-12, gradient to rtol 1e-9, atol 1e-12."""
+    rng = np.random.default_rng(26)
+    S, n = 3, 96
+    imgs = rng.normal(size=(S, n, n))
+    gains = rng.uniform(0.5, 2.0, (S, n, n))
+    masks = rng.random((S, n, n)) > 0.1
+    yy, xx = np.mgrid[0:n, 0:n].astype(float)
+    pairs, xf, yf = [], [], []
+    for i in range(S):
+        for j in range(S):
+            if i != j:
+                th = 0.02 * (i - j)
+                pairs.append((i, j))
+                xf.append(np.cos(th) * xx - np.sin(th) * yy + 3.3 * (i - j))
+                yf.append(np.sin(th) * xx + np.cos(th) * yy - 2.1 * (i - j))
+    kw = dict(amp_cols=32, col_boundary_const=2.0)
+    cpu = DestripeCost(imgs, gains, masks, pairs, xf, yf, device="cpu", **kw)
+    gpu = DestripeCost(imgs, gains, masks, pairs, xf, yf, device=cuda, **kw)
+    p = rng.normal(scale=0.01, size=S * cpu.np_each)
+    bilinear_cuda.reset_launch_counts()
+    cost, grad = gpu.cost_and_grad(p)
+    assert bilinear_cuda.launches == {"bilinear_gather": len(pairs),
+                                      "bilinear_scatter_adjoint": len(pairs)}
+    want_cost, want_grad = cpu.cost_and_grad(p)
+    np.testing.assert_allclose(cost, want_cost, rtol=1e-12)
+    np.testing.assert_allclose(grad, want_grad, rtol=1e-9, atol=1e-12)
+    e, g = gpu.value_and_grad(torch.as_tensor(p, device=cuda), plain=True)
+    np.testing.assert_allclose(float(e), want_cost, rtol=1e-12)
+    np.testing.assert_allclose(g.cpu().numpy(), want_grad, rtol=1e-9, atol=1e-12)

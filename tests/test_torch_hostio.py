@@ -2,7 +2,8 @@
 
 pyimcom_tpu_torch keeps its own copy of every jax-free host module it uses
 (config, fitsio, wcsutil, sphere, asdfio, profiling, ops/psfmodels,
-utils/moments and layer's helpers in layer_host).  Each case runs the copy
+utils/moments, utils/compareutils, layer's helpers in layer_host and
+imdestripe's host helpers).  Each case runs the copy
 and the original on the same seeded inputs: configurations, FITS files,
 WCS transforms and every helper must agree exactly (bit for bit, or equal
 objects), since the copies are the same code.
@@ -18,15 +19,18 @@ import torch
 import pyimcom_tpu.asdfio as ref_asdfio
 import pyimcom_tpu.config as ref_config
 import pyimcom_tpu.fitsio as ref_fitsio
+import pyimcom_tpu.imdestripe as ref_imdestripe
 import pyimcom_tpu.layer as ref_layer
 import pyimcom_tpu.ops.psfmodels as ref_psfmodels
 import pyimcom_tpu.profiling as ref_profiling
 import pyimcom_tpu.sphere as ref_sphere
+import pyimcom_tpu.utils.compareutils as ref_compareutils
 import pyimcom_tpu.utils.moments as ref_moments
 import pyimcom_tpu.wcsutil as ref_wcsutil
-from pyimcom_tpu_torch import asdfio, config, fitsio, layer_host, profiling, sphere, wcsutil
+from pyimcom_tpu_torch import (
+    asdfio, config, fitsio, imdestripe, layer_host, profiling, sphere, wcsutil)
 from pyimcom_tpu_torch.ops import psfmodels
-from pyimcom_tpu_torch.utils import moments
+from pyimcom_tpu_torch.utils import compareutils, moments
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -311,3 +315,89 @@ def test_profiling_matches(monkeypatch, capsys):
         mod.reset()
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 4 and out[0].split("(")[0] == out[2].split("(")[0]
+
+
+# --------------------------------------------------------------------------
+# compareutils, imdestripe's host helpers
+# --------------------------------------------------------------------------
+
+def _sca_wcs(mod, k):
+    """Three overlapping Roman-like SCAs (ARC, 0.11" pixels, rotated)."""
+    rho = np.deg2rad(20.0 + 15.0 * k)
+    cd = np.array([[-np.cos(rho), np.sin(rho)], [np.sin(rho), np.cos(rho)]]) * 0.11 / 3600
+    return mod.WCS(ctype=("RA---ARC", "DEC--ARC"),
+                   crval=(60.05 + 0.002 * k, -3.8 + 0.001 * k),
+                   crpix=(200.5 + 7 * k, 200.5 - 5 * k), cd=cd, lonpole=200.0)
+
+
+@pytest.mark.parametrize("pad, subsamp, dtype", [(0, 1, np.float64), (3, 4, np.float32)],
+                         ids=["full", "padded-subsampled-f32"])
+def test_map_sca2sca_is_bit_equal(pad, subsamp, dtype):
+    a = [_sca_wcs(ref_wcsutil, k) for k in (0, 1)]
+    b = [_sca_wcs(wcsutil, k) for k in (0, 1)]
+    got = compareutils.map_sca2sca(*b, pad=pad, dtype=dtype, subsamp=subsamp, nside=400)
+    assert np.count_nonzero(got[2]) > 1000
+    assert _same(ref_compareutils.map_sca2sca(*a, pad=pad, dtype=dtype, subsamp=subsamp,
+                                              nside=400), got)
+
+
+def test_overlap_matrix_and_footprints_are_bit_equal():
+    a = [_sca_wcs(ref_wcsutil, k) for k in range(3)]
+    b = [_sca_wcs(wcsutil, k) for k in range(3)]
+    got = compareutils.get_overlap_matrix(b, subsamp=8, nside=400)
+    assert np.all(got > 0.1)
+    assert _same(ref_compareutils.get_overlap_matrix(a, subsamp=8, nside=400), got)
+    assert _same(ref_compareutils.getfootprint(a[1], 2, nside=400),
+                 compareutils.getfootprint(b[1], 2, nside=400))
+    assert compareutils.str2dirstem("a/b/c") == ref_compareutils.str2dirstem("a/b/c")
+
+
+def test_g_eff_is_bit_equal():
+    assert _same(ref_imdestripe.compute_g_eff(_sca_wcs(ref_wcsutil, 1), (40, 50)),
+                 imdestripe.compute_g_eff(_sca_wcs(wcsutil, 1), (40, 50)))
+
+
+@pytest.mark.parametrize("kind", ["fits", "jwst", "given"])
+def test_object_mask_is_bit_equal(kind):
+    rng = np.random.default_rng(8)
+    img = rng.normal(scale=0.05, size=(80, 80))
+    img[30, 30], img[60, 10:14] = 50.0, 2.0
+    kw = dict(mask=rng.random((80, 80)) > 0.9) if kind == "given" else dict(
+        type=kind, threshold_m=15.0 if kind == "jwst" else 0.0,
+        threshold_c=5.0 if kind == "jwst" else 0.3)
+    got = imdestripe.apply_object_mask(img.copy(), **kw)
+    assert np.any(got[1])
+    assert _same(ref_imdestripe.apply_object_mask(img.copy(), **kw), got)
+
+
+def test_stripe_model_is_bit_equal():
+    rng = np.random.default_rng(9)
+    shape, amp = (32, 48), 16
+    p = rng.normal(size=imdestripe.n_params(shape, amp))
+    assert imdestripe.n_params(shape, amp) == ref_imdestripe.n_params(shape, amp)
+    assert _same(ref_imdestripe.forward_par(p, shape, amp), imdestripe.forward_par(p, shape, amp))
+    img = rng.normal(size=shape)
+
+    class C:
+        amp_cols = amp
+
+    assert _same(ref_imdestripe.transpose_par(img, C()), imdestripe.transpose_par(img, C()))
+    assert _same(ref_imdestripe.transpose_par(img), imdestripe.transpose_par(img))
+
+
+def test_boundary_penalty_and_gradient_are_bit_equal():
+    rng = np.random.default_rng(10)
+    img = rng.normal(size=(100, 64))
+    mask = rng.random((100, 64)) > 0.2
+    kw = dict(amp_cols=32, col_boundary_const=1.7, chunk_width=16, chunk_height=40)
+    got = imdestripe.compute_boundary_continuity_penalty(img, mask, **kw)
+    assert got > 0
+    assert got == ref_imdestripe.compute_boundary_continuity_penalty(img, mask, **kw)
+    assert _same(ref_imdestripe.boundary_continuity_penalty_grad_image(img, mask, **kw),
+                 imdestripe.boundary_continuity_penalty_grad_image(img, mask, **kw))
+
+
+@pytest.mark.parametrize("model", ["quadratic", "absolute", "huber_loss"])
+def test_penalty_is_bit_equal(model):
+    r = np.random.default_rng(11).normal(size=200)
+    assert _same(ref_imdestripe.penalty(r, model, 0.7), imdestripe.penalty(r, model, 0.7))

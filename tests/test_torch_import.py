@@ -22,7 +22,9 @@ PKG = REPO / "pyimcom_tpu_torch"
 MODULES = ("pyimcom_tpu_torch", "pyimcom_tpu_torch.coadd",
            "pyimcom_tpu_torch.ops.interp_cuda", "pyimcom_tpu_torch.ops.assemble",
            "pyimcom_tpu_torch.solvers", "pyimcom_tpu_torch.layer",
-           "pyimcom_tpu_torch.probe")
+           "pyimcom_tpu_torch.probe", "pyimcom_tpu_torch.imdestripe",
+           "pyimcom_tpu_torch.ops.bilinear", "pyimcom_tpu_torch.ops.bilinear_cuda",
+           "pyimcom_tpu_torch.ops.destripe_device", "pyimcom_tpu_torch.utils.compareutils")
 
 CASES = {
     # jax made unimportable: every import must still succeed
