@@ -11,10 +11,13 @@ LAKERNEL, the destriping entry point ``pyimcom_tpu_torch.imdestripe.main`` and
 the toolchain probe ``pyimcom_tpu_torch.probe``:
 
 1. build: the card's name and power limit, the nvcc builds of the D5512
-   kernels (and, where pyimcom_tpu_torch/_build/parent/interp_d5512.cu
-   holds that source as of commit 7671040 -- the one-thread-a-query K1 with
-   a 9-argument C entry, pinned by its SHA-256 -- of that revision too),
-   started together, with their ptxas register and spill lines;
+   and bilinear kernels (and of the earlier revisions in PARENTS, each
+   where pyimcom_tpu_torch/_build/parent/ holds its source, pinned by its
+   SHA-256: interp_d5512.cu of commit 7671040, the one-thread-a-query K1
+   with a 9-argument C entry, and bilinear.cu of commit c560e0f, the
+   one-thread-a-query K4 with a 9-argument C entry), started together, with
+   their ptxas register and spill lines and the atomic instructions in K4's
+   SASS (cuobjdump);
 2. probe: the probe entry point builds csrc/probe.cu and launches its
    kernel on an (8, 128) float32 tensor (its own path: counts reset before,
    read after);
@@ -63,13 +66,17 @@ the toolchain probe ``pyimcom_tpu_torch.probe``:
    ``pyimcom_tpu_torch.imdestripe.main(cfg, maxiter=5)`` on the card (object
    mask and WCS gain on): the host map build and upload seconds, peak device
    memory, seconds per CG iteration, the cost before and after, the K3 / K4
-   launches and one cost-and-gradient's device time; the kernel route of the
+   launches, the K4 tiles that took the global route, one cost-and-gradient's
+   device time and its kernels by name from one torch.profiler trace; the
+   kernel route of the
    cost against its plain route (autograd through the plain gather) at zero
    and random parameters (cost to rtol 1e-12, gradient to rtol 1e-9 and atol
    1e-12); at least half of the SCAs destriped by 2x in their row medians
    against the clean files (tests/test_full_pipeline.py); then K3 and K4
-   alone on the first pair (against their plain versions, their bounds, and
-   grid_sample and its input gradient as the library yardstick); and the
+   alone on the first pair (against their plain versions, their bounds,
+   grid_sample and its input gradient as the library yardstick, and the
+   earlier revision's K4 where built; K4's tile, shared memory, registers
+   and its global-route tiles against predict_global_tiles); and the
    bench block coadded from the clean, striped and destriped inputs (each
    with its own input directory and layer cache): 16 stamps, finite maps,
    U/C medians equal to 1e-6, the destriped science nearer the clean one
@@ -116,10 +123,16 @@ MULTI_KAPPA = [5e-4, 1e-3, 2e-3]                        # BASELINE.json configs[
 STAR_REGION = np.s_[0:25, 25:50]                        # the stamp with the star
 PROD = dict(OUTSIZE=[80, 32, 0.0390625], INPAD=1.055, NPIXPSF=48, STOP=4)
 GALAXY = "gsext14,n=0.5,hlr=0.1,shape=0.2:0.1"          # tests/test_e2e_galaxy.py
-PARENT_SRC = REPO / "pyimcom_tpu_torch" / "_build" / "parent" / "interp_d5512.cu"
-# pyimcom_tpu_torch/csrc/interp_d5512.cu at commit 7671040, the only
-# revision whose K1 entry parent_k1() binds
-PARENT_SHA256 = "8aaf4ea17e3cd5b6b57ddceda891cd142db8ba5ba2f67bf43b7736a0bec0eeef"
+PARENT_DIR = REPO / "pyimcom_tpu_torch" / "_build" / "parent"
+# earlier revisions of csrc/<name>.cu timed beside the current kernels where
+# PARENT_DIR holds them: the commit and the SHA-256 of the only revision
+# whose entry parent_entry() binds
+PARENTS = {
+    "interp_d5512": ("7671040", "8aaf4ea17e3cd5b6b57ddceda891cd142db8ba5ba2f67bf43b7736a0bec0eeef",
+                     "interp_d5512_dense"),
+    "bilinear": ("c560e0f", "aa9d46b1a6683c0509634b51bdac866b6d80cef0b8af2a27853d0ed8f6323330",
+                 "bilinear_scatter_adjoint"),
+}
 PEAK_BYTES_S, PEAK_F64_S = 3.35e12, 67e12               # H100 SXM data sheet
 TAPS_FLOP = 96                  # one D5512 tap set (Horner in fh^2)
 QUERY_FLOP = 2 * TAPS_FLOP + 220 + 6   # two tap sets, the 10x10 sum, the position
@@ -374,36 +387,95 @@ def phase_kernels(torch, dev, parent):
     return out
 
 
-def build_parent():
-    """Build the earlier revision of the D5512 source, if present; returns
-    the compiler's report.  Refuses any other revision than 7671040's: its
-    K1 entry takes another argument list."""
+def parent_src(name):
+    return PARENT_DIR / f"{name}.cu"
+
+
+def build_parent(name):
+    """Build the earlier revision of csrc/<name>.cu in PARENT_DIR; returns
+    the compiler's report.  Refuses any other revision than PARENTS names:
+    its entry takes another argument list."""
     import hashlib
 
     from pyimcom_tpu_torch import _build
 
-    digest = hashlib.sha256(PARENT_SRC.read_bytes()).hexdigest()
-    if digest != PARENT_SHA256:
-        raise RuntimeError(f"{PARENT_SRC} is not interp_d5512.cu of commit 7671040 "
-                           f"(sha256 {digest}); parent_k1() binds only that revision")
-    lib = PARENT_SRC.with_name("libinterp_d5512_parent.so")
-    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(PARENT_SRC)],
+    commit, sha, _entry = PARENTS[name]
+    src = parent_src(name)
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()
+    if digest != sha:
+        raise RuntimeError(f"{src} is not {name}.cu of commit {commit} (sha256 {digest}); "
+                           f"parent_entry() binds only that revision")
+    lib = src.with_name(f"lib{name}_parent.so")
+    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {PARENT_SRC}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     return proc.stdout + proc.stderr
 
 
-def parent_k1():
-    """The K1 entry of commit 7671040 (one thread a query, each patch read
-    from L1 / L2), loaded with ctypes; build_parent() checked the source."""
+def parent_entry(name):
+    """The earlier revision's entry, loaded with ctypes (build_parent()
+    checked the source), or None where PARENT_DIR does not hold it: K1 of
+    commit 7671040 (one thread a query, each patch read from L1 / L2) and K4
+    of commit c560e0f (one thread a query, four f64 atomicAdds into device
+    memory), both with 9 arguments."""
     import ctypes
 
-    fn = ctypes.CDLL(str(PARENT_SRC.with_name("libinterp_d5512_parent.so"))).interp_d5512_dense
+    if not parent_src(name).exists():
+        return None
+    fn = getattr(ctypes.CDLL(str(parent_src(name).with_name(f"lib{name}_parent.so"))),
+                 PARENTS[name][2])
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = (p, i, i, i, p, p, ll, p, p)
+    fn.argtypes = {"interp_d5512": (p, i, i, i, p, p, ll, p, p),
+                   "bilinear": (p, p, i, i, p, p, ll, p, p)}[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def ptxas_entries(report):
+    """{entry: {registers, spill_stores, spill_loads}} from nvcc's -Xptxas -v
+    report."""
+    import re
+
+    out, entry = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(entry, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
+def sass_atomics(lib, match):
+    """{function: {opcode: count}} of the atomic and reduction instructions
+    (ATOM*, RED*) in the SASS of the functions of `lib` whose name holds
+    `match` (cuobjdump -sass)."""
+    import re
+
+    from pyimcom_tpu_torch import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    out, func = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            func = ln.split("Function :")[1].strip()
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if func and match in func and m and m.group(1).startswith(("ATOM", "RED")):
+            ops = out.setdefault(func, {})
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return out
 
 
 class capture_k1:
@@ -585,21 +657,26 @@ class capture_destripe:
             setattr(mod, name, fn)
 
 
-def bilinear_records(torch, dev, dc, floor_ms, reps=20):
+def bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build, reps=20):
     """K3 and K4 on the first pair of a DestripeCost `dc` (the neighbour's
-    image and gain at the pair map's positions): device times,
+    image and gain at the pair map's positions, on the target's pixel grid
+    as the cost passes them): device times,
     errors against the plain versions, bounds, and the library times of
     torch.nn.functional.grid_sample (bilinear, zeros, align_corners=True)
     and of its input gradient, which compute the unweighted gather and its
     adjoint where 0 <= floor(x) <= nx - 2 and 0 <= floor(y) <= ny - 2: they
     are timed on the pair's points inside that region (`library_points`),
     and so is each kernel doing the library's work there, without a gain and
-    writing its result (`library_work_ms`).
+    writing its result (`library_work_ms`; for K4 a 1-D stream).
     K3 runs as the main path runs it, adding into an accumulator; its bytes
     are x, y and the accumulator read and written (32 a query), the image and
     the gain once; K4's the values, x and y (24 a query), the gain once and
     the output written once.  Operations: GATHER_FLOP / ADJOINT_FLOP an
-    in-bounds query."""
+    in-bounds query.  K4 also gets its tiling, its shared memory, its ptxas
+    registers and spills (`k4_build`), its global-route tiles on this pair
+    (equal to predict_global_tiles), and, where `parent_k4` is built, the
+    earlier revision's time and error on the same inputs, each timed with
+    its output's zero fill, alternately with the new K4."""
     import torch.nn.functional as F
 
     from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
@@ -610,11 +687,13 @@ def bilinear_records(torch, dev, dc, floor_ms, reps=20):
     n, npix = x.numel(), ny * nx
     inb = bilinear.in_bounds(x, y, (ny, nx))
     n_in = int(inb.sum())
-    v = torch.as_tensor(np.random.default_rng(20261017).normal(size=n), device=dev)
-    acc = torch.zeros(n, dtype=torch.float64, device=dev)
+    v = torch.as_tensor(np.random.default_rng(20261017).normal(size=x.shape), device=dev)
+    acc = torch.zeros(x.shape, dtype=torch.float64, device=dev)
     got3 = bc.bilinear_gather(img, x, y, gain, out=acc.clone())
     want3 = bilinear.bilinear_gather_plain(img, x, y, gain)
+    bc.reset_global_tiles()
     got4 = bc.bilinear_scatter_adjoint(v, x, y, (ny, nx), gain)
+    global_tiles = bc.global_tiles(dev)
     want4 = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (ny, nx), gain)
     torch.cuda.synchronize()
     # the library on the points inside its region, in its normalised coordinates
@@ -632,6 +711,9 @@ def bilinear_records(torch, dev, dc, floor_ms, reps=20):
     def lib_adjoint():
         torch.autograd.grad(out_gs, inp, vs, retain_graph=True)
 
+    def k4():
+        bc.bilinear_scatter_adjoint(v, x, y, (ny, nx), gain)
+
     vflat = vs.reshape(-1)
     common = dict(pair=list(dc.pairs[0]), image=[ny, nx], queries=n, in_bounds=n_in,
                   library_points=n_in, library_vs_unweighted_K3=lib_err,
@@ -644,18 +726,67 @@ def bilinear_records(torch, dev, dc, floor_ms, reps=20):
               library_ms=median_ms(torch, lib_gather, reps),
               library_work_ms=median_ms(torch, lambda: bc.bilinear_gather(img, xs, ys), reps),
               **bounds(8 * (4 * n + 2 * npix), GATHER_FLOP * n_in, floor_ms))
-    k4 = dict(common, mode="gain", max_abs_err=rel_err(torch, got4, want4),
-              ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(
-                  v, x, y, (ny, nx), gain), reps),
-              plain_ms=median_ms(torch, lambda: bilinear.bilinear_scatter_adjoint_plain(
-                  v, x, y, (ny, nx), gain), 3),
-              library_ms=median_ms(torch, lib_adjoint, reps),
-              library_work_ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(
-                  vflat, xs, ys, (ny, nx)), reps),
-              **bounds(8 * (3 * n + 2 * npix), ADJOINT_FLOP * n_in, floor_ms))
-    for rec in (k3, k4):
+    k4_times = device_times(torch, k4, reps)
+    k4_rec = dict(common, mode="gain, (ny, nx) query grid",
+                  max_abs_err=rel_err(torch, got4, want4),
+                  tile=list(bc.adjoint_tile(bc.query_grid(x)[0])), box_cap=bc.ADJOINT_BOX_CAP,
+                  shared_bytes=8 * bc.ADJOINT_BOX_CAP, **k4_build,
+                  global_tiles=global_tiles,
+                  predicted_global_tiles=bc.predict_global_tiles(x, y, (ny, nx)))
+    assert k4_rec["global_tiles"] == k4_rec["predicted_global_tiles"], k4_rec
+    if parent_k4 is not None:
+        out_p = torch.empty((ny, nx), dtype=torch.float64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def parent():
+            out_p.zero_()
+            err = parent_k4(v.data_ptr(), gain.data_ptr(), ny, nx, x.data_ptr(), y.data_ptr(),
+                            n, out_p.data_ptr(), stream)
+            assert err == 0, err
+        parent()
+        torch.cuda.synchronize()
+        k4_rec["parent_max_abs_err"] = rel_err(torch, out_p, want4)
+        assert k4_rec["parent_max_abs_err"] < TOL, k4_rec
+        parent_times = device_times(torch, parent, reps)
+        k4_times += device_times(torch, k4, reps)
+        parent_times += device_times(torch, parent, reps)
+        k4_rec["parent_ms"] = statistics.median(parent_times)
+    k4_rec.update(ms=statistics.median(k4_times),
+                  plain_ms=median_ms(torch, lambda: bilinear.bilinear_scatter_adjoint_plain(
+                      v, x, y, (ny, nx), gain), 3),
+                  library_ms=median_ms(torch, lib_adjoint, reps),
+                  library_work_ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(
+                      vflat, xs, ys, (ny, nx)), reps),
+                  **bounds(8 * (3 * n + 2 * npix), ADJOINT_FLOP * n_in, floor_ms))
+    k4_rec["share_of_roofline"] = k4_rec["roofline_ms"] / k4_rec["ms"]
+    for rec in (k3, k4_rec):
         assert rec["max_abs_err"] < TOL, rec
-    return k3, k4
+    return k3, k4_rec
+
+
+def trace_kernels(torch, fn, top=12):
+    """One call of fn() under torch.profiler, after a warm-up: the device
+    time of every kernel by name (ms, launches), the `top` longest, and
+    their sum; None where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            rows.append({"kernel": e.key[:120], "launches": e.count, "ms": us / 1e3})
+    rows.sort(key=lambda r: -r["ms"])
+    total = sum(r["ms"] for r in rows)
+    if total <= 0:
+        return None
+    return {"device_ms": total, "kernels": len(rows), "top": rows[:top]}
 
 
 def striped_survey(root):
@@ -727,7 +858,7 @@ def destripe_inputs(root, raw, dsdir, variant):
     return vin
 
 
-def phase_destripe(torch, dev, floor_ms):
+def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     """imdestripe.main on 4 striped F184 SCAs at 4088^2 (12 ordered pairs)
     with 5 CG iterations, object mask and WCS gain on; K3 and K4 at the
     phase's shapes; the kernel route of the cost against the plain route;
@@ -749,12 +880,14 @@ def phase_destripe(torch, dev, floor_ms):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     bilinear_cuda.reset_launch_counts()
+    bilinear_cuda.reset_global_tiles()
     t0 = time.perf_counter()
     with capture_destripe() as cap:
         params, history = imdestripe.main(Config(d), maxiter=5)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = dict(bilinear_cuda.launches)
+    global_tiles = bilinear_cuda.global_tiles(dev)
     peak = torch.cuda.max_memory_allocated(dev)
     assert all(k > 0 for k in launches.values()), launches
     prob = cap.problem
@@ -772,6 +905,7 @@ def phase_destripe(torch, dev, floor_ms):
     # ahead of the timed calls is 20 times the kernels'
     cg_ms = statistics.median(device_times(torch, lambda: dc.value_and_grad(p_rand), 5,
                                            sleep=20 * SLEEP_CYCLES))
+    trace = trace_kernels(torch, lambda: dc.value_and_grad(p_rand))
     routes = {}
     for name, p in (("zero", torch.zeros_like(p_rand)), ("random", p_rand)):
         e_k, g_k = dc.value_and_grad(p)
@@ -789,13 +923,15 @@ def phase_destripe(torch, dev, floor_ms):
           "cg_iterations": len(history),
           "cg_iter_s": [b - a for a, b in zip([0.0] + ts[:-1], ts)],
           "cost_start": cost0, "cost_end": history[-1]["cost"], "launches": launches,
+          "K4_global_route_tiles": global_tiles,
           "cost_and_grad_device_ms": cg_ms, "cost_and_grad_host_s": cg_host_s,
+          "cost_and_grad_trace": trace if trace is not None else "not measured",
           "routes": routes, "row_median_std": quality, "improved": improved})
     assert len(quality) == 4 and history[-1]["cost"] < cost0, quality
     assert improved >= len(quality) // 2, quality
 
     # ---- K3 and K4 alone at the phase's shapes ----
-    k3, k4 = bilinear_records(torch, dev, dc, floor_ms)
+    k3, k4 = bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build)
     emit({"phase": "bilinear_kernels", "criterion": TOL, "K3": k3, "K4": k4})
     del cap.problem, prob, dc
     torch.cuda.empty_cache()
@@ -964,19 +1100,23 @@ def main():
     t0 = time.perf_counter()
     jobs = {"interp_d5512": lambda: _build.build("interp_d5512"),
             "bilinear": lambda: _build.build("bilinear")}
-    if PARENT_SRC.exists():
-        jobs["interp_d5512_parent"] = build_parent
+    for name in PARENTS:
+        if parent_src(name).exists():
+            jobs[f"{name}_parent"] = lambda name=name: build_parent(name)
     with ThreadPoolExecutor(len(jobs)) as pool:
         reports = {k: f.result() for k, f in
                    {k: pool.submit(job) for k, job in jobs.items()}.items()}
     _build.library("interp_d5512")
     _build.library("bilinear")
-    parent = parent_k1() if PARENT_SRC.exists() else None
+    parent, parent_k4 = parent_entry("interp_d5512"), parent_entry("bilinear")
+    k4_build = {"ptxas": {k: v for k, v in ptxas_entries(reports["bilinear"]).items()
+                          if "adjoint" in k},
+                "sass_atomics": sass_atomics(_build.library_path("bilinear"), "adjoint")}
     emit({"phase": "build", "gpu": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in r.splitlines()
                         if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-                    for k, r in reports.items()}})
+                    for k, r in reports.items()}, "K4": k4_build})
 
     # ---- 2. the probe entry point ---------------------------------------------
     from pyimcom_tpu_torch import probe
@@ -1098,7 +1238,7 @@ def main():
         emit({"phase": "k1_main_path", "criterion": TOL, **main_k1[key]})
 
     # ---- 11. destriping, from imdestripe.main to the coadd ------------------------
-    k3, k4, ds_launches = phase_destripe(torch, dev, floor_ms)
+    k3, k4, ds_launches = phase_destripe(torch, dev, floor_ms, parent_k4, k4_build)
 
     # ---- summary ---------------------------------------------------------------
     # the kernels line's bound is bytes and operations alone (roofline_ms);

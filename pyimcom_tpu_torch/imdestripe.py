@@ -75,8 +75,8 @@ def transpose_interpolate(image_A, wcs_A, image_B, original_image, device="cuda"
     dev = resolve_device(device)
     xf, yf, _ = compareutils.map_sca2sca(wcs_A, image_B.w, pad=0,
                                          nside=image_A.shape[-1])
-    out = bilinear.bilinear_scatter_adjoint(_on(dev, image_A.ravel()), _on(dev, xf.ravel()),
-                                            _on(dev, yf.ravel()), image_B.image.shape)
+    out = bilinear.bilinear_scatter_adjoint(_on(dev, image_A.reshape(xf.shape)), _on(dev, xf),
+                                            _on(dev, yf), image_B.image.shape)
     original_image[:] = out.cpu().numpy()
 
 

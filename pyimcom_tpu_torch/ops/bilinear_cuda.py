@@ -13,6 +13,13 @@ use (``_build.py``).  A wrapper takes contiguous f64 CUDA tensors on one
 device only and raises on anything else; it launches on the current stream,
 allocates its output with torch, checks the launch and counts it in
 ``launches``.  The plain versions are in ``ops/bilinear.py``.
+
+K4 takes its queries in tiles of their grid: a 2-D `xf` is the (qny, qnx)
+query grid (a destripe pair passes the target's pixel grid), any other
+shape one row.  A tile whose taps' bounding box outgrows the kernel's
+shared-memory box adds straight into device memory and counts itself in
+:func:`global_tiles`; :func:`predict_global_tiles` computes the same count
+in plain torch.
 """
 
 from __future__ import annotations
@@ -31,8 +38,12 @@ launches = {"bilinear_gather": 0, "bilinear_scatter_adjoint": 0}
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "bilinear_gather": (_p, _p, _i, _i, _p, _p, _ll, _p, _i, _p),
-    "bilinear_scatter_adjoint": (_p, _p, _i, _i, _p, _p, _ll, _p, _p),
+    "bilinear_scatter_adjoint": (_p, _p, _i, _i, _p, _p, _i, _i, _p, _p, _p),
 }
+# K4's tiling, as csrc/bilinear.cu has it: (rows, columns) of queries a tile
+# of a 2-D query grid and of one row, and the f64 slots of a tile's
+# accumulator box in shared memory
+ADJOINT_TILE, ADJOINT_ROW_TILE, ADJOINT_BOX_CAP = (32, 32), (1, 1024), 3072
 
 
 def reset_launch_counts() -> None:
@@ -75,6 +86,68 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def query_grid(xf: torch.Tensor) -> tuple[int, int]:
+    """K4's (qny, qnx) query grid of positions `xf`: its own shape if 2-D,
+    its last axis by the rest if more, one row if 1-D."""
+    if xf.dim() >= 2:
+        return xf.numel() // max(xf.shape[-1], 1), xf.shape[-1]
+    return 1, xf.numel()
+
+
+def adjoint_tile(qny: int) -> tuple[int, int]:
+    """(rows, columns) of queries in a K4 tile of a grid of `qny` rows."""
+    return ADJOINT_ROW_TILE if qny == 1 else ADJOINT_TILE
+
+
+def predict_global_tiles(xf: torch.Tensor, yf: torch.Tensor, shape) -> int:
+    """The K4 tiles that take the global route on these positions, in plain
+    torch (any device): a tile with a query in bounds whose taps' bounding
+    box holds more than ADJOINT_BOX_CAP pixels."""
+    from .bilinear import in_bounds
+
+    qny, qnx = query_grid(xf)
+    th, tw = adjoint_tile(qny)
+    ty, tx = -(-qny // th), -(-qnx // tw)
+    inb = in_bounds(xf, yf, shape).reshape(qny, qnx)
+    big = float(2 ** 31)
+
+    def per_tile(a, fill):
+        full = a.new_full((ty * th, tx * tw), fill)
+        full[:qny, :qnx] = a
+        return full.reshape(ty, th, tx, tw).transpose(1, 2).reshape(ty, tx, th * tw)
+
+    fx = torch.floor(xf).reshape(qny, qnx)
+    fy = torch.floor(yf).reshape(qny, qnx)
+    x_lo = per_tile(torch.where(inb, fx, big), big).amin(-1)
+    x_hi = per_tile(torch.where(inb, fx, -big), -big).amax(-1)
+    y_lo = per_tile(torch.where(inb, fy, big), big).amin(-1)
+    y_hi = per_tile(torch.where(inb, fy, -big), -big).amax(-1)
+    live = per_tile(inb, False).any(-1)
+    box = (x_hi - x_lo + 2) * (y_hi - y_lo + 2)
+    return int((live & (box > ADJOINT_BOX_CAP)).sum())
+
+
+def _global_counter(device: torch.device) -> torch.Tensor:
+    c = _global_counters.get(device)
+    if c is None:
+        c = _global_counters[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return c
+
+
+_global_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def global_tiles(device) -> int:
+    """K4 tiles that took the global route (their box outgrew shared memory)
+    on `device` since the last :func:`reset_global_tiles`."""
+    return int(_global_counter(torch.device(device)).item())
+
+
+def reset_global_tiles() -> None:
+    for c in _global_counters.values():
+        c.zero_()
+
+
 def bilinear_gather(image: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
                     g_eff: torch.Tensor | None = None, *,
                     out: torch.Tensor | None = None) -> torch.Tensor:
@@ -107,8 +180,9 @@ def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.T
     """
     K4: the exact adjoint of K3 with respect to the image: values, xf, yf
     (one shape) f64 CUDA -> (ny, nx) = `shape`, each in-bounds value added
-    into its four taps with K3's weights (and gain).  The sums are taken
-    with atomics, in no fixed order.
+    into its four taps with K3's weights (and gain).  The queries are tiled
+    on their grid (:func:`query_grid`); the sums are taken with atomics, in
+    no fixed order.
     """
     dev = values.device
     _check(values, "values", torch.float64, dev, values.dim())
@@ -119,6 +193,10 @@ def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.T
     out = torch.zeros((ny, nx), dtype=torch.float64, device=dev)
     if xf.numel() == 0:
         return out
+    qny, qnx = query_grid(xf)
+    if qny >= 2 ** 31 or qnx >= 2 ** 31:
+        raise ValueError("K4 indexes the query grid's rows and columns with int32")
     _launch("bilinear_scatter_adjoint", dev, values.data_ptr(), _ptr(g_eff), ny, nx,
-            xf.data_ptr(), yf.data_ptr(), xf.numel(), out.data_ptr())
+            xf.data_ptr(), yf.data_ptr(), qny, qnx, out.data_ptr(),
+            _global_counter(dev).data_ptr())
     return out

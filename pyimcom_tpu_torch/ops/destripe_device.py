@@ -9,9 +9,10 @@ boundary-continuity term -- as one differentiable PyTorch function;
 ``torch.autograd.grad`` gives its exact gradient, through the gain
 weighting too.  The pair gather is :class:`~.bilinear.BilinearGather`
 (kernel K3 on the card, its adjoint K4 in the backward), added in place
-into the target's accumulator, and saves no per-pair output for the
-backward: the JAX package rematerialises its scan for the same reason (P
-saved planes of 4088^2 would add P x 134 MB).  The hit counts and the valid
+into the target's accumulator; its positions and the accumulator keep the
+target's (ny, nx) pixel grid, which K4 tiles.  It saves no per-pair output
+for the backward: the JAX package rematerialises its scan for the same
+reason (P saved planes of 4088^2 would add P x 134 MB).  The hit counts and the valid
 pixels depend on the maps alone, so they are computed once, when the module
 is built.
 """
@@ -83,8 +84,9 @@ class DestripeCost(torch.nn.Module):
     g_eff : (S, ny, nx) effective gain maps.
     masks : (S, ny, nx) bool (True = use pixel) or None.
     pairs : list of ordered (i, j) -- SCA j interpolates onto SCA i's grid.
-    xf, yf : P arrays of ny*nx (or a (P, ny*nx) array): the positions of
-        SCA i's pixels in SCA j's frame, pair by pair.
+    xf, yf : P arrays of ny*nx values, (ny, nx) grids or flat (or one
+        array of P of them): the positions of SCA i's pixels in SCA j's
+        frame, pair by pair, in row-major pixel order.
     amp_cols, cost_model, hub, col_boundary_const : as in DestripeProblem.
     bmasks : the S masks of the boundary penalty (default `masks`).
     device : where the buffers live and the cost runs ("cuda" by default).
@@ -115,21 +117,20 @@ class DestripeCost(torch.nn.Module):
 
         self.register_buffer("imgs", put(imgs))
         self.register_buffer("ge", put(g_eff))
-        npix = ny * nx
         # the maps go up pair by pair, never stacked on the host
         for name, arrs in (("xf", xf), ("yf", yf)):
-            t = torch.empty((len(self.pairs), npix), dtype=DTYPE, device=dev)
+            t = torch.empty((len(self.pairs), ny, nx), dtype=DTYPE, device=dev)
             for p in range(len(self.pairs)):
-                t[p].copy_(torch.as_tensor(np.asarray(arrs[p], np.float64).reshape(npix)))
+                t[p].copy_(torch.as_tensor(np.asarray(arrs[p], np.float64).reshape(ny, nx)))
             self.register_buffer(name, t)
         # hit counts of each target pixel: where none, J is 0 and r is 0
-        cnt = torch.zeros((S, npix), dtype=DTYPE, device=dev)
+        cnt = torch.zeros((S, ny, nx), dtype=DTYPE, device=dev)
         for p, (i, _j) in enumerate(self.pairs):
             cnt[i] += in_bounds(self.xf[p], self.yf[p], (ny, nx))
         valid = cnt > 0
         mask = put(masks, torch.bool) if masks is not None else torch.ones_like(valid)
         self.register_buffer("cnt", torch.where(valid, cnt, 1.0))
-        self.register_buffer("use", valid.reshape(S, ny, nx) & mask.reshape(S, ny, nx))
+        self.register_buffer("use", valid & mask.reshape(S, ny, nx))
         self.chunks = []
         if amp_cols and self.cbc > 0:
             if bmasks is None:
@@ -150,7 +151,7 @@ class DestripeCost(torch.nn.Module):
         S, ny, nx = self.S, self.ny, self.nx
         ps = params.reshape(S, self.np_each)
         imgs = [self.imgs[s] - _stripe_forward(ps[s], ny, nx, self.amp_cols) for s in range(S)]
-        acc = {i: torch.zeros(ny * nx, dtype=params.dtype, device=params.device)
+        acc = {i: torch.zeros((ny, nx), dtype=params.dtype, device=params.device)
                for i in self.targets}
         for p, (i, j) in enumerate(self.pairs):
             if plain:
@@ -161,7 +162,7 @@ class DestripeCost(torch.nn.Module):
                                               acc[i])
         eps = params.new_zeros(())
         for i in self.targets:
-            J = (acc[i] / self.cnt[i]).reshape(ny, nx)
+            J = acc[i] / self.cnt[i]
             r = torch.where(self.use[i], imgs[i] - J, 0.0)
             eps = eps + torch.sum(_penalty(r, self.cost_model, self.hub))
         for (i, c0, c1, lo, mid, hi, nl, nr) in self.chunks:

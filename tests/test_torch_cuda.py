@@ -379,6 +379,91 @@ def test_bilinear_gather_backward_launches_k4(cuda):
     assert _rel(grad, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, gain)) < TOL
 
 
+def _grid_case(cuda, seed, roll, qny=150, qnx=173, ny=170, nx=190, scale=1.0):
+    """Seeded image, gain and values on a (qny, qnx) query grid -- ragged
+    against K4's 32 x 32 tiles -- rolled by `roll` degrees and scaled by
+    `scale` (a destripe pair map), shifted so that part of it falls off the
+    image; with NaN and +-inf positions, and queries exactly on the last row
+    and column (off the grid) beside ones that read them (in bounds)."""
+    rng = np.random.default_rng(seed)
+    th = np.deg2rad(roll)
+    yy, xx = np.mgrid[0:qny, 0:qnx].astype(float)
+    u, w = xx - qnx / 2, yy - qny / 2
+    xf = scale * (np.cos(th) * u - np.sin(th) * w) + nx / 2 + 22.3
+    yf = scale * (np.sin(th) * u + np.cos(th) * w) + ny / 2 + 12.4
+    xf[3, ::7], yf[::11, 5] = np.nan, np.nan
+    xf[40, 2::13], yf[60, 3::17] = np.inf, -np.inf
+    for pos, last in ((xf, nx - 1.0), (yf, ny - 1.0)):
+        near = np.abs(pos - last) < 0.5
+        near[1::3] = False                  # these read the last taps
+        pos[near] = last
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda)   # noqa: E731
+    return (put(rng.normal(size=(ny, nx))), put(rng.uniform(0.5, 2.0, (ny, nx))),
+            put(xf), put(yf), put(rng.normal(size=(qny, qnx))))
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+@pytest.mark.parametrize("roll", [0, 15, 45, 90])
+def test_k4_matches_plain_on_rotated_grids(cuda, roll, weighted):
+    """K4 on a 2-D query grid (the destripe pair's layout): one launch,
+    every tile on the shared-memory route, held to the plain version."""
+    img, gain, x, y, v = _grid_case(cuda, 40 + roll, roll)
+    g = gain if weighted else None
+    inb = bilinear.in_bounds(x, y, img.shape)
+    assert int(inb.sum()) > 10_000 and int((~inb).sum()) > 1000
+    assert bool(torch.any(x == img.shape[1] - 1)) and bool(torch.any(y == img.shape[0] - 1))
+    assert int(torch.floor(x[inb]).max()) == img.shape[1] - 2      # the last column's taps
+    assert int(torch.floor(y[inb]).max()) == img.shape[0] - 2      # the last row's
+    bilinear_cuda.reset_launch_counts()
+    bilinear_cuda.reset_global_tiles()
+    got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)
+    assert bilinear_cuda.launches["bilinear_scatter_adjoint"] == 1
+    assert bilinear_cuda.global_tiles(cuda) == 0
+    assert bilinear_cuda.predict_global_tiles(x, y, img.shape) == 0
+    assert _rel(got, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)) < TOL
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_k4_global_route_when_the_box_outgrows_shared_memory(cuda, weighted):
+    """A grid scaled by 2.5 gives tiles whose box outgrows the shared budget:
+    they take the global route, counted as predict_global_tiles says; the
+    15-degree pair grid takes none."""
+    img, gain, x, y, v = _grid_case(cuda, 50, 30, ny=400, nx=420, scale=2.5)
+    g = gain if weighted else None
+    want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)
+    bilinear_cuda.reset_global_tiles()
+    got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)
+    n_global = bilinear_cuda.global_tiles(cuda)
+    assert n_global > 0
+    assert n_global == bilinear_cuda.predict_global_tiles(x, y, img.shape)
+    assert _rel(got, want) < TOL
+    img, gain, x, y, v = _grid_case(cuda, 51, 15)
+    bilinear_cuda.reset_global_tiles()
+    bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, gain if weighted else None)
+    assert bilinear_cuda.global_tiles(cuda) == 0
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_k3_k4_adjoint_identity_on_a_grid(cuda, weighted):
+    img, gain, x, y, v = _grid_case(cuda, 52, 30)
+    g = gain if weighted else None
+    lhs = float(torch.sum(bilinear_cuda.bilinear_gather(img, x, y, g) * v))
+    rhs = float(torch.sum(img * bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)))
+    assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+def test_k4_one_row_stream_counts_its_global_tiles(cuda):
+    """A 1-D stream is one row of queries, tiled 1 x 1024: on a flattened
+    rotated grid a tile spans several of its rows, so its box outgrows
+    shared memory and it takes the global route, as predicted."""
+    img, gain, x, y, v = _bil_case(cuda, 53)
+    bilinear_cuda.reset_global_tiles()
+    got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, gain)
+    assert bilinear_cuda.global_tiles(cuda) == bilinear_cuda.predict_global_tiles(
+        x, y, img.shape) > 0
+    assert _rel(got, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, gain)) < TOL
+
+
 def test_destripe_cost_cuda_matches_cpu(cuda):
     """DestripeCost with K3 / K4 on the card against the same module on the
     CPU (the plain versions), and against its own plain route on the card:

@@ -34,6 +34,7 @@ from pyimcom_tpu_torch import imdestripe
 from pyimcom_tpu_torch.config import Config
 from pyimcom_tpu_torch.fitsio import HDUList, Header, ImageHDU, fits_read, fits_write
 from pyimcom_tpu_torch.ops import bilinear
+from pyimcom_tpu_torch.ops.destripe_device import DestripeCost
 from pyimcom_tpu_torch.wcsutil import WCS
 
 torch.set_num_threads(1)
@@ -150,6 +151,84 @@ def test_dispatch_on_the_cpu_and_accumulate():
         bilinear.bilinear_gather(meta, meta[0], meta[0])
 
 
+@pytest.mark.parametrize("case", ["plain", "weighted", "accumulate"])
+def test_bilinear_gather_on_a_grid_matches_flat_positions(case):
+    """Positions, values and accumulator on a (ny, nx) query grid (the layout
+    that K4 tiles on the card) give the flat route's gather and image
+    gradient, bit for bit."""
+    img, gain, xf, yf, v, _nan = _points(7, n=600)
+    g = _t(gain) if case == "weighted" else None
+    out, grads = {}, {}
+    for shape in ((20, 30), (600,)):
+        x, y, vv = (_t(a).reshape(shape) for a in (xf, yf, v))
+        image = _t(img).requires_grad_(True)
+        acc = _t(np.arange(600.0).reshape(shape)) if case == "accumulate" else None
+        got = bilinear.BilinearGather.apply(image, x, y, g, acc)
+        assert got.shape == shape
+        (grads[shape],) = torch.autograd.grad(got, image, vv)
+        out[shape] = got.detach().reshape(-1)
+    assert torch.equal(out[(20, 30)], out[(600,)])
+    assert torch.equal(grads[(20, 30)], grads[(600,)])
+
+
+def _global_tiles_reference(xf, yf, shape, tile, cap):
+    """K4's global-route tiles by a loop over the tiles in NumPy: a tile
+    with a query in bounds whose taps' bounding box holds more than `cap`
+    pixels."""
+    ny, nx = shape
+    x = xf.reshape(-1, xf.shape[-1]) if xf.ndim >= 2 else xf.reshape(1, -1)
+    y = yf.reshape(x.shape)
+    th, tw = tile
+    n = 0
+    for r0 in range(0, x.shape[0], th):
+        for c0 in range(0, x.shape[1], tw):
+            fx, fy = np.floor(x[r0:r0 + th, c0:c0 + tw]), np.floor(y[r0:r0 + th, c0:c0 + tw])
+            with np.errstate(invalid="ignore"):
+                ok = (fx >= 0) & (fx < nx - 1) & (fy >= 0) & (fy < ny - 1)
+            n += bool(ok.any()) and (np.ptp(fx[ok]) + 2) * (np.ptp(fy[ok]) + 2) > cap
+    return n
+
+
+@pytest.mark.parametrize("case", ["roll15", "roll45", "scale2.5", "one_row", "holes"])
+def test_predict_global_tiles(case):
+    """bilinear_cuda.predict_global_tiles (the K4 tiles that outgrow the
+    shared-memory box, which chip_smoke.py holds the card's count to)
+    against a loop over the tiles; a pair-like grid at any roll has none."""
+    from pyimcom_tpu_torch.ops import bilinear_cuda as bc
+
+    rng = np.random.default_rng(8)
+    ny, nx, qny, qnx = 300, 280, 150, 173
+    roll, scale = {"roll45": 45, "scale2.5": 30}.get(case, 15), 2.5 if case == "scale2.5" else 1
+    th = np.deg2rad(roll)
+    yy, xx = np.mgrid[0:qny, 0:qnx].astype(float) - np.array([qny, qnx])[:, None, None] / 2
+    xf = scale * (np.cos(th) * xx - np.sin(th) * yy) + nx / 2 + 40.3
+    yf = scale * (np.sin(th) * xx + np.cos(th) * yy) + ny / 2 + 0.6
+    if case == "holes":
+        xf[rng.random(xf.shape) < 0.3] = np.nan
+        xf[:40, :40] = -5.0                  # tiles with no query in bounds
+        xf[100, 100] = 3.0                   # one query far from its tile's
+    if case == "one_row":
+        xf, yf = xf.ravel(), yf.ravel()
+    tile = bc.adjoint_tile(bc.query_grid(_t(xf))[0])
+    assert tile == ((1, 1024) if case == "one_row" else (32, 32))
+    got = bc.predict_global_tiles(_t(xf), _t(yf), (ny, nx))
+    assert got == _global_tiles_reference(xf, yf, (ny, nx), tile, bc.ADJOINT_BOX_CAP)
+    if case in ("roll15", "roll45"):
+        assert got == 0
+    else:
+        assert got > 0
+
+
+def test_query_grid():
+    """K4's query grid: a 2-D tensor's own shape, the last axis by the rest
+    for more axes, one row for 1-D."""
+    from pyimcom_tpu_torch.ops import bilinear_cuda as bc
+
+    assert bc.query_grid(torch.zeros(7)) == (1, 7)
+    assert bc.query_grid(torch.zeros(4, 9)) == (4, 9)
+    assert bc.query_grid(torch.zeros(2, 3, 5)) == (6, 5)
+
+
 # --------------------------------------------------------------------------
 # the problem: one sky through three dithered SCAs, with stripes
 # --------------------------------------------------------------------------
@@ -239,6 +318,34 @@ def test_plain_route_matches_kernel_route(name):
     e1, g1 = dc.value_and_grad(p, plain=True)
     np.testing.assert_allclose(float(e1), float(e0), rtol=1e-12)
     np.testing.assert_allclose(g1.numpy(), g0.numpy(), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["gain", "amp_cols"])
+def test_cost_and_gradient_on_grid_maps_match_flat_maps_and_jax(name):
+    """DestripeCost keeps each pair's positions and accumulator on the
+    target's (ny, nx) pixel grid (the layout K4 tiles): built from maps given
+    as grids (as DestripeProblem gives them) or flat, its cost and gradient
+    are the same, bit for bit, and hold the JAX device route."""
+    imgs, gains, kw = _case(name)
+    port, jref = _port_problem(imgs, gains, **kw), _ref_problem(imgs, gains, **kw)
+    grid = port.device_cost
+    assert grid.xf.shape == (len(grid.pairs), SIZE, SIZE)
+    mask = port.mask
+    flat = DestripeCost(np.stack([s.image for s in port.scas]),
+                        np.stack([s.g_eff for s in port.scas]),
+                        None if mask is None else np.stack(mask), grid.pairs,
+                        [m.reshape(-1).numpy() for m in grid.xf],
+                        [m.reshape(-1).numpy() for m in grid.yf], amp_cols=port.amp_cols,
+                        cost_model=port.cost_model, hub=port.hub,
+                        col_boundary_const=port.col_boundary_const,
+                        bmasks=[mask[i] if mask is not None else s.mask
+                                for i, s in enumerate(port.scas)], device="cpu")
+    p = np.random.default_rng(35).normal(scale=0.01, size=port.offsets[-1])
+    cost, grad = grid.cost_and_grad(p)
+    cost_flat, grad_flat = flat.cost_and_grad(p)
+    assert cost == cost_flat and np.array_equal(grad, grad_flat)
+    np.testing.assert_allclose(cost, jref.cost(p), rtol=1e-12)
+    np.testing.assert_allclose(grad, jref.gradient(p), rtol=1e-9, atol=1e-12)
 
 
 @pytest.mark.parametrize("name", ["gain", "amp_cols", "huber_loss"])
