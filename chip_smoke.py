@@ -7,8 +7,9 @@ Smoke run of pyimcom_tpu_torch on one NVIDIA GPU.
 It builds the port's CUDA kernels from csrc/ and drives the port's paths
 through the user's entry points: the block coadd
 ``pyimcom_tpu_torch.coadd.Block(cfg, this_sub, device="cuda")`` with every
-LAKERNEL, the destriping entry point ``pyimcom_tpu_torch.imdestripe.main`` and
-the toolchain probe ``pyimcom_tpu_torch.probe``:
+LAKERNEL, the destriping entry point ``pyimcom_tpu_torch.imdestripe.main``,
+the toolchain probe ``pyimcom_tpu_torch.probe``, the bench entry
+``pyimcom_tpu_torch.bench`` and the block runner ``pyimcom_tpu_torch.runner``:
 
 1. build: the card's name and power limit, the nvcc builds of the D5512
    and bilinear kernels (and of the earlier revisions in PARENTS, each
@@ -30,19 +31,40 @@ the toolchain probe ``pyimcom_tpu_torch.probe``:
 4. bench_block: BASELINE.json configs[0] (8 exposures, cstar14, all 16
    stamps of block 1) -- a cold run that builds the input layers, then the
    measured warm run: blocks/hour, phase times, SL1, the U/C median, and the
-   kernel launch counts of both runs;
+   kernel launch counts of both runs; then bench_line: the bench entry's
+   warm bench block (bench.bench_block) and its line as
+   ``python -m pyimcom_tpu_torch.bench`` prints it (|SL1-1| < 5e-4, U/C <
+   1e-6); then checkpoint: the bench block with a snapshot after every group
+   (checkpoint_sec=0) in a child process that ends itself with os._exit
+   after its 2nd snapshot, resumed in a fresh process: the groups it
+   skipped, its seconds, the science within 1e-12 of scale of the
+   uninterrupted warm block and the maps within 1 LSB, the snapshot removed;
 5. eigen_block: configs[1], LAKERNEL Eigen at KAPPAC [5e-4, 1e-3, 2e-3],
    all 16 stamps, warm: blocks/hour, phase times, SL1 (|SL1-1| < 1e-3), the
    U/C median and the launch counts;
 6. solver_cross: STOP 2 with single- and multi-kappa Cholesky, Eigen,
    Iterative and Empirical, compared in the star stamp [0:25, 25:50] at the
    bounds of tests/test_e2e_kernels.py, with each solver's solve-phase time;
+   and both without quality control (EMPIRNQC): Iterative within 1e-12 of
+   scale of Iterative, Empirical of Empirical where its science is finite,
+   Empirical launching no K1 or K2; then runner: ``python -m
+   pyimcom_tpu_torch.runner cfg.json --block 1`` in a process of its own,
+   held to the warm bench block (1e-12 of scale, maps 1 LSB), the same
+   command again, which must skip the finished block, and ``--all --workers
+   2`` at STOP 2 (a forkserver pool of two processes on the card): all four
+   blocks written, block 1 held to the in-process STOP-2 Cholesky block;
 7. production_group / production_iterative / production_eigen: one 2x2
    group at production geometry (OUTSIZE [80, 32, 0.0390625], INPAD 1.055,
    NPIXPSF 48) with Cholesky, with the production default solve of
    configs/default_config.json (Iterative, KAPPAC [0.0], ITERRTOL 0.0015,
    ITERMAX 30) and with Eigen: seconds per stamp, n per stamp, peak device
-   memory, U/C and Sigma medians; every output map must be finite;
+   memory, U/C and Sigma medians; every output map must be finite; then
+   pool_budget: STOP 324 (two rows of 40 groups and the first group of the
+   third) with Cholesky, first with the default pool budget, then with a
+   third of that run's retained peak: the retained pool bytes after each
+   group, peak and reserved device memory, seconds a stamp, evictions,
+   recomputed submatrices and the extra K2 launches, the second run within
+   1e-12 of scale of the first;
 8. k2_main_path: K2 on the sweep rows, overlap stack and coordinate tables
    of the first group of the warm bench block and of the Cholesky
    production group (captured while those blocks ran): every launch of each
@@ -122,6 +144,11 @@ CPU_RECORD = {"SL1": 0.999938, "uc_median": 3.65e-7}   # .bench_cpu_baseline.jso
 MULTI_KAPPA = [5e-4, 1e-3, 2e-3]                        # BASELINE.json configs[1]
 STAR_REGION = np.s_[0:25, 25:50]                        # the stamp with the star
 PROD = dict(OUTSIZE=[80, 32, 0.0390625], INPAD=1.055, NPIXPSF=48, STOP=4)
+# production: two rows of 40 groups and the first group of the third.  The
+# sim pass counts the references of the stamps a run will coadd, so a row's
+# pools are retained only when the run goes on to the next row's
+POOL_ROW = PROD["OUTSIZE"][0] // 2
+POOL_STOP = 4 * (2 * POOL_ROW + 1)
 GALAXY = "gsext14,n=0.5,hlr=0.1,shape=0.2:0.1"          # tests/test_e2e_galaxy.py
 PARENT_DIR = REPO / "pyimcom_tpu_torch" / "_build" / "parent"
 # earlier revisions of csrc/<name>.cu timed beside the current kernels where
@@ -865,6 +892,7 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     then the bench block coadded from the clean, striped and destriped
     inputs.  Returns (K3, K4 records, the main path's launches)."""
     from pyimcom_tpu_torch import imdestripe
+    from pyimcom_tpu_torch.bench import quality_check
     from pyimcom_tpu_torch.config import Config
     from pyimcom_tpu_torch.fitsio import fits_read
     from pyimcom_tpu_torch.ops import bilinear_cuda
@@ -963,42 +991,13 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     return k3, k4, launches
 
 
-def science(path):
-    """Layer 0 of output PSF 0 of a block, in float64."""
-    from pyimcom_tpu_torch.fitsio import fits_read
-
-    return np.asarray(fits_read(path)[0].data[0, 0], dtype=np.float64)
-
-
-def quality_check(path):
-    """Star recovery SL1 and the U/C median of a bench block (the same
-    decoding as bench.quality_check)."""
-    from pyimcom_tpu_torch.fitsio import fits_read
-    from pyimcom_tpu_torch.wcsutil import WCS
-
-    f = fits_read(path)
-    w = WCS.from_header(f[0].header)
-    xs, ys = w.world2pix(60.0508, -3.8005)
-    d = science(path)
-    sig = 0.9265328730414752 * 0.11 / 0.04
-    sc = (0.04 / 0.11) ** 2
-    yy, xx = np.mgrid[0:d.shape[0], 0:d.shape[1]]
-    p = np.exp(-0.5 * ((xx - float(xs)) ** 2 + (yy - float(ys)) ** 2) / sig ** 2) \
-        / (2 * np.pi * sig ** 2 * sc)
-    region = STAR_REGION
-    SL1 = float(np.sum((p * d)[region]) / np.sum((p ** 2)[region]))
-    fid = np.asarray(f["FIDELITY"].data, dtype=np.float64)
-    uc = 10.0 ** (fid / -5000.0)
-    # exclude encodings of exactly-zero U/C (never-coadded pixels saturate)
-    good = (uc > 1e-10) & (uc < 0.5)
-    uc_med = float(np.median(uc[good])) if np.any(good) else 1.0
-    return SL1, uc_med
-
-
-def run_block(cfg_dict, suffix, **over):
+def run_block(cfg_dict, suffix, block_kw=None, no_system=False, **over):
     """One Block on the card, with the kernel launch counts set to 0 just
     before it and read just after; returns (block, output path, seconds,
-    launches)."""
+    launches).  Every kernel of the path must have launched, except in a
+    block that builds no system (Empirical without quality control), which
+    must launch none.  `block_kw` goes to Block (checkpoint_sec,
+    pool_budget_bytes)."""
     import torch
 
     from pyimcom_tpu_torch.coadd import Block
@@ -1010,12 +1009,180 @@ def run_block(cfg_dict, suffix, **over):
     torch.cuda.synchronize()
     interp_cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    blk = Block(cfg=Config(d), this_sub=1, device="cuda")
+    blk = Block(cfg=Config(d), this_sub=1, device="cuda", **(block_kw or {}))
     torch.cuda.synchronize()
     t = time.perf_counter() - t0
     launches = dict(interp_cuda.launches)
-    assert all(n > 0 for n in launches.values()), (suffix, launches)
+    if no_system:
+        assert all(n == 0 for n in launches.values()), (suffix, launches)
+    else:
+        assert all(n > 0 for n in launches.values()), (suffix, launches)
     return blk, d["OUT"] + "_00_01.fits", t, launches
+
+
+def compare_blocks(path_a, path_b):
+    """The largest science difference of two output blocks over the first
+    one's scale, and the largest difference of their quantized maps (LSB)."""
+    from pyimcom_tpu_torch.fitsio import fits_read
+
+    fa, fb = fits_read(path_a), fits_read(path_b)
+    a, b = (np.asarray(f[0].data, np.float64) for f in (fa, fb))
+    maps = {}
+    for h in fa[1:]:
+        name = h.header.get("EXTNAME")
+        if name in ("FIDELITY", "SIGMA", "KAPPA", "INWTSUM", "EFFCOVER"):
+            maps[name] = int(np.abs(np.asarray(h.data, np.int64)
+                                    - np.asarray(fb[name].data, np.int64)).max())
+    return dict(science_rel=float(np.abs(b - a).max() / np.abs(a).max()), maps_lsb=maps)
+
+
+def checkpoint_child(cfg_json, die_after):
+    """One run of the bench block with a snapshot after every drained group
+    (checkpoint_sec=0), in a process of its own: with `die_after` > 0 the
+    process ends with os._exit(17) right after that many snapshots (a kill:
+    no cleanup, no output file); with 0 it resumes from the snapshot it
+    finds and prints one JSON line of what it did."""
+    import os
+
+    import torch
+
+    from pyimcom_tpu_torch.coadd import Block
+    from pyimcom_tpu_torch.config import Config
+
+    saves = []
+    orig = Block._maybe_ckpt
+
+    def counted(self):
+        orig(self)
+        saves.append(self._ckpt_base + self._groups_drained)
+        if len(saves) == die_after:
+            print(json.dumps({"killed_after_groups": saves}), flush=True)
+            os._exit(17)
+
+    Block._maybe_ckpt = counted
+    t0 = time.perf_counter()
+    blk = Block(cfg=Config(json.loads(Path(cfg_json).read_text())), this_sub=1,
+                device="cuda", checkpoint_sec=0)
+    torch.cuda.synchronize()
+    print(json.dumps({"resumed_after_groups": blk._ckpt_base, "block_s": time.perf_counter() - t0,
+                      "stamps": len(blk.stamp_stats), "snapshots": saves,
+                      "checkpoint_phase": blk.phase_times().get("block.checkpoint")}), flush=True)
+    return 0
+
+
+def phase_checkpoint(cfg_dict, warm_out):
+    """The bench block killed after its 2nd snapshot in a child process,
+    then resumed in a fresh one; held to the uninterrupted warm block."""
+    import os
+
+    d = dict(cfg_dict, OUT=cfg_dict["OUT"] + "_ckpt")
+    cfg_json = WORK / "ckpt_cfg.json"
+    cfg_json.write_text(json.dumps(d))
+    out = d["OUT"] + "_00_01.fits"
+    snap = d["OUT"] + "_00_01.ckpt.npz"
+
+    def child(die_after):
+        code = ("import sys, chip_smoke; "
+                f"sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tests')!r}]; "
+                f"sys.exit(chip_smoke.checkpoint_child({str(cfg_json)!r}, {die_after}))")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                              text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        return proc.returncode, json.loads(lines[-1]) if lines else None, \
+            time.perf_counter() - t0, proc.stderr[-2000:]
+
+    rc_kill, killed, t_kill, err = child(2)
+    assert rc_kill == 17 and killed is not None, (rc_kill, err)
+    assert os.path.exists(snap) and not os.path.exists(out), (snap, out)
+    with np.load(snap) as z:
+        groups_done = int(z["groups_done"])
+    rc, resumed, t_res, err = child(0)
+    assert rc == 0 and resumed is not None, (rc, err)
+    cmp = compare_blocks(warm_out, out)
+    rec = {"phase": "checkpoint", "killed": killed, "kill_process_s": t_kill,
+           "snapshot_groups_done": groups_done, **resumed, "resume_process_s": t_res,
+           "snapshot_removed": not os.path.exists(snap), "vs_uninterrupted": cmp}
+    emit(rec)
+    assert groups_done == 2 and resumed["resumed_after_groups"] == 2, rec
+    assert resumed["stamps"] == 8 and rec["snapshot_removed"], rec
+    assert cmp["science_rel"] < TOL and max(cmp["maps_lsb"].values()) <= 1, rec
+
+
+def phase_runner(cfg_dict, warm_out, stop2_out):
+    """The runner's command line, each run a process of its own: block 1 of
+    the bench survey, held to the warm bench block; the same command again,
+    which must skip the finished block; then --all --workers 2 at STOP 2
+    (the forkserver pool, two blocks at a time on the card): every block
+    written, block 1 held to the in-process STOP-2 Cholesky block."""
+    import os
+
+    def runner(name, d, *flags):
+        cfg_json = WORK / f"{name}_cfg.json"
+        cfg_json.write_text(json.dumps(d))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pyimcom_tpu_torch.runner", str(cfg_json),
+                               *flags], cwd=REPO, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, (name, flags, proc.returncode, proc.stderr[-2000:])
+        return time.perf_counter() - t0, proc.stdout
+
+    one = dict(cfg_dict, OUT=cfg_dict["OUT"] + "_runner")
+    out = one["OUT"] + "_00_01.fits"
+    t_block, _said = runner("runner", one, "--block", "1")
+    written = os.path.getmtime(out)
+    t_skip, said = runner("runner", one, "--block", "1")
+    skipped = "already done" in said and os.path.getmtime(out) == written
+    cmp = compare_blocks(warm_out, out)
+
+    mosaic = dict(cfg_dict, STOP=2, OUT=cfg_dict["OUT"] + "_mosaic")
+    t_all, _said = runner("mosaic", mosaic, "--all", "--workers", "2")
+    nb = mosaic["BLOCK"]
+    outs = [mosaic["OUT"] + f"_{i:02d}_{j:02d}.fits" for i in range(nb) for j in range(nb)]
+    cmp_all = compare_blocks(stop2_out, mosaic["OUT"] + "_00_01.fits")
+    rec = {"phase": "runner", "block_process_s": t_block, "rerun_process_s": t_skip,
+           "rerun_skipped": skipped, "vs_warm_bench_block": cmp,
+           "all_workers_2_process_s": t_all, "blocks": len(outs),
+           "blocks_written": sum(os.path.exists(p) for p in outs),
+           "block_1_vs_in_process": cmp_all}
+    emit(rec)
+    assert skipped and rec["blocks_written"] == len(outs), rec
+    for c in (cmp, cmp_all):
+        assert c["science_rel"] < TOL and max(c["maps_lsb"].values()) <= 1, rec
+
+
+def phase_pool_budget(torch, dev, cfg_dict):
+    """Production geometry at STOP 324 (two rows of 40 groups and the first
+    group of the third), Cholesky: with the default budget, then with a
+    third of that run's retained peak; the second held to the first."""
+    runs = {}
+    for name in ("default", "third"):
+        kw = {} if name == "default" else \
+            {"pool_budget_bytes": runs["default"]["retained_peak_bytes"] / 3}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        blk, out, t, launches = run_block(cfg_dict, "_pool" + name, block_kw=kw,
+                                          **dict(PROD, STOP=POOL_STOP))
+        st = blk.pool_stats
+        runs[name] = dict(
+            budget_bytes=st["budget_bytes"], retained_peak_bytes=st["peak_bytes"],
+            retained_after_rows_bytes=st["retained"][POOL_ROW - 1::POOL_ROW],
+            evictions=st["evictions"], evicted_bytes=st["evicted_bytes"],
+            recomputed_submatrices=st["recomputed"],
+            max_memory_allocated_GiB=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            memory_reserved_GiB=torch.cuda.memory_reserved(dev) / 2 ** 30,
+            stamps=len(blk.stamp_stats), block_s=t,
+            s_per_stamp=t / max(len(blk.stamp_stats), 1), launches=launches, out=out,
+            phases=phase_times(blk), retained_bytes=st["retained"])
+        del blk
+    cmp = compare_blocks(runs["default"]["out"], runs["third"]["out"])
+    extra = {k: runs["third"]["launches"][k] - runs["default"]["launches"][k]
+             for k in runs["third"]["launches"]}
+    emit({"phase": "pool_budget", "stop": POOL_STOP,
+          **{k: {kk: v for kk, v in r.items() if kk != "out"} for k, r in runs.items()},
+          "extra_launches": extra, "third_vs_default": cmp})
+    assert runs["third"]["evictions"] > 0 and runs["third"]["recomputed_submatrices"] > 0, runs
+    assert all(r["stamps"] == POOL_STOP for r in runs.values()), runs
+    assert cmp["science_rel"] < TOL and max(cmp["maps_lsb"].values()) <= 1, cmp
 
 
 def phase_times(blk):
@@ -1135,6 +1302,9 @@ def main():
     # ---- 4. the bench block ---------------------------------------------------
     from survey_fixture_torch import build_survey
 
+    from pyimcom_tpu_torch.bench import quality_check
+    from pyimcom_tpu_torch.fitsio import fits_read
+
     shutil.rmtree(WORK, ignore_errors=True)
     cfg_dict = build_survey(WORK, n_obs=8, extrainput=["cstar14"])
     k1_caps = {}
@@ -1155,6 +1325,24 @@ def main():
     assert abs(SL1 - 1.0) < SL1_TOL, SL1
     assert uc_med < UC_MAX, uc_med
 
+    # ---- the bench entry's line, from its warm bench block ----------------------
+    from pyimcom_tpu_torch import bench
+    from pyimcom_tpu_torch.ops import interp_cuda
+
+    interp_cuda.reset_launch_counts()
+    bench_line, bblk, SL1_b, uc_b = bench.bench_block(
+        dict(cfg_dict, OUT=cfg_dict["OUT"] + "_entry"), "cuda", stop=0, warmup=False)
+    bench_launches = dict(interp_cuda.launches)
+    emit({"phase": "bench_line", "stamps": len(bblk.stamp_stats), "SL1": SL1_b,
+          "uc_median": uc_b, "launches": bench_launches, "line": bench_line})
+    print(json.dumps(bench_line), flush=True)
+    assert len(bblk.stamp_stats) == 16 and all(n > 0 for n in bench_launches.values())
+    assert abs(SL1_b - 1.0) < SL1_TOL and uc_b < UC_MAX, bench_line
+    del bblk
+
+    # ---- checkpoint: killed after 2 snapshots, resumed in a fresh process -----
+    phase_checkpoint(cfg_dict, out)
+
     # ---- 5. configs[1]: Eigen with a kappa sweep, warm --------------------------
     eig, out_e, t_eig, eig_launches = run_block(cfg_dict, "_eigen", LAKERNEL="Eigen",
                                                 KAPPAC=MULTI_KAPPA)
@@ -1171,11 +1359,15 @@ def main():
                 "eigen": dict(LAKERNEL="Eigen", KAPPAC=MULTI_KAPPA),
                 "iter": dict(LAKERNEL="Iterative", ITERRTOL=1.5e-3, ITERMAX=30),
                 "empir": dict(LAKERNEL="Empirical")}
-    img, solve_ms, cross_launches = {}, {}, {}
+    variants["iternqc"] = dict(variants["iter"], EMPIRNQC=True)
+    variants["empirnqc"] = dict(variants["empir"], EMPIRNQC=True)
+    img, cube, solve_ms, cross_launches, cross_out = {}, {}, {}, {}, {}
     for name, over in variants.items():
-        blk_v, out_v, _t, cross_launches[name] = run_block(cfg_dict, "_x" + name, STOP=2,
-                                                           **over)
-        img[name] = science(out_v)[STAR_REGION]
+        blk_v, cross_out[name], _t, cross_launches[name] = run_block(
+            cfg_dict, "_x" + name, no_system=name == "empirnqc", STOP=2, **over)
+        out_v = cross_out[name]
+        cube[name] = np.asarray(fits_read(out_v)[0].data, np.float64)
+        img[name] = cube[name][0, 0][STAR_REGION]
         solve_ms[name] = solve_ms_per_stamp(blk_v)
 
     def diff(a, b):
@@ -1186,14 +1378,26 @@ def main():
              (("chol", "multik"), ("multik", "eigen"), ("chol", "iter"), ("eigen", "iter"),
               ("chol", "empir"), ("eigen", "empir"))}
     signal_std = float(np.std(img["chol"]))
+    # without quality control the science cube is the same solve: Iterative
+    # everywhere, Empirical where its weights are finite
+    fin = np.isfinite(cube["empirnqc"])
+    nqc = {"iternqc-iter": float(np.abs(cube["iternqc"] - cube["iter"]).max()
+                                 / np.abs(cube["iter"]).max()),
+           "empirnqc-empir": float(np.abs(cube["empirnqc"] - cube["empir"])[fin].max()
+                                   / np.abs(cube["empir"][fin]).max()),
+           "empirnqc_finite_share": float(fin.mean())}
     emit({"phase": "solver_cross", "stop": 2, "region": "[0:25, 25:50]", "diff": cross,
-          "signal_std": signal_std, "solve_ms_per_stamp": solve_ms,
+          "signal_std": signal_std, "no_quality_control": nqc, "solve_ms_per_stamp": solve_ms,
           "launches": cross_launches})
     for pair in ("chol-multik", "multik-eigen"):
         assert cross[pair]["std"] < 3e-5 and abs(cross[pair]["mean"]) < 2e-6, (pair, cross)
     assert cross["chol-iter"]["std"] < 2.5e-3, cross
     assert cross["chol-empir"]["std"] < 1.05 * signal_std, cross
-    assert all(np.all(np.isfinite(v)) for v in img.values())
+    assert all(np.all(np.isfinite(v)) for k, v in img.items() if k != "empirnqc")
+    assert nqc["iternqc-iter"] < TOL and nqc["empirnqc-empir"] < TOL, nqc
+
+    # ---- the runner's command line: a block, its rerun, a mosaic over 2 workers
+    phase_runner(cfg_dict, out, cross_out["chol"])
 
     # ---- 7. production geometry: one 2x2 group, three solvers -----------------
     with capture_first_plan() as prod_cap, capture_k1("production", ["psf_sampling"], k1_caps):
@@ -1202,6 +1406,9 @@ def main():
                    LAKERNEL="Iterative", KAPPAC=[0.0], ITERRTOL=0.0015, ITERMAX=30)
     run_production(torch, dev, cfg_dict, "production_eigen", "_prodeig",
                    LAKERNEL="Eigen", KAPPAC=MULTI_KAPPA)
+
+    # ---- two production rows: retained pools, then a third of them ------------
+    phase_pool_budget(torch, dev, cfg_dict)
 
     # ---- 8. K2 at the main path's own shapes ----------------------------------
     main_k2 = [k2_main_path(torch, dev, "bench_group_1", bench_cap.plan, floor_ms),

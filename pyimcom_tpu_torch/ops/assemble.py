@@ -175,7 +175,7 @@ def relevance_mask(out_x, out_y, in_x, in_y, rho):
 def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
                    ucmin, smax, rtol, n2sq: int, solver: str = "monolithic",
                    exact_UC: bool = True, maxiter: int = 30, dist=None,
-                   rho_acc: float = 0.0):
+                   rho_acc: float = 0.0, no_qlt_ctrl: bool = False):
     """
     Per-stamp f64 solve + coaddition (the JAX package's ``solve_finalize``).
 
@@ -186,15 +186,17 @@ def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
     (eigendecomposition + per-pixel bisection), "iterative" (masked CG over
     `relevant` (m, n_pad) bool, at `rtol` / `maxiter`; `exact_UC` selects
     the exact quality contraction) or "empirical" (distance weights from
-    `dist` (m, n_pad) and `rho_acc`).  `relevant` and `dist` are read only
-    by the solvers that need them.
+    `dist` (m, n_pad) and `rho_acc`; with `no_qlt_ctrl`, EMPIRNQC, A and
+    mBhalf are not read and may be None).  `relevant` and `dist` are read
+    only by the solvers that need them.  Neff is 0 where T is not finite
+    (an EMPIRNQC pixel with no input in reach), as on the host path.
 
     Returns a dict of float32 tensors: outimage (n_out, n_inframe, m),
     Tsum_stamp (n_out, n_img), Tsum_inpix, Neff, kappa, Sigma, UC
     (n_out, m), with the fade applied where the host path applies it.
     """
     f64 = torch.float64
-    sys_ = (A.to(f64), mBhalf.to(f64), C.to(f64), kappaC.to(f64))
+    sys_ = tuple(None if t is None else t.to(f64) for t in (A, mBhalf, C, kappaC))
     if solver == "monolithic":
         T, kappa, Sigma, UC = cholesky_solve(*sys_, ucmin, smax)
     elif solver == "eigen":
@@ -207,7 +209,8 @@ def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
         UC = UC.clamp(min=1e-32)
         Sigma = Sigma.clamp(min=1e-32)
     elif solver == "empirical":
-        T, kappa, Sigma, UC = empirical_weights(*sys_, dist.to(f64), rho_acc)
+        T, kappa, Sigma, UC = empirical_weights(*sys_, dist.to(f64), rho_acc,
+                                                no_qlt_ctrl=no_qlt_ctrl)
     else:
         raise ValueError(f"unknown solver {solver!r}")
     fade64 = fade.to(f64)
@@ -220,7 +223,8 @@ def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
     absum = Tsum_image.abs().sum(dim=2)
     Tnorm = Tsum_image / torch.where(absum == 0, 1.0, absum)[:, :, None]
     sq = (Tnorm * Tnorm).sum(dim=2)
-    Neff = torch.where(sq == 0, 0.0, 1.0 / torch.where(sq == 0, 1.0, sq))
+    Neff = torch.nan_to_num(torch.where(sq == 0, 0.0, 1.0 / torch.where(sq == 0, 1.0, sq)),
+                            nan=0.0)
 
     f32 = torch.float32
     return {
@@ -237,14 +241,17 @@ def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
 def solve_finalize_batch(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
                          ucmin, smax, rtol, n2sq: int, solver: str = "monolithic",
                          exact_UC: bool = True, maxiter: int = 30, dist=None,
-                         rho_acc: float = 0.0):
+                         rho_acc: float = 0.0, no_qlt_ctrl: bool = False):
     """:func:`solve_finalize` over the group's stamp axis: A (S, n, n),
-    mBhalf (S, n_out, m, n), data (S, n_inframe, n), img_onehot (S, n,
-    n_img), relevant (S, m, n) or (S, 1, 1), dist (S, m, n) or None; each
-    output gains a leading S axis.  The stamps are solved one after another,
-    which bounds the working set to one stamp's."""
-    outs = [solve_finalize(A[s], mBhalf[s], C, kappaC, data[s], img_onehot[s], fade,
-                           relevant[s], ucmin, smax, rtol, n2sq, solver, exact_UC,
-                           maxiter, None if dist is None else dist[s], rho_acc)
-            for s in range(A.shape[0])]
+    mBhalf (S, n_out, m, n) (both None under `no_qlt_ctrl`), data (S,
+    n_inframe, n), img_onehot (S, n, n_img), relevant (S, m, n) or (S, 1,
+    1), dist (S, m, n) or None; each output gains a leading S axis.  The
+    stamps are solved one after another, which bounds the working set to
+    one stamp's."""
+    outs = [solve_finalize(None if A is None else A[s],
+                           None if mBhalf is None else mBhalf[s], C, kappaC, data[s],
+                           img_onehot[s], fade, relevant[s], ucmin, smax, rtol, n2sq,
+                           solver, exact_UC, maxiter, None if dist is None else dist[s],
+                           rho_acc, no_qlt_ctrl)
+            for s in range(data.shape[0])]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

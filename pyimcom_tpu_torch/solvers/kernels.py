@@ -273,17 +273,22 @@ def iterative_solve(A, mBhalf, C, kappaC, relevant, rtol, ucmin, smax,
 # Empirical kernel
 # ---------------------------------------------------------------------------
 
-def empirical_weights(A, mBhalf, C, kappaC, dist, rho_acc):
+def empirical_weights(A, mBhalf, C, kappaC, dist, rho_acc, no_qlt_ctrl: bool = False):
     """
     Distance-weighted "kernel" (reference lakernel.py:747-806): T_ai
     proportional to max(rho_acc - dist_ai, 0), row-normalized, no solve.
-    dist (m, n) output-to-input pixel distances in output pixels.  U/C and
-    Sigma are evaluated exactly from A (the quality-controlled variant; the
-    one without quality control is not ported).
+    dist (m, n) output-to-input pixel distances in output pixels.  With
+    quality control U/C and Sigma are evaluated exactly from A; without it
+    (EMPIRNQC) A and mBhalf are not read (they may be None) and kappa,
+    Sigma and U/C are zero.  An output pixel with no input within rho_acc
+    gets 0/0 weights, as in the JAX package.
     """
     Ti = (rho_acc - dist).clamp(min=0.0)
     Ti = Ti / Ti.sum(dim=-1, keepdim=True)
     T = Ti[None].expand((C.shape[0],) + Ti.shape)
+    if no_qlt_ctrl:
+        zeros = torch.zeros(T.shape[:2], dtype=dist.dtype, device=dist.device)
+        return T, zeros, zeros, zeros
     D = torch.einsum("oai,ai->oa", mBhalf, Ti)
     UC = 1.0 + (_quad(A, Ti)[None, :] - 2 * D) / C[:, None]
     Sigma = (Ti * Ti).sum(dim=-1)[None, :].expand_as(UC)

@@ -125,9 +125,15 @@ def test_block_matches_reference(small_survey, monkeypatch):
                                   {"PSFSPLIT": [6.0, 7.0, 1e-3]},
                                   {"PSFINTERP": "G4460"}],
                          ids=["empirnqc", "mixed", "psfsplit", "G4460"])
-def test_configs_outside_the_slice_raise(small_survey, over):
+def test_configs_outside_the_slice_raise(small_survey, monkeypatch, over):
+    """The configurations the port does not cover raise.  Empirical without
+    quality control (EMPIRNQC) is covered now: its case holds the port's
+    block to the reference's host solve path, its only path, at STOP 2."""
     from pyimcom_tpu_torch.coadd import Block
 
+    if over.get("EMPIRNQC"):
+        port_vs_reference(small_survey, monkeypatch, "_empirnqc", "0", **over)
+        return
     cfg, _ = _cfg(small_survey, "_never", **over)
     with pytest.raises(NotImplementedError):
         Block(cfg=cfg, this_sub=1, device="cpu")

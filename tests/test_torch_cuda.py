@@ -496,3 +496,32 @@ def test_destripe_cost_cuda_matches_cpu(cuda):
     e, g = gpu.value_and_grad(torch.as_tensor(p, device=cuda), plain=True)
     np.testing.assert_allclose(float(e), want_cost, rtol=1e-12)
     np.testing.assert_allclose(g.cpu().numpy(), want_grad, rtol=1e-9, atol=1e-12)
+
+
+def test_empirical_no_qlt_block_launches_no_kernel(cuda, tmp_path):
+    """Empirical without quality control (EMPIRNQC) builds no system: one
+    stamp of the reduced survey (no injected layer, so no star injection)
+    launches neither K1 nor K2 on the card, and its science equals the CPU
+    block's to 1e-12 of scale."""
+    from survey_fixture_torch import build_survey
+
+    from pyimcom_tpu_torch.coadd import Block
+    from pyimcom_tpu_torch.config import Config
+    from pyimcom_tpu_torch.fitsio import fits_read
+
+    cfg = build_survey(tmp_path, n_obs=8, extrainput=[],
+                       config_overrides={"NPIXPSF": 16, "INPAD": 0.3, "STOP": 1,
+                                         "LAKERNEL": "Empirical", "EMPIRNQC": True})
+    outs = {}
+    for dev in ("cpu", cuda):
+        d = dict(cfg, OUT=cfg["OUT"] + f"_{torch.device(dev).type}")
+        interp_cuda.reset_launch_counts()
+        blk = Block(Config(d), this_sub=1, device=dev)
+        assert len(blk.stamp_stats) == 1
+        assert all(n == 0 for n in interp_cuda.launches.values()), interp_cuda.launches
+        outs[blk.device.type] = np.asarray(fits_read(d["OUT"] + "_00_01.fits")[0].data,
+                                           np.float64)
+    fin = np.isfinite(outs["cpu"])
+    np.testing.assert_array_equal(np.isfinite(outs["cuda"]), fin)
+    assert fin.any()
+    assert _rel(torch.as_tensor(outs["cuda"][fin]), torch.as_tensor(outs["cpu"][fin])) < TOL

@@ -25,7 +25,8 @@ MODULES = ("pyimcom_tpu_torch", "pyimcom_tpu_torch.coadd",
            "pyimcom_tpu_torch.solvers", "pyimcom_tpu_torch.layer",
            "pyimcom_tpu_torch.probe", "pyimcom_tpu_torch.imdestripe",
            "pyimcom_tpu_torch.ops.bilinear", "pyimcom_tpu_torch.ops.bilinear_cuda",
-           "pyimcom_tpu_torch.ops.destripe_device", "pyimcom_tpu_torch.utils.compareutils")
+           "pyimcom_tpu_torch.ops.destripe_device", "pyimcom_tpu_torch.utils.compareutils",
+           "pyimcom_tpu_torch.bench", "pyimcom_tpu_torch.runner")
 
 CASES = {
     # jax made unimportable: every import must still succeed
