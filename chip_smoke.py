@@ -9,7 +9,8 @@ through the user's entry points: the block coadd
 ``pyimcom_tpu_torch.coadd.Block(cfg, this_sub, device="cuda")`` with every
 LAKERNEL, the destriping entry point ``pyimcom_tpu_torch.imdestripe.main``,
 the toolchain probe ``pyimcom_tpu_torch.probe``, the bench entry
-``pyimcom_tpu_torch.bench`` and the block runner ``pyimcom_tpu_torch.runner``:
+``pyimcom_tpu_torch.bench``, the block runner ``pyimcom_tpu_torch.runner``
+and the chained pipeline ``pyimcom_tpu_torch.pipeline``:
 
 1. build: the card's name and power limit, the nvcc builds of the D5512
    and bilinear kernels (and of the earlier revisions in PARENTS, each
@@ -102,7 +103,21 @@ the toolchain probe ``pyimcom_tpu_torch.probe``, the bench entry
    bench block coadded from the clean, striped and destriped inputs (each
    with its own input directory and layer cache): 16 stamps, finite maps,
    U/C medians equal to 1e-6, the destriped science nearer the clean one
-   than the striped, by RMS, and the SL1 of all three.
+   than the striped, by RMS, and the SL1 of all three;
+12. mosaic_chain (in .smoke_work/mosaic_chain/): ``pyimcom_tpu_torch.pipeline``
+   as scripts/run_chained_pipeline.py's defaults run it, except --n-obs 6
+   (the destripe phase's 4 F184 SCAs): a 2x2 mosaic of 8 x 8 stamps of 32
+   px at 0.0390625", NPIXPSF 48, INPAD 1.055, PAD 1 on every side, cstar14
+   and whitenoise1, through destripe (5 CG iterations), the layer caches
+   (a forkserver pool), the four blocks, the halo exchange and compression:
+   the seconds of every stage and the launches of K1-K4 in each (K3 and K4
+   in destripe, K1 in layers, K1 and K2 in the coadd; the layer builds'
+   K1 launches are counted in the pool's workers); at least half of the
+   SCAs destriped by 2x in their row medians; every output map finite; the
+   U/C median of every block < 1e-6; |SL1 - 1| < 5e-3 of the science star
+   on block _00_01 (tests/test_full_pipeline.py's bound); every compressed
+   layer read back through compress.ReadFile within the I24B step plus
+   float32 noise (pipeline.compression_check) and every other HDU equal.
 
 Timing.  A kernel's time is the median CUDA-event time of single calls,
 each enqueued behind a torch.cuda._sleep of SLEEP_CYCLES, so that the
@@ -140,6 +155,7 @@ WORK = REPO / ".smoke_work"
 TOL = 1e-12                     # kernel vs plain, of scale, f64
 SL1_TOL, UC_MAX = 5e-4, 1e-6    # reference CI thresholds
 EIGEN_SL1_TOL = 1e-3            # tests/test_e2e_kernels.py, the Eigen runs
+CHAIN_SL1_TOL = 5e-3            # tests/test_full_pipeline.py, the chained star
 CPU_RECORD = {"SL1": 0.999938, "uc_median": 3.65e-7}   # .bench_cpu_baseline.json
 MULTI_KAPPA = [5e-4, 1e-3, 2e-3]                        # BASELINE.json configs[1]
 STAR_REGION = np.s_[0:25, 25:50]                        # the stamp with the star
@@ -167,7 +183,6 @@ QUERY_FLOP = 2 * TAPS_FLOP + 220 + 6   # two tap sets, the 10x10 sum, the positi
 # the division, the accumulator) and of K4 (the same taps, norm and division,
 # four products and four adds)
 GATHER_FLOP, ADJOINT_FLOP = 27, 27
-DS_SEED, DS_STRIPE = 99, 0.01   # scripts/run_chained_pipeline.py's stripes
 # torch.cuda._sleep cycles enqueued before a timed call, so that the device
 # is still busy while the host enqueues it (about 0.2 ms at 1.98 GHz)
 SLEEP_CYCLES = 400_000
@@ -820,42 +835,15 @@ def striped_survey(root):
     """The destripe phase's survey: build_survey(n_obs=6) (4 F184 SCAs at
     4088^2), a clean copy of each L2 image under root/clean, and row stripes
     injected into the L2 images as scripts/run_chained_pipeline.py does
-    (default_rng(99), scale 0.01, written back as float32).  Returns (config
-    dict, the L2 paths)."""
+    (pipeline.inject_stripes).  Returns (config dict, the L2 paths)."""
     from survey_fixture_torch import build_survey
 
-    from pyimcom_tpu_torch.fitsio import HDUList, Header, ImageHDU, fits_read, fits_write
+    from pyimcom_tpu_torch.pipeline import inject_stripes, raw_images
 
     cfg = build_survey(root, n_obs=6, extrainput=["cstar14"])
-    raw = sorted(p for p in (root / "in").glob("sim_L2_F184_*.fits") if "_mask" not in p.name)
-    (root / "clean").mkdir()
-    rng = np.random.default_rng(DS_SEED)
-    for p in raw:
-        shutil.copy(p, root / "clean" / p.name)
-        f = fits_read(p)
-        img = np.asarray(f[0].data, np.float64)
-        stripes = rng.normal(scale=DS_STRIPE, size=img.shape[0])
-        fits_write(p, HDUList([ImageHDU((img + stripes[:, None]).astype(np.float32),
-                                        header=Header(f[0].header))]))
+    raw = [Path(p) for p in raw_images(root)]
+    inject_stripes(root, raw)
     return cfg, raw
-
-
-def destripe_quality(root, raw, dsdir):
-    """Per SCA, the std of the row medians of (striped - clean) and of
-    (destriped - clean) (tests/test_full_pipeline.py's criterion)."""
-    import re
-
-    from pyimcom_tpu_torch.fitsio import fits_read
-
-    out = {}
-    for p in raw:
-        name = re.search(r"(\w\d+)_(\d+)_(\d+)", p.name).group(0)
-        clean = np.asarray(fits_read(root / "clean" / p.name)[0].data, np.float64)
-        striped = np.asarray(fits_read(p)[0].data, np.float64)
-        ds = np.asarray(fits_read(Path(dsdir) / f"ds_{name}.fits")[0].data, np.float64)
-        out[name] = {"striped": float(np.std(np.median(striped - clean, axis=1))),
-                     "destriped": float(np.std(np.median(ds - clean, axis=1)))}
-    return out
 
 
 def destripe_inputs(root, raw, dsdir, variant):
@@ -896,6 +884,7 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     from pyimcom_tpu_torch.config import Config
     from pyimcom_tpu_torch.fitsio import fits_read
     from pyimcom_tpu_torch.ops import bilinear_cuda
+    from pyimcom_tpu_torch.pipeline import destripe_quality
 
     root = WORK / "destripe"
     root.mkdir()
@@ -989,6 +978,39 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     assert max(uc) - min(uc) <= 1e-6 * min(uc), uc
     assert rms["destriped"] < rms["striped"], rms
     return k3, k4, launches
+
+
+def phase_mosaic_chain():
+    """pyimcom_tpu_torch.pipeline with scripts/run_chained_pipeline.py's
+    defaults and --n-obs 6, its launch counts set to 0 just before and read
+    just after; the criteria of the module docstring.  Returns its line."""
+    from pyimcom_tpu_torch import pipeline
+    from pyimcom_tpu_torch.fitsio import fits_read
+    from pyimcom_tpu_torch.ops import bilinear_cuda, interp_cuda
+
+    interp_cuda.reset_launch_counts()
+    bilinear_cuda.reset_launch_counts()
+    res = pipeline.run(WORK / "mosaic_chain", n_obs=6)
+    in_process = {**interp_cuda.launches, **bilinear_cuda.launches}
+    finite = {Path(p).name: all(bool(np.all(np.isfinite(np.asarray(h.data))))
+                                for h in fits_read(p) if getattr(h, "data", None) is not None
+                                and np.asarray(h.data).dtype.kind in "fiu")
+              for p in res["coadd_block_s"]}
+    emit({"phase": "mosaic_chain", **res, "launches_in_process": in_process,
+          "finite": finite})
+    st = res["launches"]
+    assert st["destripe"]["bilinear_gather"] > 0 and st["destripe"]["bilinear_scatter_adjoint"] > 0
+    assert st["layers"]["interp_d5512_dense"] > 0, st["layers"]
+    assert all(st["coadd"][k] > 0 for k in interp_cuda.launches), st["coadd"]
+    assert res["destriped_2x"] >= len(res["destripe_row_median_std"]) // 2
+    assert len(finite) == 4 and all(finite.values()), finite
+    assert all(uc < UC_MAX for uc in res["UC_median_blocks"].values()), res["UC_median_blocks"]
+    assert abs(res["star_SL1"] - 1.0) < CHAIN_SL1_TOL, res["star_SL1"]
+    for name, check in res["compression"].items():
+        assert sorted(check["layers"]) == [1, 2] and all(check["equal"].values()), (name, check)
+        assert all(r["max_abs_err"] <= r["bound"] for r in check["layers"].values()), \
+            (name, check)
+    return res
 
 
 def run_block(cfg_dict, suffix, block_kw=None, no_system=False, **over):
@@ -1446,6 +1468,10 @@ def main():
 
     # ---- 11. destriping, from imdestripe.main to the coadd ------------------------
     k3, k4, ds_launches = phase_destripe(torch, dev, floor_ms, parent_k4, k4_build)
+    torch.cuda.empty_cache()
+
+    # ---- 12. the chained 2x2 mosaic, from destripe to compression -----------
+    phase_mosaic_chain()
 
     # ---- summary ---------------------------------------------------------------
     # the kernels line's bound is bytes and operations alone (roofline_ms);

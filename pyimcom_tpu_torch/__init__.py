@@ -10,8 +10,9 @@ This package imports ``torch`` and never ``jax``, and nothing of
 ``pyimcom_tpu``.  It keeps its own copies of the reference's host modules
 (``config``, ``fitsio``, ``wcsutil``, ``sphere``, ``asdfio``, ``profiling``,
 ``ops/psfmodels``, ``utils/moments``, ``utils/compareutils``, the layer
-helpers in ``layer_host`` and ``imdestripe``'s host helpers), which ``tests/test_torch_hostio.py`` holds to their
-originals.  The TPU kernel on the coadd's path, the
+helpers in ``layer_host``, ``imdestripe``'s host helpers, ``compress``,
+``truthcats`` and ``analysis``), which ``tests/test_torch_hostio.py`` holds
+to their originals.  The TPU kernel on the coadd's path, the
 D5512 interpolation, is a hand-written CUDA kernel pair for Hopper
 (``csrc/interp_d5512.cu``); the destriper's bilinear gather and its
 adjoint, which the JAX package leaves to XLA, are a hand-written CUDA pair
@@ -29,6 +30,13 @@ Modules:
     layer       input layer cubes, star and galaxy injection
     coadd       the block coadd (``Block(cfg, this_sub, device=...)``)
     imdestripe  destriping (``main(cfg, device=...)``)
+    layer_wrapper  the layer caches of every exposure, compression of a run
+    compress    I24 layer compression and the transparent block reader
+    analysis    block readers, the mosaic's halo exchange, noise and stars
+    truthcats   truth catalogs of the injected sources
+    bench       the benchmark line
+    runner      blocks of a mosaic (``--share-pads``: the halo exchange)
+    pipeline    the chained mosaic from destripe to compressed blocks
     probe       the toolchain probe of the card
 """
 

@@ -17,14 +17,17 @@ limit.  ``vs_baseline`` is the ratio to the CPU reference block recorded in
 (``fixture_key``), else null.  ``--production`` coadds a region of a
 production-geometry block (OUTSIZE [80, 32, 0.0390625], INPAD 1.055, NPIXPSF
 48) instead and prints ``production_stamp_seconds`` with the peak device
-memory and the retained submatrix pools.
+memory and the retained submatrix pools.  ``--postpass`` times the mosaic
+post-passes at production block size instead (:func:`postpass`) and prints
+``postpass_seconds``.
 
-    python -m pyimcom_tpu_torch.bench [--full] [--production] [--stop N]
-                                      [--device cuda|cpu] [--checkpoint-sec S]
+    python -m pyimcom_tpu_torch.bench [--full] [--production | --postpass]
+                                      [--stop N] [--device cuda|cpu]
+                                      [--checkpoint-sec S]
 
 ``--stop N`` coadds N stamps (bench default: all 16 on the card, 4 on the
-CPU; ``--full`` is all 16; production default 8, 0 the whole 2560^2 block).
-The surveys are written under ``.bench_work/`` in the repository
+CPU; ``--full`` is all 16; production default 8, 0 the whole 2560^2 block;
+post-passes default 4 a block).  The surveys are written under ``.bench_work/`` in the repository
 (git-ignored) and reused.  A SIGTERM before the result prints a line with
 a null value, marked partial, and exits.
 """
@@ -35,6 +38,7 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -49,6 +53,51 @@ BASELINE = REPO / ".bench_cpu_baseline.json"
 BENCH_STAMPS = 16                 # stamps of the bench block
 PRODUCTION = {"OUTSIZE": [80, 32, 0.0390625], "INPAD": 1.055, "NPIXPSF": 48}
 STAR = (60.0508, -3.8005)         # the survey's science star (ra, dec)
+# the post-passes' mosaic: 2x2 production blocks padded on every side
+POSTPASS = dict(PRODUCTION, PAD=1, PADSIDES="all", BLOCK=2,
+                EXTRAINPUT=["cstar14", "whitenoise1"])
+
+# One post-pass in a fresh process: the runner's ``--all --share-pads`` over
+# finished blocks (it skips them, so torch is never imported) or
+# compress_all_blocks.  Prints its seconds, its resident memory after the
+# imports and the peak of it during the pass, VmRSS sampled every 5 ms by a
+# thread: ru_maxrss carries the parent's peak across the exec, and VmHWM is
+# not offered by every kernel's /proc.
+POSTPASS_CHILD = r"""
+import json, sys, threading, time
+from pathlib import Path
+from pyimcom_tpu_torch import runner
+from pyimcom_tpu_torch.config import Config
+from pyimcom_tpu_torch.layer_wrapper import compress_all_blocks
+
+def rss_mib():
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+cfg_path, what = sys.argv[1], sys.argv[2]
+before = rss_mib()
+peak, done = [before], threading.Event()
+
+def sample():
+    while not done.wait(0.005):
+        peak[0] = max(peak[0], rss_mib())
+
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+t0 = time.perf_counter()
+if what == "share_pads":
+    runner.main([cfg_path, "--all", "--share-pads"])
+else:
+    compress_all_blocks(Config(cfg_path))
+seconds = time.perf_counter() - t0
+done.set()
+sampler.join()
+print(json.dumps({"seconds": seconds, "rss_before_MiB": before,
+                  "peak_rss_MiB": max(peak[0], rss_mib()),
+                  "torch_imported": "torch" in sys.modules}))
+"""
 
 # what the SIGTERM handler prints
 PARTIAL = {"metric": "blocks/hour", "value": None,
@@ -146,11 +195,19 @@ def quality_check(path):
         / (2 * np.pi * sig ** 2 * sc)
     region = np.s_[0:25, 25:50]
     SL1 = float(np.sum((p * d)[region]) / np.sum((p ** 2)[region]))
-    fid = np.asarray(f["FIDELITY"].data, dtype=np.float64)
-    uc = 10.0 ** (fid / -5000.0)
+    return SL1, uc_median(f)
+
+
+def uc_median(block):
+    """The U/C median of an output block (a path or its HDUList) as
+    bench.quality_check decodes it: the FIDELITY map's values with 1e-10 <
+    U/C < 0.5 (never-coadded pixels saturate the encoding); 1.0 if none."""
+    from .fitsio import fits_read
+
+    f = fits_read(block) if isinstance(block, (str, Path)) else block
+    uc = 10.0 ** (np.asarray(f["FIDELITY"].data, dtype=np.float64) / -5000.0)
     good = (uc > 1e-10) & (uc < 0.5)
-    uc_med = float(np.median(uc[good])) if np.any(good) else 1.0
-    return SL1, uc_med
+    return float(np.median(uc[good])) if np.any(good) else 1.0
 
 
 def line(seconds, nrun, SL1, uc_med, card, baseline):
@@ -208,13 +265,60 @@ def production(stop=8, device="cuda", workdir=None, checkpoint_sec=None):
                            "calls": v["calls"]} for k, v in blk.phase_times().items()}}
 
 
+def postpass_child(cfg_path, what):
+    """Run one post-pass ("share_pads" or "compress") over the finished
+    blocks of `cfg_path` in a fresh process; returns its record."""
+    proc = subprocess.run([sys.executable, "-c", POSTPASS_CHILD, str(cfg_path), what],
+                          cwd=REPO, capture_output=True, text=True, timeout=3000)
+    if proc.returncode:
+        raise RuntimeError(f"the {what} post-pass failed:\n{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    if rec["torch_imported"]:
+        raise RuntimeError(f"the {what} post-pass imported torch; its memory is not its own")
+    return rec
+
+
+def postpass(stop=4, device="cuda"):
+    """The mosaic post-passes at production block size: a 2x2 mosaic of
+    2624^2 blocks (production geometry, PAD 1 on every side, cstar14 and
+    whitenoise1 on the bench survey, in .bench_work/postpass/, rebuilt every
+    run), `stop` stamps of every block coadded by ``python -m
+    pyimcom_tpu_torch.runner cfg.json --all``, then the halo exchange
+    (``runner cfg.json --all --share-pads``) and compression
+    (layer_wrapper.compress_all_blocks), each in a fresh process
+    (postpass_child); returns the postpass_seconds line."""
+    work = WORK / "postpass"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg_dict = survey(work, dict(POSTPASS, STOP=stop))
+    cfg_path = work / "cfg.json"
+    subprocess.run([sys.executable, "-m", "pyimcom_tpu_torch.runner", str(cfg_path), "--all",
+                    "--device", device], cwd=REPO, check=True, timeout=3000,
+                   stdout=subprocess.DEVNULL)
+    out = Path(cfg_dict["OUT"])
+    blocks = sorted(out.parent.glob(out.name + "_[0-9][0-9]_[0-9][0-9].fits"))
+    share = postpass_child(cfg_path, "share_pads")
+    packed = postpass_child(cfg_path, "compress")
+    return {"metric": "postpass_seconds", "value": share["seconds"] + packed["seconds"],
+            "unit": (f"s of the halo exchange and compression of {len(blocks)} blocks of "
+                     f"{stop} coadded stamps, in host processes beside {card_label(device)}"),
+            "vs_baseline": None,
+            "block_MB": [os.path.getsize(p) / 1e6 for p in blocks],
+            "share_pads": share, "compress": packed,
+            "packed_MB": [os.path.getsize(p) / 1e6 for p in
+                          sorted(out.parent.glob(out.name + "_*.cpr.fits.gz"))]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="pyimcom_tpu_torch benchmark line")
     ap.add_argument("--full", action="store_true", help="coadd all 16 bench stamps")
     ap.add_argument("--production", action="store_true",
                     help="seconds a stamp of a production-geometry block")
+    ap.add_argument("--postpass", action="store_true",
+                    help="seconds and peak memory of the mosaic post-passes at "
+                         "production block size")
     ap.add_argument("--stop", type=int, default=None,
-                    help="stamps to coadd (bench: 0 = all 16; production: 0 = the block)")
+                    help="stamps to coadd (bench: 0 = all 16; production: 0 = the block; "
+                         "post-passes: a block)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--checkpoint-sec", type=float, default=None,
                     help="production: snapshot the block every S seconds and resume from it")
@@ -224,6 +328,10 @@ def main(argv=None):
     if args.production:
         stop = 8 if args.stop is None else args.stop
         print(json.dumps(production(stop, args.device, checkpoint_sec=args.checkpoint_sec)),
+              flush=True)
+        return 0
+    if args.postpass:
+        print(json.dumps(postpass(4 if args.stop is None else args.stop, args.device)),
               flush=True)
         return 0
     if args.full:

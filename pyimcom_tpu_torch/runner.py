@@ -10,20 +10,20 @@ partial run is an unbiased spatial sample of the mosaic.  A finished block
 ``checkpoint_sec`` an interrupted block resumes from its snapshot.
 
     python -m pyimcom_tpu_torch.runner cfg.json --block N | --all
-        [--workers K] [--checkpoint-sec S] [--device cuda|cpu]
+        [--workers K] [--checkpoint-sec S] [--device cuda|cpu] [--share-pads]
 
 ``--all`` runs this rank's share of the blocks (host_blocks): every block
-in a single-process run.
-
-The halo exchange (``--share-pads``) and the report (``--report``) need the
-analysis and diagnostics modules, which are not ported yet (ROADMAP.md
-queue 1 step 3): they raise NotImplementedError.
+in a single-process run.  ``--share-pads`` then runs the padding-stamp halo
+exchange over the mosaic's block files (analysis.Mosaic) and saves every
+block.  The report (``--report``) needs the diagnostics modules, which are
+not ported yet (ROADMAP.md): it raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 from .config import Config
 
@@ -106,15 +106,29 @@ def host_blocks(nblock: int, process_index: int = None, process_count: int = Non
     unset).
     """
     if process_index is None:
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized():
+        # a process that never imported torch has no process group (and the
+        # post-passes over finished blocks never import it)
+        dist = sys.modules.get("torch.distributed")
+        if dist is not None and dist.is_available() and dist.is_initialized():
             process_index, process_count = dist.get_rank(), dist.get_world_size()
         else:
             process_index = int(os.environ.get("RANK", "0"))
             process_count = int(os.environ.get("WORLD_SIZE", "1"))
     order = block_order(nblock)
     return order[process_index::max(process_count, 1)]
+
+
+def share_pads(outstem) -> int:
+    """The padding-stamp halo exchange post-pass over the block files
+    ``outstem_XX_YY.fits`` (analysis.Mosaic.share_padding_stamps), every
+    block saved back to its file; returns the number of blocks."""
+    from .analysis import Mosaic
+
+    mos = Mosaic(outstem)
+    mos.share_padding_stamps()
+    for oi in mos.images.values():
+        oi.save()
+    return len(mos.images)
 
 
 def main(argv=None):
@@ -132,11 +146,9 @@ def main(argv=None):
     ap.add_argument("--share-pads", action="store_true",
                     help="run the padding-stamp halo exchange post-pass")
     args = ap.parse_args(argv)
-    for flag, what in (("share_pads", "--share-pads (the halo exchange of analysis)"),
-                       ("report", "--report (diagnostics)")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"{what} is not ported to pyimcom_tpu_torch yet "
-                                      f"(see ROADMAP.md queue 1 step 3)")
+    if args.report:
+        raise NotImplementedError("--report (diagnostics) is not ported to "
+                                  "pyimcom_tpu_torch yet (see ROADMAP.md queue 1)")
 
     cfg = Config(args.config)
     kw = dict(device=args.device, checkpoint_sec=args.checkpoint_sec)
@@ -147,6 +159,10 @@ def main(argv=None):
     else:
         print("specify --block N or --all")
         return 1
+
+    if args.share_pads:
+        n = share_pads(cfg.outstem)
+        print(f"halo exchange applied to {n} blocks", flush=True)
     return 0
 
 

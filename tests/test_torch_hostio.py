@@ -2,8 +2,9 @@
 
 pyimcom_tpu_torch keeps its own copy of every jax-free host module it uses
 (config, fitsio, wcsutil, sphere, asdfio, profiling, ops/psfmodels,
-utils/moments, utils/compareutils, layer's helpers in layer_host and
-imdestripe's host helpers).  Each case runs the copy
+utils/moments, utils/compareutils, layer's helpers in layer_host,
+imdestripe's host helpers, compress, truthcats and analysis; analysis's
+cases on block files are in test_torch_pipeline.py).  Each case runs the copy
 and the original on the same seeded inputs: configurations, FITS files,
 WCS transforms and every helper must agree exactly (bit for bit, or equal
 objects), since the copies are the same code.
@@ -401,3 +402,161 @@ def test_boundary_penalty_and_gradient_are_bit_equal():
 def test_penalty_is_bit_equal(model):
     r = np.random.default_rng(11).normal(size=200)
     assert _same(ref_imdestripe.penalty(r, model, 0.7), imdestripe.penalty(r, model, 0.7))
+
+
+# --------------------------------------------------------------------------
+# compress, truthcats, analysis's helpers
+# --------------------------------------------------------------------------
+
+import pyimcom_tpu.analysis as ref_analysis  # noqa: E402
+import pyimcom_tpu.compress as ref_compress  # noqa: E402
+import pyimcom_tpu.truthcats as ref_truthcats  # noqa: E402
+from pyimcom_tpu_torch import analysis, compress, truthcats  # noqa: E402
+
+I24_PARS = {
+    # layer_wrapper.I24B_PARS, compress_all_blocks's parameters
+    "diff-smallnum": {"VMIN": "-100.0", "VMAX": "100.0", "DIFF": "True", "SOFTBIAS": "-1"},
+    # a soft bias, a power law, fewer bits and no bit transpose
+    "softbias-alpha": {"VMIN": -5.0, "VMAX": 7.0, "SOFTBIAS": 1000, "ALPHA": 0.5,
+                       "BITKEEP": 20, "REORDER": False},
+}
+
+
+def _layer_image(seed, shape=(40, 56)):
+    """float32 image with values beyond both ends of [-100, 100] and [-5, 7]."""
+    rng = np.random.default_rng(seed)
+    im = rng.normal(scale=3.0, size=shape).astype(np.float32)
+    im[3, 5], im[17, 2], im[30, 40] = 250.0, -180.0, 6.5
+    return im
+
+
+@pytest.mark.parametrize("scheme", ["I24A", "I24B"])
+@pytest.mark.parametrize("pars", sorted(I24_PARS))
+def test_i24_codec_is_bit_equal(scheme, pars):
+    im = _layer_image(12)
+    want, ovf_want = ref_compress.i24compress(im, scheme, I24_PARS[pars])
+    got, ovf_got = compress.i24compress(im, scheme, I24_PARS[pars])
+    assert _same(want, got) and _same(ovf_want, ovf_got)
+    assert len(ovf_got["y"]) > 0                       # the overflow table is used
+    back = compress.i24decompress(got, scheme, I24_PARS[pars], overflow=ovf_got)
+    assert _same(ref_compress.i24decompress(want, scheme, I24_PARS[pars], overflow=ovf_want),
+                 back)
+    assert back[3, 5] == 250.0 and back[17, 2] == -180.0   # restored exactly
+
+
+def _block_file(mod, path):
+    """A block-like file: a (1, 3, ny, nx) float32 cube and a second HDU."""
+    cube = np.stack([_layer_image(s) for s in (20, 21, 22)])[None]
+    mod.fits_write(path, mod.HDUList([
+        mod.ImageHDU(cube), mod.ImageHDU(np.arange(12, dtype=np.int16).reshape(3, 4),
+                                         name="FIDELITY")]))
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_compressed_output_round_trip_is_bit_equal(writer, tmp_path):
+    """CompressedOutput of layers 1-2 to .cpr.fits.gz by one package; both
+    ReadFile copies restore the same HDUs, and the layers within the I24B
+    step of the original."""
+    co_mod = ref_compress if writer == "ref" else compress
+    _block_file(ref_fitsio if writer == "ref" else fitsio, tmp_path / "b.fits")
+    co = co_mod.CompressedOutput(str(tmp_path / "b.fits"))
+    for il in (1, 2):
+        co.compress_layer(il, "I24B", I24_PARS["diff-smallnum"])
+    packed = str(tmp_path / "b.cpr.fits.gz")
+    co.to_file(packed)
+    want, got = ref_compress.ReadFile(packed), compress.ReadFile(packed)
+    # the compressed planes (HSHX*) and overflow tables (HSHV*) are restored
+    # and removed; the CPRESS table of the scheme parameters stays
+    assert [h.name for h in want] == [h.name for h in got] == ["", "FIDELITY", "CPRESS"]
+    assert list(got["CPRESS"].data["text"]) == list(want["CPRESS"].data["text"])
+    for hw, hg in zip(want[:2], got[:2]):
+        assert _same(np.asarray(hw.data), np.asarray(hg.data))
+    orig = fitsio.fits_read(str(tmp_path / "b.fits"))[0].data
+    assert _same(got[0].data[0, 0], orig[0, 0])
+    step = 200.0 / 2 ** 24
+    assert np.abs(got[0].data[0, 1:] - orig[0, 1:]).max() <= step + np.spacing(np.float32(250))
+
+
+def _truth_cfg(tmp_path, mod):
+    """A 2x2 mosaic configuration with star, galaxy and noise layers, whose
+    blocks (0, 0), (0, 1) and (1, 1) have (empty) output files."""
+    d = dict(_bench_cfg(tmp_path), OUTSIZE=[8, 64, 0.04], PAD=1,
+             EXTRAINPUT=["cstar14", "gsext14,n=1.5,hlr=0.2,shape=0.1:0.2,rot=20,shear=0.02:0.01,"
+                                    "seed=7", "nstar14,2.0", "whitenoise1"])
+    (tmp_path / "out").mkdir(exist_ok=True)
+    for ibx, iby in ((0, 0), (0, 1), (1, 1)):
+        (tmp_path / "out" / f"testout_F_{ibx:02d}_{iby:02d}.fits").touch()
+    return mod.Config(d)
+
+
+def test_truth_catalogs_are_bit_equal(tmp_path):
+    want = ref_truthcats.gen_truthcats_from_cfg(_truth_cfg(tmp_path, ref_config),
+                                                str(tmp_path / "ref_TruthCat.fits"))
+    got = truthcats.gen_truthcats_from_cfg(_truth_cfg(tmp_path, config),
+                                           str(tmp_path / "port_TruthCat.fits"))
+    a, b = ref_fitsio.fits_read(want), fitsio.fits_read(got)
+    assert [h.name for h in a] == [h.name for h in b] == [
+        "", "TRUTH14_CSTAR", "TRUTH14_GSEXT", "TRUTH14_NSTAR"]
+    for ha, hb in zip(a[1:], b[1:]):
+        assert dict(ha.header) == dict(hb.header)
+        assert list(ha.data) == list(hb.data) and len(hb.data["ipix"]) > 0
+        for col in ha.data:
+            assert _same(np.asarray(ha.data[col]), np.asarray(hb.data[col])), (ha.name, col)
+    cfg_r, cfg_p = _truth_cfg(tmp_path, ref_config), _truth_cfg(tmp_path, config)
+    cfg_r(), cfg_p()
+    for ibx, iby in ((0, 0), (1, 0)):
+        pos = truthcats.block_truth_positions(cfg_p, ibx, iby, 14)
+        assert len(pos["ipix"]) > 0
+        assert _same(ref_truthcats.block_truth_positions(cfg_r, ibx, iby, 14), pos)
+
+
+@pytest.mark.parametrize("unit, dtype", [("-0.2mB", np.int16), ("5uB", np.uint16),
+                                         ("0.1dB", ">u2")])
+def test_quality_map_decoding_is_bit_equal(unit, dtype):
+    rng = np.random.default_rng(13)
+    info = np.iinfo(np.dtype(dtype))
+    data = rng.integers(info.min, info.max, size=(3, 20, 20), endpoint=True).astype(dtype)
+    data[0, 0, :2] = info.min, info.max
+    assert ref_analysis.unit_to_bels(unit) == analysis.unit_to_bels(unit)
+    assert _same(ref_analysis.decode_quality_map(data, unit),
+                 analysis.decode_quality_map(data, unit))
+
+
+def test_noise_spectrum_helpers_are_bit_equal():
+    ra, pa = ref_analysis.NoiseAnal, analysis.NoiseAnal
+    img = np.random.default_rng(14).normal(size=(64, 64))
+    assert _same(ra.azimuthal_average(img, 8), pa.azimuthal_average(img, 8))
+    assert _same(ra.tukey_window((48, 40), 0.7), pa.tukey_window((48, 40), 0.7))
+    assert _same(ra.get_wavenumbers(64, 4), pa.get_wavenumbers(64, 4))
+    for layer in ("whitenoise1", "1fnoise2", "labnoise", "other"):
+        assert ra.get_norm(layer, 64, "F184", 0.04) == pa.get_norm(layer, 64, "F184", 0.04)
+
+
+class _StarBlock:
+    """The parts of an OutImage that StarsAnal reads: the configuration of
+    _truth_cfg's block (ibx, iby) and a layer with a noisy, slightly
+    elliptical Gaussian star at each of the block's cstar14 truth positions."""
+
+    def __init__(self, tmp_path, ibx, iby):
+        self.cfg = _truth_cfg(tmp_path, config)
+        self.cfg()
+        self.ibx, self.iby = ibx, iby
+        pos = truthcats.block_truth_positions(self.cfg, ibx, iby, 14)
+        n = self.cfg.NsideP
+        y, x = np.mgrid[0:n, 0:n]
+        img = 1e-3 * np.random.default_rng(15).normal(size=(n, n))
+        for px, py in zip(pos["x"], pos["y"]):
+            img += np.exp(-0.5 * (1.1 * (x - px) ** 2 + 0.9 * (y - py) ** 2
+                                  + 0.2 * (x - px) * (y - py)) / 2.5 ** 2)
+        self.img = img.astype(np.float32)
+
+    def get_coadded_layer(self, layer, j_out=0):
+        return self.img
+
+
+def test_star_catalog_is_bit_equal(tmp_path):
+    blk = _StarBlock(tmp_path, 0, 1)
+    want = ref_analysis.StarsAnal(blk, layer="cstar14").catalog()
+    got = analysis.StarsAnal(blk, layer="cstar14").catalog()
+    assert list(got) == analysis.StarsAnal.COLUMNS and got["converged"].sum() > 0
+    assert _same(want, got)

@@ -26,7 +26,10 @@ MODULES = ("pyimcom_tpu_torch", "pyimcom_tpu_torch.coadd",
            "pyimcom_tpu_torch.probe", "pyimcom_tpu_torch.imdestripe",
            "pyimcom_tpu_torch.ops.bilinear", "pyimcom_tpu_torch.ops.bilinear_cuda",
            "pyimcom_tpu_torch.ops.destripe_device", "pyimcom_tpu_torch.utils.compareutils",
-           "pyimcom_tpu_torch.bench", "pyimcom_tpu_torch.runner")
+           "pyimcom_tpu_torch.bench", "pyimcom_tpu_torch.runner",
+           "pyimcom_tpu_torch.compress", "pyimcom_tpu_torch.truthcats",
+           "pyimcom_tpu_torch.analysis", "pyimcom_tpu_torch.layer_wrapper",
+           "pyimcom_tpu_torch.pipeline", "pyimcom_tpu_torch.outmaps")
 
 CASES = {
     # jax made unimportable: every import must still succeed

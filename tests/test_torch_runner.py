@@ -3,8 +3,9 @@ pyimcom_tpu.runner: the prime-stride block order and the round-robin share
 of a rank equal the reference's; the rank comes from RANK / WORLD_SIZE when
 torch.distributed is not initialized; the CLI coadds a block into the same
 images Block writes, and a rerun skips the finished block; run_mosaic's
-worker pool writes the images run_block writes; the flags that need
-unported modules raise."""
+worker pool writes the images run_block writes; --share-pads runs the JAX
+runner's halo-exchange post-pass; --report, which needs the unported
+diagnostics, raises."""
 
 import json
 import os
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from test_torch_block import _cfg, small_survey  # noqa: F401
+from test_torch_mosaic import port_mosaic  # noqa: F401
 from pyimcom_tpu_torch import runner
 
 torch.set_num_threads(1)
@@ -41,9 +43,29 @@ def test_host_blocks_from_environment(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--share-pads", "--report"])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        runner.main(["cfg.json", "--block", "1", flag])
+def test_unported_flags_raise(flag, request, tmp_path):
+    """--report raises.  --share-pads is ported: the port's runner with
+    --all --share-pads on copies of the seam mosaic's four padded block
+    files (tests/test_torch_mosaic.py; every block is done, so both runners
+    skip the coadd) writes the files the JAX runner's post-pass writes, bit
+    for bit."""
+    if flag == "--report":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            runner.main(["cfg.json", "--block", "1", flag])
+        return
+    from test_torch_mosaic import assert_same_files, block_path, copy_blocks
+
+    from pyimcom_tpu import runner as ref
+
+    mosaic = request.getfixturevalue("port_mosaic")
+    stems = {}
+    for name, main, extra in (("jax", ref.main, []), ("port", runner.main, ["--device", "cpu"])):
+        stems[name] = copy_blocks(mosaic["port"], str(tmp_path / name))
+        path = tmp_path / f"cfg_{name}.json"
+        path.write_text(json.dumps(dict(mosaic["cfg"], OUT=stems[name])))
+        assert main([str(path), "--all", flag, *extra]) == 0
+    for sub in range(4):
+        assert_same_files(block_path(stems["jax"], sub), block_path(stems["port"], sub))
 
 
 def _same_images(path_a, path_b):
