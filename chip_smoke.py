@@ -7,13 +7,15 @@ Smoke run of pyimcom_tpu_torch on one NVIDIA GPU.
 It builds the port's CUDA kernels from csrc/ and drives the port's paths
 through the user's entry points: the block coadd
 ``pyimcom_tpu_torch.coadd.Block(cfg, this_sub, device="cuda")`` with every
-LAKERNEL, the destriping entry point ``pyimcom_tpu_torch.imdestripe.main``,
+LAKERNEL and both interpolation families, the split-PSF entries
+``pyimcom_tpu_torch.splitpsf.{splitpsf,imsubtract,update_cube}``, the
+destriping entry point ``pyimcom_tpu_torch.imdestripe.main``,
 the toolchain probe ``pyimcom_tpu_torch.probe``, the bench entry
 ``pyimcom_tpu_torch.bench``, the block runner ``pyimcom_tpu_torch.runner``
 and the chained pipeline ``pyimcom_tpu_torch.pipeline``:
 
-1. build: the card's name and power limit, the nvcc builds of the D5512
-   and bilinear kernels (and of the earlier revisions in PARENTS, each
+1. build: the card's name and power limit, the nvcc builds of the D5512 /
+   G4460 and bilinear kernels (and of the earlier revisions in PARENTS, each
    where pyimcom_tpu_torch/_build/parent/ holds its source, pinned by its
    SHA-256: interp_d5512.cu of commit 7671040, the one-thread-a-query K1
    with a 9-argument C entry, and bilinear.cu of commit c560e0f, the
@@ -83,7 +85,41 @@ and the chained pipeline ``pyimcom_tpu_torch.pipeline``:
    scale) and the earlier revision's K1 (held to the same) where built, its
    bounds and share of the bound, and, for PSF sampling, its time with runs
    of 32 consecutive queries instead of 8 x 4 lattice points;
-11. destripe (in .smoke_work/destripe/): build_survey(n_obs=6) -- 4 F184
+11. g4460_block: the bench block with PSFINTERP "G4460", warm: blocks/hour,
+   phase times, SL1 and the U/C median, equal to the port's CPU record of
+   the same block (CPU_RECORD_G4460) to 1e-8 relative; psfsplit_loop (in
+   .smoke_work/psfsplit/): tests/test_psfsplit_e2e.py's loop at its
+   settings (n_obs 8, cstar14, NPIXPSF 16, INPAD 0.4, PSFSPLIT [3.0, 6.0,
+   0.01]; the whole block 1; the survey's split files carry no OVSAMP, so
+   the wing kernels are taken at oversampling 1 and an exposure's canvas is
+   4208^2) through the port's entries:
+   splitpsf.main, the iteration-0 block, the wing subtraction as one
+   job-array task (``imsubtract cfg <sca>`` for the SCA with the fewest
+   cached exposures, at least one; 4088^2, every layer), update_cube, the
+   iteration-1 block: seconds per stage; per exposure the canvas side, the
+   host geometry seconds, the K1<8> launches and device ms, the FFT device
+   ms and peak device memory; the e2e test's criteria (count >= 4, GSSKIP,
+   KERSKIP, IMSBITER 0 then 1, max|delta| > 0, median|delta| < 0.5
+   max|a|, the history's iteration 0, finite maps), SL1 and U/C of both
+   iterations, and the first exposure's first layer against the port's CPU
+   route on the same canvas geometry: the f64 correction (K * mosaic at
+   the exposure's pixels) within CORRECTION_TOL of its largest value, and
+   the card's float32 output within 2 float32 spacings at max|cube|;
+   within the loop, before the update, wing_production: the same exposure
+   at its PSFs' own oversampling (6, given to run_imsubtract) with bin2x2,
+   a 12324^2 canvas -- run_imsubtract on the loop's mosaic, every layer,
+   then the first layer from one block covering the whole canvas (seeded
+   random data; one K1<8> launch of 12324^2 queries) -- with each task's
+   K1<8> launches and device ms, FFT device ms, peak device memory, host
+   resident set and seconds; fftconv_full: one fftconvolve_multi at the unbinned
+   production canvas (FFT_SIDE^2, a 120^2 kernel, seeded random data on the
+   card): device ms, peak memory, a 2048^2 crop against the CPU route
+   (1e-12 of scale); g4460_kernels: K1<8> alone on its captured launches
+   (PSF sampling of the G4460 block, the first wing canvas of each wing
+   task, at most 2^22 queries of one) and K2<8> (pool, B) on
+   the G4460 block's first group, against their plain versions (1e-12 of
+   scale), with their bounds;
+12. destripe (in .smoke_work/destripe/): build_survey(n_obs=6) -- 4 F184
    SCAs at 4088^2 overlapping in 12 ordered pairs -- with row stripes
    injected as scripts/run_chained_pipeline.py does, then
    ``pyimcom_tpu_torch.imdestripe.main(cfg, maxiter=5)`` on the card (object
@@ -104,7 +140,7 @@ and the chained pipeline ``pyimcom_tpu_torch.pipeline``:
    with its own input directory and layer cache): 16 stamps, finite maps,
    U/C medians equal to 1e-6, the destriped science nearer the clean one
    than the striped, by RMS, and the SL1 of all three;
-12. mosaic_chain (in .smoke_work/mosaic_chain/): ``pyimcom_tpu_torch.pipeline``
+13. mosaic_chain (in .smoke_work/mosaic_chain/): ``pyimcom_tpu_torch.pipeline``
    as scripts/run_chained_pipeline.py's defaults run it, except --n-obs 6
    (the destripe phase's 4 F184 SCAs): a 2x2 mosaic of 8 x 8 stamps of 32
    px at 0.0390625", NPIXPSF 48, INPAD 1.055, PAD 1 on every side, cstar14
@@ -166,6 +202,20 @@ PROD = dict(OUTSIZE=[80, 32, 0.0390625], INPAD=1.055, NPIXPSF=48, STOP=4)
 POOL_ROW = PROD["OUTSIZE"][0] // 2
 POOL_STOP = 4 * (2 * POOL_ROW + 1)
 GALAXY = "gsext14,n=0.5,hlr=0.1,shape=0.2:0.1"          # tests/test_e2e_galaxy.py
+# the G4460 bench block on the CPU: python -m pyimcom_tpu_torch.bench --device cpu
+# --full --psfinterp G4460
+CPU_RECORD_G4460 = {"SL1": 0.9999383490946347, "uc_median": 8.283235329759168e-07}
+# tests/test_psfsplit_e2e.py's survey and split.  The survey's PSF files
+# carry no OVSAMP, so neither do the split files, and the wing subtraction
+# takes the kernels at oversampling 1 (the JAX package's default): a 4208^2
+# canvas for a 4088^2 SCA, where bin2x2 (PSFSPLIT[3]) would raise (odd
+# oversampling) in both packages
+PSFSPLIT_OVERRIDES = {"NPIXPSF": 16, "INPAD": 0.4}
+PSFSPLIT = [3.0, 6.0, 0.01]
+# the unbinned wing canvas of a 4088^2 SCA: oversampling 6, I_pad 10
+FFT_SIDE = 6 * (4088 + 2 * 10)
+# the wing correction from the card against the CPU route, of its largest value
+CORRECTION_TOL = 1e-10
 PARENT_DIR = REPO / "pyimcom_tpu_torch" / "_build" / "parent"
 # earlier revisions of csrc/<name>.cu timed beside the current kernels where
 # PARENT_DIR holds them: the commit and the SHA-256 of the only revision
@@ -177,8 +227,12 @@ PARENTS = {
                  "bilinear_scatter_adjoint"),
 }
 PEAK_BYTES_S, PEAK_F64_S = 3.35e12, 67e12               # H100 SXM data sheet
-TAPS_FLOP = 96                  # one D5512 tap set (Horner in fh^2)
-QUERY_FLOP = 2 * TAPS_FLOP + 220 + 6   # two tap sets, the 10x10 sum, the position
+# one tap set of each family (Horner in fh^2: 19 operations a pair of taps,
+# and fh^2), and one query: two tap sets, the k x k sum (k^2 + k
+# multiply-adds) and the position
+TAPS = {"D5512": 10, "G4460": 8}
+TAPS_FLOP = {k: 19 * t // 2 + 1 for k, t in TAPS.items()}
+QUERY_FLOP = {k: 2 * TAPS_FLOP[k] + 2 * (t * t + t) + 6 for k, t in TAPS.items()}
 # one in-bounds query of K3 (floors, weights, gain weights, norm, the sum,
 # the division, the accumulator) and of K4 (the same taps, norm and division,
 # four products and four adds)
@@ -188,7 +242,14 @@ GATHER_FLOP, ADJOINT_FLOP = 27, 27
 SLEEP_CYCLES = 400_000
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """Print one JSON line; a phase's line carries the seconds since the
+    script started (`elapsed_s`)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -260,11 +321,12 @@ def bounds(bytes_, flops, floor_ms):
     return dict(bound_ms=b, bound_by=by, roofline_ms=rb, roofline_by=rby)
 
 
-def k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv_scale, floor_ms):
-    """Bounds (bounds()) of one K2 launch: the overlap images its rows use,
-    the tables, the metadata, and each destination read and written once;
-    in pool mode QUERY_FLOP a query, in B mode the separable form's tap sets
-    and horizontal and vertical sums."""
+def k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv_scale, floor_ms,
+             kern="D5512"):
+    """Bounds (bounds()) of one K2 launch of family `kern`: the overlap
+    images its rows use, the tables, the metadata, and each destination read
+    and written once; in pool mode QUERY_FLOP a query, in B mode the
+    separable form's tap sets and horizontal and vertical sums."""
     from pyimcom_tpu_torch.ops.interp_cuda import b_window
 
     queries = int(imeta[:, 4].sum())
@@ -273,41 +335,47 @@ def k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv_scale, floor_
     bytes_ = (8 * images * ny * nx + 16 * xt.shape[0] + 16 * queries
               + 4 * (ks.size + imeta.size + dmeta.size + tiles.size))
     if mode == 0:
-        flops = QUERY_FLOP * queries
+        flops = QUERY_FLOP[kern] * queries
     else:
         m = n2f * n2f
-        per_i1 = 2 * n2f * TAPS_FLOP + b_window(n2f, inv_scale) * n2f * 20 + m * 20
+        per_sum = 2 * TAPS[kern]
+        per_i1 = (2 * n2f * TAPS_FLOP[kern] + b_window(n2f, inv_scale, kern) * n2f * per_sum
+                  + m * per_sum)
         flops = per_i1 * queries / m
     return bounds(bytes_, flops, floor_ms)
 
 
-def k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=0, reps=20):
-    """K1 on one launch's inputs (on the card; `lattice_row` as its caller
-    passed it): its device time, its runs of 32 queries, its error against
-    the plain version, the plain version's time,
+def k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=0, reps=20,
+              kern="D5512"):
+    """K1 of family `kern` on one launch's inputs (on the card; `lattice_row`
+    as its caller passed it): its device time, its runs of 32 queries, its
+    error against the plain version, the plain version's time,
     the bounds (images, x, y and the result once; QUERY_FLOP a query on the
-    grid), and the earlier revision's K1 on the same inputs where built."""
+    grid), and the earlier revision's K1 (D5512) on the same inputs where
+    built."""
     from pyimcom_tpu_torch.ops import interp_cuda as ic
+    from pyimcom_tpu_torch.ops.interp import KERNEL_FAMILIES
 
+    lo, hi = KERNEL_FAMILIES[kern][3:]
     R, ny, nx = images.shape
     Nq = x.shape[1]
     fx, fy = torch.floor(x), torch.floor(y)
-    on = int(((fx >= 4) & (fx < nx - 5) & (fy >= 4) & (fy < ny - 5)).sum())
-    got = ic.interp_d5512_dense(images, x, y, lattice_row=lattice_row)
-    want = ic.interp_d5512_dense_plain(images, x, y)
+    on = int(((fx >= lo) & (fx < nx - hi) & (fy >= lo) & (fy < ny - hi)).sum())
+    got = ic.interp_dense(images, x, y, kern, lattice_row=lattice_row)
+    want = ic.interp_dense_plain(images, x, y, kern)
     torch.cuda.synchronize()
     runs = (R * -(-lattice_row // 8) * -(-(Nq // lattice_row) // 4) if lattice_row
             else R * -(-Nq // 32))
-    rec = dict(R=R, Nq=Nq, image=[ny, nx], lattice_row=lattice_row, on_grid=on, runs=runs,
-               max_abs_err=rel_err(torch, got, want),
-               ms=median_ms(torch, lambda: ic.interp_d5512_dense(
-                   images, x, y, lattice_row=lattice_row), reps),
-               plain_ms=median_ms(torch, lambda: ic.interp_d5512_dense_plain(images, x, y), 3),
-               **bounds(8 * (images.numel() + 3 * x.numel()), QUERY_FLOP * on, floor_ms),
+    rec = dict(kern=kern, R=R, Nq=Nq, image=[ny, nx], lattice_row=lattice_row, on_grid=on,
+               runs=runs, max_abs_err=rel_err(torch, got, want),
+               ms=median_ms(torch, lambda: ic.interp_dense(
+                   images, x, y, kern, lattice_row=lattice_row), reps),
+               plain_ms=median_ms(torch, lambda: ic.interp_dense_plain(images, x, y, kern), 3),
+               **bounds(8 * (images.numel() + 3 * x.numel()), QUERY_FLOP[kern] * on, floor_ms),
                launch_floor_ms=floor_ms)
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     assert rec["max_abs_err"] < TOL, rec
-    if parent is not None:
+    if parent is not None and kern == "D5512":
         out_p = torch.empty_like(x)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -345,7 +413,7 @@ def phase_kernels(torch, dev, parent):
     y = torch.as_tensor(rng.uniform(0, ns, (R, Nq)), device=dev)
     out["K1"] = dict(shape=[R, Nq, ns, ns],
                      **k1_record(torch, dev, images, x, y, floor_ms, parent))
-    out["K1"]["sleep_check"] = sleep_check(torch, lambda: ic.interp_d5512_dense(images, x, y))
+    out["K1"]["sleep_check"] = sleep_check(torch, lambda: ic.interp_dense(images, x, y))
     del images, x, y
 
     # K2: 32 rows of 16384 queries (the largest bucket's JAX batch) over a
@@ -395,17 +463,17 @@ def phase_kernels(torch, dev, parent):
         args = (combined, xt, yt, *(put(a) for a in plans[mode]), inv_scale, off_grid,
                 mode, n_pad, n2f)
         ic.reset_l2_tiles()
-        ic.sweep_d5512_scatter(dst_k, *args)
+        ic.sweep_scatter(dst_k, *args)
         l2 = ic.l2_tiles(dev)
-        ic.sweep_d5512_scatter_plain(dst_p, *args)
+        ic.sweep_scatter_plain(dst_p, *args)
         torch.cuda.synchronize()
         out[name] = dict(
             shape=[rows, bucket, K, ns, ns], queries=int(plans[mode][1][:, 4].sum()),
             tiles=len(plans[mode][3]), l2_tiles=l2,
             max_abs_err=rel_err(torch, dst_k, dst_p),
-            ms=median_ms(torch, lambda: ic.sweep_d5512_scatter(dst_k, *args), 20,
+            ms=median_ms(torch, lambda: ic.sweep_scatter(dst_k, *args), 20,
                          setup=dst_k.zero_),
-            plain_ms=median_ms(torch, lambda: ic.sweep_d5512_scatter_plain(dst_p, *args), 5,
+            plain_ms=median_ms(torch, lambda: ic.sweep_scatter_plain(dst_p, *args), 5,
                                setup=dst_p.zero_),
             **k2_bound(mode, combined, xt, *plans[mode], n2f, inv_scale, floor_ms))
     for name, rec in out.items():
@@ -522,43 +590,50 @@ def sass_atomics(lib, match):
 
 class capture_k1:
     """While active, keep the first K1 launch of each caller named in
-    `callers` (its images, x and y, and its lattice row) in `into`, keyed
-    "<block>/<caller>": a copy on the card, which does not wait for the
-    card, moved to host memory when the block is done.  A caller is the
-    innermost frame among PSF sampling
-    (psfgrp.sample_psf_rotated_batch), star injection
-    (layer.make_image_from_grid) and galaxy injection
-    (layer.make_extobj_image_from_grid)."""
+    `callers` (its images, x and y, its family and its lattice row) in
+    `into`, keyed "<block>/<caller>": a copy on the card, which does not
+    wait for the card, moved to host memory when the block is done (at most
+    `max_queries` queries an image).  A caller is the innermost frame among
+    PSF sampling (psfgrp.sample_psf_rotated_batch), star injection
+    (layer.make_image_from_grid), galaxy injection
+    (layer.make_extobj_image_from_grid) and the wing canvas of split-PSF
+    wing subtraction (splitpsf.imsubtract._interp_scattered)."""
 
     CALLERS = {"sample_psf_rotated_batch": "psf_sampling",
                "make_image_from_grid": "star_injection",
-               "make_extobj_image_from_grid": "galaxy_injection"}
+               "make_extobj_image_from_grid": "galaxy_injection",
+               "_interp_scattered": "wing_canvas"}
 
-    def __init__(self, block, callers, into):
+    def __init__(self, block, callers, into, max_queries=None):
         self.block, self.callers, self.launches = block, set(callers), into
+        self.max_queries = max_queries
 
     def __enter__(self):
         from pyimcom_tpu_torch.ops import interp_cuda
 
-        self._mod, self._orig = interp_cuda, interp_cuda.interp_d5512_dense
+        self._mod, self._orig = interp_cuda, interp_cuda.interp_dense
         orig = self._orig
 
-        def wrapped(images, x, y, **kw):
+        def wrapped(images, x, y, kern="D5512", **kw):
             f = sys._getframe(1)
             while f is not None and f.f_code.co_name not in self.CALLERS:
                 f = f.f_back
             caller = self.CALLERS[f.f_code.co_name] if f is not None else None
             key = f"{self.block}/{caller}"
             if caller in self.callers and key not in self.launches:
-                self.launches[key] = dict(images=images.clone(), x=x.clone(), y=y.clone(),
-                                          lattice_row=kw.get("lattice_row", 0))
-            return orig(images, x, y, **kw)
+                n = x.shape[1] if self.max_queries is None else min(x.shape[1],
+                                                                    self.max_queries)
+                self.launches[key] = dict(images=images.clone(), x=x[:, :n].clone(),
+                                          y=y[:, :n].clone(), kern=kern,
+                                          lattice_row=kw.get("lattice_row", 0),
+                                          queries_of_launch=x.shape[1])
+            return orig(images, x, y, kern, **kw)
 
-        interp_cuda.interp_d5512_dense = wrapped
+        interp_cuda.interp_dense = wrapped
         return self
 
     def __exit__(self, *exc):
-        self._mod.interp_d5512_dense = self._orig
+        self._mod.interp_dense = self._orig
         for cap in self.launches.values():
             for k in ("images", "x", "y"):
                 cap[k] = cap[k].cpu()
@@ -572,11 +647,11 @@ def k1_main_path(torch, dev, key, cap, floor_ms, parent):
 
     block, caller = key.split("/")
     images, x, y = (cap[k].to(dev) for k in ("images", "x", "y"))
-    n = cap["lattice_row"]
-    rec = {"block": block, "caller": caller,
-           **k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=n)}
+    n, kern = cap["lattice_row"], cap["kern"]
+    rec = {"block": block, "caller": caller, "queries_of_launch": cap["queries_of_launch"],
+           **k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=n, kern=kern)}
     if n:
-        rec["runs_of_32_ms"] = median_ms(torch, lambda: ic.interp_d5512_dense(images, x, y), 20)
+        rec["runs_of_32_ms"] = median_ms(torch, lambda: ic.interp_dense(images, x, y, kern), 20)
     return rec
 
 
@@ -597,7 +672,8 @@ class capture_first_plan:
             if outer.plan is None:
                 outer.plan = dict(plan, n_pad=n_pad, S=len(infos), n2f=blk.cfg.n2f,
                                   n_out=blk.cfg.n_out, inv_scale=1.0 / blk.geom.dscale,
-                                  off_grid=blk.geom.nc_ovl + psfgrp.INTERP_PAD)
+                                  off_grid=blk.geom.nc_ovl + psfgrp.INTERP_PAD,
+                                  kern=blk.geom.psfinterp)
             return plan
 
         coadd.Block._plan_group = plan_group
@@ -621,6 +697,7 @@ def k2_main_path(torch, dev, name, cap, floor_ms):
     xt = torch.as_tensor(cap["xt"], device=dev)
     yt = torch.as_tensor(cap["yt"], device=dev)
     n2f, n_pad, inv, off = cap["n2f"], cap["n_pad"], cap["inv_scale"], cap["off_grid"]
+    kern = cap["kern"]
     m = n2f * n2f
     size = {0: cap["pool_size"], 1: cap["S"] * cap["n_out"] * m * n_pad}
     K, ny, nx = combined.shape
@@ -628,26 +705,26 @@ def k2_main_path(torch, dev, name, cap, floor_ms):
     def put(a):
         return torch.as_tensor(a, device=dev)
 
-    rec = {"group": name, "stack": [K, ny, nx], "launches": []}
+    rec = {"group": name, "kern": kern, "stack": [K, ny, nx], "launches": []}
     for mode, ks, imeta, dmeta, tiles in cap["sweep_rows"]:
         args = (combined, xt, yt, put(ks), put(imeta), put(dmeta), put(tiles), inv, off,
-                mode, n_pad, n2f)
+                mode, n_pad, n2f, kern)
         dst_k = torch.zeros(size[mode], dtype=torch.float64, device=dev)
         dst_p = torch.zeros_like(dst_k)
         ic.reset_l2_tiles()
-        ic.sweep_d5512_scatter(dst_k, *args)
+        ic.sweep_scatter(dst_k, *args)
         l2 = ic.l2_tiles(dev)
-        ic.sweep_d5512_scatter_plain(dst_p, *args)
+        ic.sweep_scatter_plain(dst_p, *args)
         torch.cuda.synchronize()
         one = dict(mode="pool" if mode == 0 else "B", rows=len(ks), tiles=len(tiles),
                    queries=int(imeta[:, 4].sum()), l2_tiles=l2,
                    max_abs_err=rel_err(torch, dst_k, dst_p),
-                   ms=median_ms(torch, lambda: ic.sweep_d5512_scatter(dst_k, *args), 10,
+                   ms=median_ms(torch, lambda: ic.sweep_scatter(dst_k, *args), 10,
                                 setup=dst_k.zero_),
-                   plain_ms=median_ms(torch, lambda: ic.sweep_d5512_scatter_plain(
+                   plain_ms=median_ms(torch, lambda: ic.sweep_scatter_plain(
                        dst_p, *args), 1, setup=dst_p.zero_),
                    **k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv,
-                              floor_ms))
+                              floor_ms, kern))
         assert one["max_abs_err"] < TOL, (name, one)
         rec["launches"].append(one)
         del dst_k, dst_p
@@ -1001,7 +1078,7 @@ def phase_mosaic_chain():
     st = res["launches"]
     assert st["destripe"]["bilinear_gather"] > 0 and st["destripe"]["bilinear_scatter_adjoint"] > 0
     assert st["layers"]["interp_d5512_dense"] > 0, st["layers"]
-    assert all(st["coadd"][k] > 0 for k in interp_cuda.launches), st["coadd"]
+    assert all(st["coadd"][k] > 0 for k in family_kernels("D5512")), st["coadd"]
     assert res["destriped_2x"] >= len(res["destripe_row_median_std"]) // 2
     assert len(finite) == 4 and all(finite.values()), finite
     assert all(uc < UC_MAX for uc in res["UC_median_blocks"].values()), res["UC_median_blocks"]
@@ -1013,12 +1090,20 @@ def phase_mosaic_chain():
     return res
 
 
+def family_kernels(kern):
+    """The launch counts' names of K1 and K2 (pool, B) of family `kern`."""
+    from pyimcom_tpu_torch.ops import interp_cuda as ic
+
+    return [ic.K1[kern], ic.sweep_kernel(kern, 0), ic.sweep_kernel(kern, 1)]
+
+
 def run_block(cfg_dict, suffix, block_kw=None, no_system=False, **over):
     """One Block on the card, with the kernel launch counts set to 0 just
     before it and read just after; returns (block, output path, seconds,
-    launches).  Every kernel of the path must have launched, except in a
-    block that builds no system (Empirical without quality control), which
-    must launch none.  `block_kw` goes to Block (checkpoint_sec,
+    launches).  Every kernel of the path -- K1 and K2 of its PSFINTERP
+    family -- must have launched and K2 of the other family not, except in
+    a block that builds no system (Empirical without quality control),
+    which must launch none.  `block_kw` goes to Block (checkpoint_sec,
     pool_budget_bytes)."""
     import torch
 
@@ -1035,10 +1120,13 @@ def run_block(cfg_dict, suffix, block_kw=None, no_system=False, **over):
     torch.cuda.synchronize()
     t = time.perf_counter() - t0
     launches = dict(interp_cuda.launches)
+    kern = d.get("PSFINTERP", "D5512")
+    other = "G4460" if kern == "D5512" else "D5512"
     if no_system:
         assert all(n == 0 for n in launches.values()), (suffix, launches)
     else:
-        assert all(n > 0 for n in launches.values()), (suffix, launches)
+        assert all(launches[k] > 0 for k in family_kernels(kern)), (suffix, launches)
+        assert all(launches[k] == 0 for k in family_kernels(other)[1:]), (suffix, launches)
     return blk, d["OUT"] + "_00_01.fits", t, launches
 
 
@@ -1239,6 +1327,431 @@ def run_production(torch, dev, cfg_dict, phase, suffix, **over):
     assert len(prod.stamp_stats) == 4 and all(finite.values()), finite
 
 
+def phase_g4460_block(cfg_dict, k1_caps):
+    """The bench block with PSFINTERP G4460, warm (the bench block's layer
+    cache; star injection is D5512 and does not run): K1 and K2 in their
+    8-tap forms.  SL1 and the U/C median must equal the port's CPU record
+    of the same block to 1e-8 relative.  Returns the first group's sweep
+    plan (capture_first_plan)."""
+    from pyimcom_tpu_torch.bench import quality_check
+
+    with capture_first_plan() as cap, capture_k1("g4460", ["psf_sampling"], k1_caps):
+        blk, out, t, launches = run_block(cfg_dict, "_g4460", PSFINTERP="G4460")
+    SL1, uc = quality_check(out)
+    rel = {"SL1": SL1 / CPU_RECORD_G4460["SL1"] - 1,
+           "uc_median": uc / CPU_RECORD_G4460["uc_median"] - 1}
+    emit({"phase": "g4460_block", "stamps": len(blk.stamp_stats), "block_s": t,
+          "blocks_per_hour": 3600.0 / t, "SL1": SL1, "uc_median": uc,
+          "cpu_record": CPU_RECORD_G4460, "rel_to_cpu_record": rel, "launches": launches,
+          "phases": phase_times(blk)})
+    assert len(blk.stamp_stats) == 16, blk.stamp_stats
+    assert all(abs(v) < 1e-8 for v in rel.values()), rel
+    return cap.plan, launches
+
+
+class HostRSS:
+    """While active, the resident set of this process, sampled every 10 ms
+    on a thread (/proc/self/statm): `start_GiB` and `peak_GiB`."""
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page / 2 ** 30
+
+    def _watch(self):
+        while not self._stop.wait(0.01):
+            self.peak_GiB = max(self.peak_GiB, self._rss())
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.start_GiB = self.peak_GiB = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_GiB = max(self.peak_GiB, self._rss())
+
+
+class capture_imsubtract:
+    """While active, one record per wing-subtraction task: each exposure
+    that splitpsf.imsubtract.run_imsubtract handles, and each call made
+    through `measure`.  A record holds the canvas side, the host seconds of
+    the canvas geometry (CanvasGeometry: sky positions, pixel areas, block
+    positions), the K1 launches of the wing canvases and their device time,
+    the device time of the FFT convolutions, the task's seconds, its peak
+    device memory and the process's resident set before and at its peak;
+    the geometries made are in `.geometries`."""
+
+    def __enter__(self):
+        import torch
+
+        from pyimcom_tpu_torch.ops import interp_cuda
+        from pyimcom_tpu_torch.splitpsf import imsubtract as ims
+
+        self.exposures, self.geometries, self.cur = [], [], None
+        names = ("run_imsubtract", "fftconvolve_multi", "_interp_scattered", "CanvasGeometry")
+        self._saved = [(ims, n, getattr(ims, n)) for n in names]
+        orig = {n: f for _m, n, f in self._saved}
+        self._torch, self._launches = torch, interp_cuda.launches
+        outer = self
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                r = fn(*a, **kw)
+                e1.record()
+                outer.cur[key].append((e0, e1))
+                return r
+            return run
+
+        class Geometry(orig["CanvasGeometry"]):
+            def __init__(self, *a, **kw):
+                t0 = time.perf_counter()
+                super().__init__(*a, **kw)
+                outer.cur["geometry_s"] += time.perf_counter() - t0
+                outer.cur["canvas_side"] = self.A
+                outer.geometries.append(self)
+
+            def on_block(self, *a, **kw):
+                t0 = time.perf_counter()
+                r = super().on_block(*a, **kw)
+                outer.cur["geometry_s"] += time.perf_counter() - t0
+                return r
+
+        def run_imsubtract(cfg, idsca, split_file, **kw):
+            return outer.measure({"idsca": list(idsca)}, orig["run_imsubtract"], cfg, idsca,
+                                 split_file, **kw)
+
+        ims.run_imsubtract = run_imsubtract
+        ims.fftconvolve_multi = timed("fft", orig["fftconvolve_multi"])
+        ims._interp_scattered = timed("k1", orig["_interp_scattered"])
+        ims.CanvasGeometry = Geometry
+        return self
+
+    def measure(self, rec, fn, *a, geometry=None, **kw):
+        """fn(*a, **kw) as one task; its record is `rec` and the numbers
+        above (the canvas side that of `geometry` where the task uses one it
+        was given)."""
+        torch = self._torch
+        self.cur = {"geometry_s": 0.0, "k1": [], "fft": [],
+                    "canvas_side": None if geometry is None else geometry.A}
+        if geometry is not None:
+            kw["geometry"] = geometry
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1_before = self._launches["interp_g4460_dense"]
+        t0 = time.perf_counter()
+        with HostRSS() as rss:
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+        cur = self.cur
+        self.exposures.append(dict(
+            rec, result=r, seconds=time.perf_counter() - t0,
+            canvas_side=cur["canvas_side"], host_geometry_s=cur["geometry_s"],
+            k1_launches=self._launches["interp_g4460_dense"] - k1_before,
+            k1_device_ms=sum(e0.elapsed_time(e1) for e0, e1 in cur["k1"]),
+            fft_calls=len(cur["fft"]),
+            fft_device_ms=sum(e0.elapsed_time(e1) for e0, e1 in cur["fft"]),
+            max_memory_allocated_GiB=torch.cuda.max_memory_allocated() / 2 ** 30,
+            host_rss_start_GiB=rss.start_GiB, host_rss_peak_GiB=rss.peak_GiB))
+        return r
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def maps_finite(path):
+    from pyimcom_tpu_torch.fitsio import fits_read
+
+    return all(bool(np.all(np.isfinite(np.asarray(h.data)))) for h in fits_read(path)
+               if getattr(h, "data", None) is not None
+               and np.asarray(h.data).dtype.kind in "fiu")
+
+
+def phase_psfsplit_loop(torch, k1_caps):
+    """The split-PSF loop of tests/test_psfsplit_e2e.py through the port's
+    entries (in .smoke_work/psfsplit/): splitpsf.main -> the iteration-0
+    block (the whole block 1, cold) -> the wing subtraction of one SCA as a
+    job-array task (``imsubtract cfg <sca>``: the SCA with the fewest cached
+    exposures, at least one; full 4088^2 and every layer; the survey's
+    kernels at oversampling 1, PSFSPLIT) -> update_cube -> the iteration-1
+    block.  The e2e test's criteria, SL1 and U/C of both iterations, and
+    the first exposure's first layer against the port's CPU route: its
+    correction to CORRECTION_TOL of scale, the card's float32 output to 2
+    float32 spacings at max|cube|.  Before the update, wing_production on
+    the first exposure.  Returns (the task's launches, wing_production's
+    record)."""
+    import importlib
+    import re
+
+    from survey_fixture_torch import build_survey
+
+    from pyimcom_tpu_torch.bench import quality_check
+    from pyimcom_tpu_torch.config import Config
+    from pyimcom_tpu_torch.fitsio import fits_read
+    from pyimcom_tpu_torch.ops import interp_cuda
+    from pyimcom_tpu_torch.splitpsf import imsubtract, splitpsf
+
+    update_cube = importlib.import_module("pyimcom_tpu_torch.splitpsf.update_cube")
+    root = WORK / "psfsplit"
+    stages, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        stages[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    cfg_dict = build_survey(root, n_obs=8, extrainput=["cstar14"],
+                            config_overrides=PSFSPLIT_OVERRIDES)
+    cache = str(root / "cache" / "in")
+    d = dict(cfg_dict, INLAYERCACHE=cache, PSFSPLIT=PSFSPLIT)
+    cfg_path = root / "cfg_split.json"
+    cfg_path.write_text(json.dumps(d))
+    stage("survey")
+
+    count = splitpsf.main(str(cfg_path))
+    sf = fits_read(cache + ".psf/psf_0.fits")
+    nsca = int(sf[0].header["NSCA"])
+    split = dict(count=count, NSCA=nsca, GSSKIP=int(sf[0].header["GSSKIP"]),
+                 KERSKIP=int(sf[0].header["KERSKIP"]))
+    stage("split")
+
+    blk0, out0, _t, launches0 = run_block(d, "_it0")
+    stage("iteration0")
+
+    pat = re.compile(r"_(\d{8})_(\d{2})\.fits$")
+    per_sca = {}
+    for p in Path(cache).parent.glob(Path(cache).name + "_*_*.fits"):
+        m = pat.search(p.name)
+        if m:
+            per_sca.setdefault(int(m.group(2)), []).append(int(m.group(1)))
+    sca = min(per_sca, key=lambda k: (len(per_sca[k]), k))
+    d0 = dict(d, OUT=d["OUT"] + "_it0")
+    cfg0_path = root / "cfg_it0.json"
+    cfg0_path.write_text(json.dumps(d0))
+    interp_cuda.reset_launch_counts()
+    with capture_imsubtract() as cap, capture_k1("psfsplit", ["wing_canvas"], k1_caps,
+                                                max_queries=1 << 22):
+        assert imsubtract._cli([str(cfg0_path), str(sca), "--device", "cuda"]) == 0
+    task_launches = dict(interp_cuda.launches)
+    stage("imsubtract")
+
+    first = cap.exposures[0]
+    orig = np.asarray(fits_read(first["result"].replace("_subI", ""))[0].data, np.float64)
+    sub = np.asarray(fits_read(first["result"])[0].data, np.float64)
+    diff = np.abs(orig - sub)
+    # the first layer's correction (K * mosaic at the exposure's pixels, f64)
+    # from the card and from the CPU route on the same canvas geometry, and
+    # the card's float32 output against the CPU route's
+    cfg0 = Config(dict(d0))
+    obsid = first["idsca"][0]
+    split_file = cache + f".psf/psf_{obsid:d}.fits"
+    K, ov = imsubtract.wing_kernels(split_file, sca, bin2x2=cfg0.psfsplit_bin2x2)
+    f = fits_read(cache + f"_{obsid:08d}_{sca:02d}.fits")
+    ewcs = imsubtract.get_cache_wcs(f)
+    reader = imsubtract._default_block_reader(cfg0.outstem)
+    corr = {}
+    for where in ("cuda", "cpu"):
+        ((_n, kh),) = imsubtract.wing_corrections(
+            ewcs, K, ov, orig.shape[-1], cfg0.nblock, cfg0.n2 * cfg0.postage_pad, reader,
+            [0], device=where, geometry=cap.geometries[0])
+        corr[where] = kh.cpu().numpy()
+    cpu0 = np.array(f[0].data, np.float32)[0]
+    cpu0 -= corr["cpu"]
+    card = np.asarray(fits_read(first["result"])[0].data, np.float32)
+    spacing = float(np.spacing(np.float32(np.abs(cpu0).max())))
+    scale = float(np.abs(corr["cpu"]).max())
+    card_vs_cpu = dict(max_abs=float(np.abs(card[0].astype(np.float64) - cpu0).max()),
+                       limit=2 * spacing, float32_spacing=spacing,
+                       correction_max_abs=scale,
+                       correction_max_abs_diff=float(np.abs(corr["cuda"] - corr["cpu"]).max()),
+                       correction_limit=CORRECTION_TOL * scale)
+    stage("cpu_route_layer0")
+
+    wing = phase_wing_production(root, cfg0, (obsid, sca), split_file, k1_caps)
+    stage("imsubtract_production")
+
+    it = update_cube.main(str(cfg_path))
+    stage("update")
+    blk1, out1, _t, launches1 = run_block(d, "_it1")
+    stage("iteration1")
+
+    outs = {"it0": fits_read(out0), "it1": fits_read(out1)}
+    hist = json.loads("".join(str(r) for r in outs["it1"]["OLDCFG"].data["text"]))
+    quality = {k: dict(zip(("SL1", "uc_median"), quality_check(p)), finite=maps_finite(p))
+               for k, p in (("it0", out0), ("it1", out1))}
+    rec = {"phase": "psfsplit_loop", "psfsplit": PSFSPLIT, "stages_s": stages, **split,
+           "sca": sca, "cached_exposures_per_sca": {k: len(v) for k, v in per_sca.items()},
+           "exposures": [{k: v for k, v in e.items() if k != "result"} for e in cap.exposures],
+           "layers": int(orig.shape[0]), "image": list(orig.shape[1:]),
+           "max_abs_delta": float(diff.max()), "median_abs_delta": float(np.median(diff)),
+           "max_abs_cube": float(np.abs(orig).max()), "card_vs_cpu_layer0": card_vs_cpu,
+           "IMSBITER": [int(outs[k]["OLDCFG"].header["IMSBITER"]) for k in ("it0", "it1")],
+           "iteration_after_update": it, "history_iteration0": hist[0]["iteration"],
+           "quality": quality, "task_launches": task_launches,
+           "launches": {"it0": launches0, "it1": launches1},
+           "stamps": [len(blk0.stamp_stats), len(blk1.stamp_stats)]}
+    emit(rec)
+    assert count >= 4 and split["GSSKIP"] == nsca and split["KERSKIP"] == 2 * nsca, split
+    assert rec["IMSBITER"] == [0, 1] and it == 1 and hist[0]["iteration"] == 0, rec
+    assert orig.shape == sub.shape and orig.shape[1:] == (4088, 4088), orig.shape
+    assert diff.max() > 0 and np.median(diff) < 0.5 * np.abs(orig).max(), rec
+    assert all(q["finite"] for q in quality.values()), quality
+    assert len(cap.exposures) >= 1 and all(e["k1_launches"] > 0 for e in cap.exposures), rec
+    assert task_launches["interp_g4460_dense"] > 0, task_launches
+    assert all(n == 0 for k, n in task_launches.items() if k != "interp_g4460_dense"), \
+        task_launches
+    assert card_vs_cpu["max_abs"] <= card_vs_cpu["limit"], card_vs_cpu
+    assert scale > 0 and card_vs_cpu["correction_max_abs_diff"] <= \
+        card_vs_cpu["correction_limit"], card_vs_cpu
+    return task_launches, wing
+
+
+def covering_block(geometry, ewcs, cfg):
+    """A block at the output pixel scale with the exposure's projection and
+    axes (its WCS scaled, without distortion terms) that holds every point
+    of the canvas `geometry` with 8 pixels to spare: (WCS, N)."""
+    from pyimcom_tpu_torch.wcsutil import WCS
+
+    A = geometry.A
+    ra, dec = geometry.ra.reshape(A, A), geometry.dec.reshape(A, A)
+
+    def rim(a):
+        return np.concatenate([a[0], a[-1], a[:, 0], a[:, -1]])
+
+    def block(crpix):
+        cd = ewcs.cd / np.sqrt(abs(np.linalg.det(ewcs.cd))) * cfg.dtheta
+        return WCS(ctype=ewcs.ctype, crval=ewcs.crval, crpix=crpix, cd=cd,
+                   lonpole=ewcs.lonpole)
+
+    x, y = block((0.0, 0.0)).world2pix(rim(ra), rim(dec))
+    return block((8 - x.min(), 8 - y.min())), int(np.ceil(max(np.ptp(x), np.ptp(y)))) + 17
+
+
+def phase_wing_production(root, cfg0, idsca, split_file, k1_caps):
+    """The wing subtraction of one exposure at its PSFs' own oversampling
+    (INPSF[2] = 6, given to run_imsubtract: the survey's split files carry
+    no OVSAMP) with bin2x2 -- kernels at oversampling 3, a 12324^2 canvas
+    for a 4088^2 SCA: (1) run_imsubtract on the loop's iteration-0 mosaic
+    (2x2 blocks of 4"), every layer, written apart from the cache's _subI
+    files; its mosaic reaches few canvas points; (2) the first layer again,
+    on the same canvas geometry, from one block at the output pixel scale
+    that covers the whole canvas (covering_block; seeded random data): one
+    K1<8> launch of 12324^2 queries.  Per task its record
+    (capture_imsubtract); for (2) also the K1 launch's bound (its block,
+    queries and results once; QUERY_FLOP a query).  Counts reset before,
+    read after.  Returns the phase's record."""
+    import torch
+
+    from pyimcom_tpu_torch.fitsio import fits_read
+    from pyimcom_tpu_torch.ops import interp_cuda
+    from pyimcom_tpu_torch.splitpsf import imsubtract
+
+    obsid, sca = idsca
+    ov = int(cfg0.inpsf_oversamp)
+    interp_cuda.reset_launch_counts()
+    with capture_imsubtract() as cap:
+        with capture_k1("wing_production", ["wing_canvas"], k1_caps, max_queries=1 << 22):
+            out = imsubtract.run_imsubtract(cfg0, idsca, split_file,
+                                            out_file=str(root / "wing_production.fits"),
+                                            oversamp=ov, bin2x2=True, device="cuda")
+        geom = cap.geometries[0]
+        K, ov_b = imsubtract.wing_kernels(split_file, sca, ov, bin2x2=True)
+        f = fits_read(cfg0.inlayercache + f"_{obsid:08d}_{sca:02d}.fits")
+        ewcs = imsubtract.get_cache_wcs(f)
+        bwcs, N = covering_block(geom, ewcs, cfg0)
+        block = np.random.default_rng(20261017).standard_normal((N, N))
+        with capture_k1("wing_covering", ["wing_canvas"], k1_caps, max_queries=1 << 22):
+            cov = cap.measure({"covering_block": [N, N]}, imsubtract.subtract_wings_blockwise,
+                              np.asarray(f[0].data, np.float32)[:1], ewcs, K, ov_b, 1, 0,
+                              lambda ix, iy: (block, bwcs), device="cuda", geometry=geom)
+    launches = dict(interp_cuda.launches)
+    task, covering = cap.exposures
+    orig = np.asarray(f[0].data, np.float64)
+    sub = np.asarray(fits_read(out)[0].data, np.float64)
+    reached = geom.on_block((0, 0), bwcs, N)[0].size
+    nq = geom.A ** 2
+    k1_bound = bound(8 * ((N + 12) ** 2 + 3 * nq), QUERY_FLOP["G4460"] * reached)
+    rec = {"phase": "wing_production", "oversampling": [ov, ov_b], "kernel": list(K.shape),
+           "tasks": [{k: v for k, v in e.items() if k != "result"} for e in cap.exposures],
+           "covering_reached_share": reached / nq,
+           "covering_k1_bound_ms": k1_bound[0], "covering_k1_bound_by": k1_bound[1],
+           "delta_max_abs": np.abs(orig - sub).max(axis=(1, 2)).tolist(),
+           "covering_delta_max_abs": float(np.abs(orig[0] - cov[0]).max()),
+           "launches": launches}
+    emit(rec)
+    assert task["canvas_side"] == covering["canvas_side"] == 12324, rec
+    assert task["k1_launches"] > 0 and covering["k1_launches"] == 1, rec
+    assert launches["interp_g4460_dense"] == task["k1_launches"] + 1, launches
+    assert all(n == 0 for k, n in launches.items() if k != "interp_g4460_dense"), launches
+    assert reached == nq, rec
+    assert np.all(np.isfinite(sub)) and np.all(np.isfinite(cov)), rec
+    assert max(rec["delta_max_abs"]) > 0 and rec["covering_delta_max_abs"] > 0, rec
+    return rec
+
+
+def phase_fftconv_full(torch, dev):
+    """One fftconvolve_multi on the card at the unbinned production canvas
+    (FFT_SIDE^2, one 120^2 kernel; seeded random data made on the card):
+    its device time (the second of two calls; the first plans cuFFT), its
+    peak device memory, and the valid window of a 2048^2 crop against the
+    CPU route to 1e-12 of scale."""
+    from pyimcom_tpu_torch.splitpsf.imsubtract import fftconvolve_multi
+
+    A, m, crop = FFT_SIDE, 120, 2048
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261017)
+    canvas = torch.randn((A, A), dtype=torch.float64, device=dev, generator=g)
+    kernel = torch.randn((1, m, m), dtype=torch.float64, device=dev, generator=g)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, out = [], None
+    for _ in range(2):
+        out = None
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fftconvolve_multi(canvas, kernel)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    peak = torch.cuda.max_memory_allocated(dev)
+    got = out[:, :crop - m + 1, :crop - m + 1].cpu()
+    want = fftconvolve_multi(canvas[:crop, :crop].cpu(), kernel.cpu())
+    rec = {"phase": "fftconv_full", "canvas": [A, A], "kernel": [m, m],
+           "out": list(out.shape), "device_ms": times, "inputs_GiB": base / 2 ** 30,
+           "max_memory_allocated_GiB": peak / 2 ** 30,
+           "crop": crop, "crop_vs_cpu": rel_err(torch, got, want),
+           "finite": bool(torch.isfinite(out).all())}
+    emit(rec)
+    assert tuple(out.shape) == (1, A - m + 1, A - m + 1) and rec["finite"], rec
+    assert rec["crop_vs_cpu"] < TOL, rec
+
+
+def phase_g4460_kernels(torch, dev, k1_caps, plan, floor_ms):
+    """K1<8> alone on its captured main-path launches -- PSF sampling of
+    the G4460 bench block and the first wing canvas of each wing-subtraction
+    task (the loop's at oversampling 1, wing_production's at oversampling 3
+    and its covering block's; at most 2^22 of a launch's queries) -- and
+    K2<8> (pool, B) on the G4460 bench block's first group, against their
+    plain versions.  Returns (the K1 records, the K2 record)."""
+    k1 = {key: k1_main_path(torch, dev, key, k1_caps.pop(key), floor_ms, None)
+          for key in ("g4460/psf_sampling", "psfsplit/wing_canvas",
+                      "wing_production/wing_canvas", "wing_covering/wing_canvas")}
+    k2 = k2_main_path(torch, dev, "g4460_bench_group_1", plan, floor_ms)
+    emit({"phase": "g4460_kernels", "criterion": TOL, "K1": k1, "K2": k2})
+    return k1, k2
+
+
 def galaxy_moments(path):
     """Adaptive moments of the brightest galaxy of layer 1 against the
     analytic covariance of target PSF + sheared galaxy (in arcsec^2), and
@@ -1358,7 +1871,8 @@ def main():
     emit({"phase": "bench_line", "stamps": len(bblk.stamp_stats), "SL1": SL1_b,
           "uc_median": uc_b, "launches": bench_launches, "line": bench_line})
     print(json.dumps(bench_line), flush=True)
-    assert len(bblk.stamp_stats) == 16 and all(n > 0 for n in bench_launches.values())
+    assert len(bblk.stamp_stats) == 16
+    assert all(bench_launches[k] > 0 for k in family_kernels("D5512")), bench_launches
     assert abs(SL1_b - 1.0) < SL1_TOL and uc_b < UC_MAX, bench_line
     del bblk
 
@@ -1466,18 +1980,28 @@ def main():
         main_k1[key] = k1_main_path(torch, dev, key, k1_caps.pop(key), floor_ms, parent)
         emit({"phase": "k1_main_path", "criterion": TOL, **main_k1[key]})
 
-    # ---- 11. destriping, from imdestripe.main to the coadd ------------------------
+    # ---- 11. G4460: the bench block, the split-PSF loop, the full canvas ----
+    g4460_plan, g4460_launches = phase_g4460_block(cfg_dict, k1_caps)
+    task_launches, wing = phase_psfsplit_loop(torch, k1_caps)
+    torch.cuda.empty_cache()
+    phase_fftconv_full(torch, dev)
+    torch.cuda.empty_cache()
+    g_k1, g_k2 = phase_g4460_kernels(torch, dev, k1_caps, g4460_plan, floor_ms)
+    del g4460_plan
+    assert not k1_caps, sorted(k1_caps)
+
+    # ---- 12. destriping, from imdestripe.main to the coadd ------------------------
     k3, k4, ds_launches = phase_destripe(torch, dev, floor_ms, parent_k4, k4_build)
     torch.cuda.empty_cache()
 
-    # ---- 12. the chained 2x2 mosaic, from destripe to compression -----------
+    # ---- 13. the chained 2x2 mosaic, from destripe to compression -----------
     phase_mosaic_chain()
 
     # ---- summary ---------------------------------------------------------------
     # the kernels line's bound is bytes and operations alone (roofline_ms);
     # its K1 and K2 times are those of the main path's own launches
     src = "pyimcom_tpu_torch/csrc/interp_d5512.cu"
-    no_lib = None           # no PyTorch call computes D5512 interpolation
+    no_lib = None           # no PyTorch call computes D5512 or G4460 interpolation
 
     def line(name, source, replaces, n, err, rec, library_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1497,6 +2021,22 @@ def main():
         summary.append(line(f"sweep_d5512_scatter.{mode}", src,
                             "pyimcom_tpu/ops/interp_pallas.py:140",
                             launches[f"sweep_d5512_scatter.{mode}"], max(errs), k2[mode], no_lib))
+    # the G4460 forms: launches of the G4460 bench block and the wing
+    # subtraction tasks; K1's time is the G4460 block's PSF sampling, K2's
+    # its first group's
+    summary.append(line("interp_g4460_dense", src, "pyimcom_tpu/ops/interp.py:357",
+                        g4460_launches["interp_g4460_dense"]
+                        + task_launches["interp_g4460_dense"]
+                        + wing["launches"]["interp_g4460_dense"],
+                        max(r["max_abs_err"] for r in g_k1.values()),
+                        g_k1["g4460/psf_sampling"], no_lib))
+    k2g = {one["mode"]: one for one in g_k2["launches"]}
+    for mode in ("pool", "B"):
+        summary.append(line(f"sweep_g4460_scatter.{mode}", src,
+                            "pyimcom_tpu/ops/interp.py:386",
+                            g4460_launches[f"sweep_g4460_scatter.{mode}"],
+                            max(one["max_abs_err"] for one in g_k2["launches"]
+                                if one["mode"] == mode), k2g[mode], no_lib))
     bil = "pyimcom_tpu_torch/csrc/bilinear.cu"
     summary.append(line("bilinear_gather", bil, "pyimcom_tpu/ops/bilinear.py:45",
                         ds_launches["bilinear_gather"], k3["max_abs_err"], k3, k3["library_ms"]))

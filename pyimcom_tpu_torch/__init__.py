@@ -11,10 +11,13 @@ This package imports ``torch`` and never ``jax``, and nothing of
 (``config``, ``fitsio``, ``wcsutil``, ``sphere``, ``asdfio``, ``profiling``,
 ``ops/psfmodels``, ``utils/moments``, ``utils/compareutils``, the layer
 helpers in ``layer_host``, ``imdestripe``'s host helpers, ``compress``,
-``truthcats`` and ``analysis``), which ``tests/test_torch_hostio.py`` holds
-to their originals.  The TPU kernel on the coadd's path, the
-D5512 interpolation, is a hand-written CUDA kernel pair for Hopper
-(``csrc/interp_d5512.cu``); the destriper's bilinear gather and its
+``truthcats``, ``analysis``, ``splitpsf/splitpsf`` and
+``splitpsf/update_cube``), which ``tests/test_torch_hostio.py`` holds to
+their originals.  The TPU kernel on the coadd's path, the D5512
+interpolation, is a hand-written CUDA kernel pair for Hopper
+(``csrc/interp_d5512.cu``), templated on the tap count so that the 8-tap
+G4460 family (PSFINTERP "G4460" and the split-PSF wing resample) runs the
+same kernels; the destriper's bilinear gather and its
 adjoint, which the JAX package leaves to XLA, are a hand-written CUDA pair
 too (``csrc/bilinear.cu``); the relay's compile probe is a hand-written
 build-and-launch probe (``csrc/probe.cu``, ``python -m
@@ -37,6 +40,7 @@ Modules:
     bench       the benchmark line
     runner      blocks of a mosaic (``--share-pads``: the halo exchange)
     pipeline    the chained mosaic from destripe to compressed blocks
+    splitpsf    PSF splitting, wing subtraction (cuFFT, G4460), the cache update
     probe       the toolchain probe of the card
 """
 

@@ -23,11 +23,14 @@ post-passes at production block size instead (:func:`postpass`) and prints
 
     python -m pyimcom_tpu_torch.bench [--full] [--production | --postpass]
                                       [--stop N] [--device cuda|cpu]
-                                      [--checkpoint-sec S]
+                                      [--checkpoint-sec S] [--psfinterp G4460]
 
 ``--stop N`` coadds N stamps (bench default: all 16 on the card, 4 on the
 CPU; ``--full`` is all 16; production default 8, 0 the whole 2560^2 block;
-post-passes default 4 a block).  The surveys are written under ``.bench_work/`` in the repository
+post-passes default 4 a block).  ``--psfinterp G4460`` coadds the bench
+block with the 8-tap interpolation family (K1 and K2 in their G4460
+forms); the CPU baseline is of the D5512 block, so that line has none.
+The surveys are written under ``.bench_work/`` in the repository
 (git-ignored) and reused.  A SIGTERM before the result prints a line with
 a null value, marked partial, and exits.
 """
@@ -119,8 +122,8 @@ def fixture_key(cfg_dict) -> str:
 
 def cpu_baseline(cfg_dict):
     """The CPU reference record of .bench_cpu_baseline.json when it is of
-    this fixture, else None."""
-    if not BASELINE.exists():
+    this fixture (a D5512 block), else None."""
+    if not BASELINE.exists() or cfg_dict.get("PSFINTERP", "D5512") != "D5512":
         return None
     rec = json.loads(BASELINE.read_text())
     return rec if rec.get("fixture_key") == fixture_key(cfg_dict) else None
@@ -218,7 +221,8 @@ def line(seconds, nrun, SL1, uc_med, card, baseline):
             f"{baseline['cpu_note']}")
     return {"metric": "blocks/hour", "value": bph,
             "unit": f"synthetic 100px blocks/hour on {card} ({nrun}/{BENCH_STAMPS} stamps, "
-                    f"SL1={SL1:.5f}, U/C med={uc_med:.1e}; {base})",
+                    f"SL1={SL1:.5f}, U/C med={uc_med:.1e} (SL1 {SL1!r}, U/C med "
+                    f"{uc_med!r}); {base})",
             "vs_baseline": None if baseline is None else bph * baseline["t_block_cpu"] / 3600.0}
 
 
@@ -322,6 +326,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--checkpoint-sec", type=float, default=None,
                     help="production: snapshot the block every S seconds and resume from it")
+    ap.add_argument("--psfinterp", default="D5512", choices=("D5512", "G4460"),
+                    help="bench block: the interpolation family (PSFINTERP)")
     args = ap.parse_args(argv)
     signal.signal(signal.SIGTERM, _flush_partial)
 
@@ -341,6 +347,8 @@ def main(argv=None):
     else:
         stop = 0 if args.device.startswith("cuda") else 4
     cfg_dict = survey(WORK / "bench")
+    if args.psfinterp != "D5512":
+        cfg_dict = dict(cfg_dict, PSFINTERP=args.psfinterp)
     result, _blk, _SL1, _uc = bench_block(cfg_dict, args.device, stop)
     print(json.dumps(result), flush=True)
     return 0

@@ -1,14 +1,26 @@
-// D5512 interpolation kernels for Hopper (sm_90a), with a plain C interface
-// loaded through ctypes (pyimcom_tpu_torch/ops/interp_cuda.py).
+// D5512 and G4460 interpolation kernels for Hopper (sm_90a), with a plain C
+// interface loaded through ctypes (pyimcom_tpu_torch/ops/interp_cuda.py).
+//
+// Every kernel is a template on the tap count T of its family: T = 10
+// (D5512, patch from floor(q) - 4, valid iff 4 <= floor(q) < n - 5) or T = 8
+// (G4460, patch from floor(q) - 3, valid iff 3 <= floor(q) < n - 4); the C
+// entries interp_<family>_dense and sweep_<family>_scatter instantiate them.
+// The D5512 forms are the ones described below; the G4460 forms are the same
+// code with an 8 x 8 patch (64 reads and ~300 flops a query).
 //
 // K1  interp_d5512_dense   replaces the Pallas TPU kernel
 //     pyimcom_tpu/ops/interp_pallas.py::_kernel (via interp2d_dense_pallas):
 //     R images, R x Nq scattered queries, zero off-grid.
+//     interp_g4460_dense replaces the XLA form of the same contract for the
+//     8-tap family, pyimcom_tpu/ops/interp.py::interp2d_dense(..., "G4460")
+//     (the JAX package has no Pallas G4460 kernel).
 // K2  sweep_d5512_scatter  replaces interp_pallas.py::interp2d_dense_pairs_pallas
 //     fused with the pool / -B/2 scatters of
 //     pyimcom_tpu/ops/assemble.py::sweep_pool_scan and sweep_b_scan: each
 //     query is formed from the f64 coordinate tables, interpolated, and
-//     added where it lands.
+//     added where it lands.  sweep_g4460_scatter replaces the XLA sweep of
+//     pyimcom_tpu/ops/assemble.py::sweep_scatter_scan with kern "G4460"
+//     (interp.py::interp2d_dense_pairs).
 //
 // What bounds them on this card.  Every query reads a 10x10 f64 patch
 // (800 bytes) of one image and spends ~420 f64 flops on it.  A launch
@@ -125,6 +137,48 @@ __constant__ double kOdd[5][5] = {
      +8.993141455798455697e-01, -1.213035309579723942e+00},
 };
 
+// G4460 coefficients (pyimcom_tpu/ops/interp.py G4460_EVEN / G4460_ODD), the
+// same layout: row k gives taps w[k] and w[7-k].
+__constant__ double kG4460Even[4][5] = {
+    {-1.945235823911159925e-05, +1.055874006170703754e-03, -8.118995675262492134e-03,
+     +1.453840359289597893e-02, -3.143522062829661335e-03},
+    {+8.999088401166260235e-05, -5.148137838987351493e-03, +6.069481712095783216e-02,
+     -1.235960532055178779e-01, +2.718540716184886588e-02},
+    {-1.540666237308310749e-04, +9.123606051920359755e-03, -1.334507380042637137e-01,
+     +5.336865231190287551e-01, -1.252224819511615628e-01},
+    {+8.351472709485021652e-05, -5.031103870555608815e-03, +8.087359556892606549e-02,
+     -4.246267565082386120e-01, +6.011801467479378491e-01},
+};
+__constant__ double kG4460Odd[4][5] = {
+    {+7.260754694387638895e-06, -2.904202176384821071e-04, +2.238241587784505285e-03,
+     -4.005111027206044276e-03, +8.423052633873124011e-04},
+    {-4.631632696889089514e-05, +1.991059241797971720e-03, -2.378440273076087505e-02,
+     +4.853753882315355733e-02, -1.053588105750352319e-02},
+    {+1.308916996808606444e-04, -5.896228276277161624e-03, +8.761981577498251239e-02,
+     -3.533315658835169404e-01, +8.255813013281140811e-02},
+    {-2.118650110726590574e-04, +9.766034727710315444e-03, -1.596037936464457796e-01,
+     +8.453409395243187685e-01, -1.200891120242346455e+00},
+};
+
+// The geometry of a family of TAPS taps: the patch of a query q starts at
+// floor(q) - kLo, and the query is valid iff kLo <= floor(q) < n - kHi.
+// kPitch is the stride (doubles) of one output column's or row's tap set in
+// the B kernel's shared memory.  Neighbouring threads load neighbouring tap
+// sets once each: 80 bytes apart for D5512 (four lanes a bank pair, the
+// layout its kernel was timed with), and for G4460 72 bytes (9 doubles),
+// where 64 bytes (8) would put every other lane on one bank pair; 9 reaches
+// the two wavefronts that 32 eight-byte loads need at best.
+template <int TAPS>
+struct Family;
+template <>
+struct Family<10> {
+  static constexpr int kLo = 4, kHi = 5, kPitch = 10;
+};
+template <>
+struct Family<8> {
+  static constexpr int kLo = 3, kHi = 4, kPitch = 9;
+};
+
 constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 2;  // blocks an SM must hold: caps registers at 85
@@ -152,24 +206,54 @@ __device__ __forceinline__ void d5512_taps(double fh, double w[10]) {
   }
 }
 
-// True iff the query's 10x10 patch lies inside an (ny, nx) image:
-// 4 <= floor(q) < n - 5 on both axes (false for NaN).
+// The eight G4460 taps for the phase fh (Horner in fh^2).
+__device__ __forceinline__ void g4460_taps(double fh, double w[8]) {
+  const double fh2 = fh * fh;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    double e = kG4460Even[k][0];
+    double o = kG4460Odd[k][0];
+#pragma unroll
+    for (int c = 1; c < 5; ++c) {
+      e = e * fh2 + kG4460Even[k][c];
+      o = o * fh2 + kG4460Odd[k][c];
+    }
+    o *= fh;
+    w[k] = e + o;
+    w[7 - k] = e - o;
+  }
+}
+
+template <int TAPS>
+__device__ __forceinline__ void taps(double fh, double* w) {
+  if constexpr (TAPS == 10) {
+    d5512_taps(fh, w);
+  } else {
+    g4460_taps(fh, w);
+  }
+}
+
+// True iff the query's patch lies inside an (ny, nx) image:
+// kLo <= floor(q) < n - kHi on both axes (false for NaN).
+template <int TAPS>
 __device__ __forceinline__ bool on_grid(double fx, double fy, int ny, int nx) {
-  return fx >= 4.0 && fx < static_cast<double>(nx - 5) &&
-         fy >= 4.0 && fy < static_cast<double>(ny - 5);
+  constexpr double lo = Family<TAPS>::kLo;
+  constexpr int hi = Family<TAPS>::kHi;
+  return fx >= lo && fx < static_cast<double>(nx - hi) &&
+         fy >= lo && fy < static_cast<double>(ny - hi);
 }
 
 // sum_a wy[a] (sum_b wx[b] p[a * stride + b]) of the patch whose corner is p.
-template <typename Load>
-__device__ __forceinline__ double patch_sum(const double* p, int stride, const double wx[10],
-                                            const double wy[10], Load load) {
+template <int TAPS, typename Load>
+__device__ __forceinline__ double patch_sum(const double* p, int stride, const double* wx,
+                                            const double* wy, Load load) {
   double acc = 0.0;
 #pragma unroll
-  for (int a = 0; a < 10; ++a) {
+  for (int a = 0; a < TAPS; ++a) {
     const double* row = p + a * stride;
     double s = 0.0;
 #pragma unroll
-    for (int b = 0; b < 10; ++b) s += wx[b] * load(row + b);
+    for (int b = 0; b < TAPS; ++b) s += wx[b] * load(row + b);
     acc += wy[a] * s;
   }
   return acc;
@@ -228,34 +312,38 @@ __device__ void block_bounds(int* box, int xlo, int xhi, int ylo, int yhi) {
   __syncthreads();
 }
 
-// sum_a wy[a] (sum_b wx[b] img[fy - 4 + a][fx - 4 + b]) read through L1 /
+// sum_a wy[a] (sum_b wx[b] img[fy - kLo + a][fx - kLo + b]) read through L1 /
 // L2 with 16-byte loads: the image rows must be 16-byte aligned (nx even,
-// img on 16 bytes).  Each patch row is read as six pairs from the even
-// column at or before fx - 4 (the sixth only where fx - 4 is odd), against
-// ten taps shifted to those twelve samples: the extra samples (in the row,
-// finite) add exact zeros, so the sum and its order are the ten-tap ones.
+// img on 16 bytes).  Each patch row is read as TAPS / 2 + 1 pairs from the
+// even column at or before fx - kLo (the last only where fx - kLo is odd),
+// against the taps shifted to those TAPS + 2 samples: the extra samples (in
+// the row, since fx - kLo + TAPS = fx + kHi + 1 <= nx - 1, and finite) add
+// exact zeros, so the sum and its order are the TAPS-tap ones.
+template <int TAPS>
 __device__ __forceinline__ double patch_sum_pairs(const double* __restrict__ img, int nx,
-                                                  int fx, int fy, const double wx[10],
-                                                  const double wy[10]) {
-  const int c0 = fx - 4;
+                                                  int fx, int fy, const double* wx,
+                                                  const double* wy) {
+  constexpr int lo = Family<TAPS>::kLo;
+  constexpr int np = TAPS / 2 + 1;
+  const int c0 = fx - lo;
   const bool odd = c0 & 1;
-  double w[12];
+  double w[2 * np];
 #pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    const double even_tap = j < 10 ? wx[j] : 0.0;
-    const double odd_tap = j >= 1 && j <= 10 ? wx[j - 1] : 0.0;
+  for (int j = 0; j < 2 * np; ++j) {
+    const double even_tap = j < TAPS ? wx[j] : 0.0;
+    const double odd_tap = j >= 1 && j <= TAPS ? wx[j - 1] : 0.0;
     w[j] = odd ? odd_tap : even_tap;
   }
-  const double2* p = reinterpret_cast<const double2*>(img + (fy - 4) * nx + (c0 & ~1));
+  const double2* p = reinterpret_cast<const double2*>(img + (fy - lo) * nx + (c0 & ~1));
   const int pitch = nx / 2;
   double acc = 0.0;
 #pragma unroll
-  for (int a = 0; a < 10; ++a) {
+  for (int a = 0; a < TAPS; ++a) {
     const double2* row = p + a * pitch;
     double s = 0.0;
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const double2 v = k < 5 || odd ? __ldg(row + k) : make_double2(0.0, 0.0);
+    for (int k = 0; k < np; ++k) {
+      const double2 v = k < np - 1 || odd ? __ldg(row + k) : make_double2(0.0, 0.0);
       s += w[2 * k] * v.x;
       s += w[2 * k + 1] * v.y;
     }
@@ -283,11 +371,13 @@ __device__ __forceinline__ long long run_query(long long t, int lane, long long 
 // Warp w of the grid takes run t = w % runs of image r = w / runs
 // (run_query), a lane one query; its patch is read in 16-byte pairs where
 // `pairs` (nx even, images on 16 bytes), else sample by sample.
+template <int TAPS>
 __global__ void __launch_bounds__(kK1Threads)
 interp_dense_warp_kernel(const double* __restrict__ images, int ny, int nx,
                          const double* __restrict__ x, const double* __restrict__ y,
                          long long nq, int n, long long ctiles, long long runs,
                          long long nruns, bool pairs, double* __restrict__ out) {
+  constexpr int lo = Family<TAPS>::kLo;
   const long long w = static_cast<long long>(blockIdx.x) * (kK1Threads / 32) + (threadIdx.x >> 5);
   if (w >= nruns) return;
   const long long r = w / runs;
@@ -297,14 +387,14 @@ interp_dense_warp_kernel(const double* __restrict__ images, int ny, int nx,
   const double qx = x[i], qy = y[i];
   const double fxd = floor(qx), fyd = floor(qy);
   double v = 0.0;
-  if (on_grid(fxd, fyd, ny, nx)) {
-    double wxt[10], wyt[10];
-    d5512_taps(qx - fxd - 0.5, wxt);
-    d5512_taps(qy - fyd - 0.5, wyt);
+  if (on_grid<TAPS>(fxd, fyd, ny, nx)) {
+    double wxt[TAPS], wyt[TAPS];
+    taps<TAPS>(qx - fxd - 0.5, wxt);
+    taps<TAPS>(qy - fyd - 0.5, wyt);
     const int fx = static_cast<int>(fxd), fy = static_cast<int>(fyd);
     const double* img = images + static_cast<size_t>(r) * ny * nx;
-    v = pairs ? patch_sum_pairs(img, nx, fx, fy, wxt, wyt)
-              : patch_sum(img + (fy - 4) * nx + (fx - 4), nx, wxt, wyt, LoadGlobal());
+    v = pairs ? patch_sum_pairs<TAPS>(img, nx, fx, fy, wxt, wyt)
+              : patch_sum<TAPS>(img + (fy - lo) * nx + (fx - lo), nx, wxt, wyt, LoadGlobal());
   }
   out[i] = v;
 }
@@ -328,6 +418,7 @@ __device__ __forceinline__ Tile load_tile(const int* __restrict__ tiles) {
 
 // Pool mode: value j of a row lands at dst_base0 + (g / w2) * stride + g % w2,
 // g = off + j (dmeta's own w2 and off).
+template <int TAPS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sweep_pool_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__ combined,
                   int K, int ny, int nx, const double* __restrict__ xt,
@@ -335,6 +426,7 @@ sweep_pool_kernel(double* __restrict__ dst, int dst_len, const double* __restric
                   const int* __restrict__ imeta, const int* __restrict__ dmeta,
                   const int* __restrict__ tiles, double inv_scale, double off_grid,
                   unsigned long long* __restrict__ l2_tiles) {
+  constexpr int lo = Family<TAPS>::kLo;
   extern __shared__ double win[];
   __shared__ int box[4];
   const Tile t = load_tile(tiles);
@@ -364,7 +456,7 @@ sweep_pool_kernel(double* __restrict__ dst, int dst_len, const double* __restric
     if (i1 < 0 || i1 >= L || i2 < 0 || i2 >= L) return false;
     x = (xt[i1] - xt[i2]) * inv_scale + off_grid;
     y = (yt[i1] - yt[i2]) * inv_scale + off_grid;
-    return on_grid(floor(x), floor(y), ny, nx);
+    return on_grid<TAPS>(floor(x), floor(y), ny, nx);
   };
 
   // the window of the tile's valid queries
@@ -382,8 +474,8 @@ sweep_pool_kernel(double* __restrict__ dst, int dst_len, const double* __restric
   }
   block_bounds(box, xlo, xhi, ylo, yhi);
   if (box[0] > box[1]) return;  // no query of the tile adds anything
-  const int x0 = box[0] - 4, y0 = box[2] - 4;
-  const int wx = box[1] - box[0] + 10, wy = box[3] - box[2] + 10;
+  const int x0 = box[0] - lo, y0 = box[2] - lo;
+  const int wx = box[1] - box[0] + TAPS, wy = box[3] - box[2] + TAPS;
   const bool staged = wx * wy * static_cast<int>(sizeof(double)) <= kPoolWindowBytes;
   if (staged) {
     stage_window(win, img, nx, x0, y0, wx, wy);
@@ -396,13 +488,13 @@ sweep_pool_kernel(double* __restrict__ dst, int dst_len, const double* __restric
     int d;
     if (!query(q, x, y, d)) continue;
     const double fx = floor(x), fy = floor(y);
-    double wxt[10], wyt[10];
-    d5512_taps(x - fx - 0.5, wxt);
-    d5512_taps(y - fy - 0.5, wyt);
-    const int ix = static_cast<int>(fx) - 4, iy = static_cast<int>(fy) - 4;
+    double wxt[TAPS], wyt[TAPS];
+    taps<TAPS>(x - fx - 0.5, wxt);
+    taps<TAPS>(y - fy - 0.5, wyt);
+    const int ix = static_cast<int>(fx) - lo, iy = static_cast<int>(fy) - lo;
     const double v = staged
-        ? patch_sum(win + (iy - y0) * wx + (ix - x0), wx, wxt, wyt, LoadShared())
-        : patch_sum(img + iy * nx + ix, nx, wxt, wyt, LoadGlobal());
+        ? patch_sum<TAPS>(win + (iy - y0) * wx + (ix - x0), wx, wxt, wyt, LoadShared())
+        : patch_sum<TAPS>(img + iy * nx + ix, nx, wxt, wyt, LoadGlobal());
     atomicAdd(dst + d, v);
   }
 }
@@ -416,13 +508,15 @@ sweep_pool_kernel(double* __restrict__ dst, int dst_len, const double* __restric
 // reading the tables at i2_start + p.  A block takes one tile: one i1 (u0)
 // and the output pixels [v0, v0 + nv) it pairs with.
 //
-// Shared memory (host-sized, interp_cuda.b_window): x taps (n2f, 10), y taps
-// (n2f, 10), horizontal sums (wmax, n2f), the window (wmax, wmax) in
-// doubles, then the x and y floors (n2f each; INT_MIN off the grid).  The
-// floors of n2f lattice points spread over (n2f - 1) |inv_scale| samples
-// differ by at most floor((n2f - 1) |inv_scale|) + 2, rounding included, so
-// with the 10-tap guard a window never exceeds wmax = that + 10 samples on
-// either axis.
+// Shared memory (sized by b_smem_bytes, for the window interp_cuda.b_window
+// gives; the wrapper asks interp_b_smem_bytes before it launches): x taps
+// (n2f, kPitch), y taps (n2f, kPitch), horizontal sums (wmax, n2f), the
+// window (wmax, wmax) in doubles, then the x and y floors (n2f each; INT_MIN
+// off the grid).  The floors of n2f lattice points spread over (n2f - 1)
+// |inv_scale| samples differ by at most floor((n2f - 1) |inv_scale|) + 2,
+// rounding included, so with the TAPS-tap guard a window never exceeds
+// wmax = that + TAPS samples on either axis.
+template <int TAPS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__ combined,
                int K, int ny, int nx, const double* __restrict__ xt,
@@ -430,11 +524,13 @@ sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__
                const int* __restrict__ imeta, const int* __restrict__ dmeta,
                const int* __restrict__ tiles, double inv_scale, double off_grid, int n_pad,
                int n2f, int wmax) {
+  constexpr int lo = Family<TAPS>::kLo, hi = Family<TAPS>::kHi;
+  constexpr int pitch = Family<TAPS>::kPitch;
   extern __shared__ double sm[];
   __shared__ int box[4];
   double* tx = sm;
-  double* ty = tx + n2f * 10;
-  double* hs = ty + n2f * 10;
+  double* ty = tx + n2f * pitch;
+  double* hs = ty + n2f * pitch;
   double* win = hs + wmax * n2f;
   int* fxs = reinterpret_cast<int*>(win + wmax * wmax);
   int* fys = fxs + n2f;
@@ -471,11 +567,11 @@ sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__
     const double fq = floor(q);
     const int n = col ? nx : ny;
     int* fl = col ? fxs : fys;
-    if (!(fq >= 4.0 && fq < static_cast<double>(n - 5))) {
+    if (!(fq >= lo && fq < static_cast<double>(n - hi))) {
       fl[c] = INT_MIN;
       continue;
     }
-    d5512_taps(q - fq - 0.5, (col ? tx : ty) + c * 10);
+    taps<TAPS>(q - fq - 0.5, (col ? tx : ty) + c * pitch);
     fl[c] = static_cast<int>(fq);
     if (col) {
       xlo = min(xlo, fl[c]);
@@ -488,8 +584,8 @@ sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__
   block_bounds(box, xlo, xhi, ylo, yhi);
   // no column or no row on the grid: every output of this i1 is 0
   if (box[0] > box[1] || box[2] > box[3]) return;
-  const int x0 = box[0] - 4, y0 = box[2] - 4;
-  const int wx = box[1] - box[0] + 10, wy = box[3] - box[2] + 10;
+  const int x0 = box[0] - lo, y0 = box[2] - lo;
+  const int wx = box[1] - box[0] + TAPS, wy = box[3] - box[2] + TAPS;
 
   stage_window(win, img, nx, x0, y0, wx, wy);
   // horizontal sums: window row a, output column c; a thread keeps one
@@ -499,15 +595,15 @@ sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__
   if (threadIdx.x < nrg * ncol) {
     const int c = clo + threadIdx.x % ncol;
     if (fxs[c] != INT_MIN) {
-      double w[10];
+      double w[TAPS];
 #pragma unroll
-      for (int b = 0; b < 10; ++b) w[b] = tx[c * 10 + b];
-      const int cx = fxs[c] - 4 - x0;
+      for (int b = 0; b < TAPS; ++b) w[b] = tx[c * pitch + b];
+      const int cx = fxs[c] - lo - x0;
       for (int a = threadIdx.x / ncol; a < wy; a += nrg) {
         const double* row = win + a * wx + cx;
         double s = 0.0;
 #pragma unroll
-        for (int b = 0; b < 10; ++b) s += w[b] * row[b];
+        for (int b = 0; b < TAPS; ++b) s += w[b] * row[b];
         hs[a * n2f + c] = s;
       }
     }
@@ -521,13 +617,66 @@ sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__
     const int gq = g / m;
     const int d = bm[0] + (g - gq * m) * n_pad + bm[1] + gq;
     if (d < 0 || d >= dst_len) continue;
-    const double* col = hs + (fys[r] - 4 - y0) * n2f + c;
-    const double* w = ty + r * 10;
+    const double* col = hs + (fys[r] - lo - y0) * n2f + c;
+    const double* w = ty + r * pitch;
     double acc = 0.0;
 #pragma unroll
-    for (int a = 0; a < 10; ++a) acc += w[a] * col[a * n2f];
+    for (int a = 0; a < TAPS; ++a) acc += w[a] * col[a * n2f];
     atomicAdd(dst + d, acc);
   }
+}
+
+// Shared-memory bytes a B-mode block of the family needs for n2f and a
+// window of at most wmax x wmax samples.
+template <int TAPS>
+size_t b_smem_bytes(int n2f, int wmax) {
+  return sizeof(double) * (static_cast<size_t>(n2f) * 2 * Family<TAPS>::kPitch +
+                           static_cast<size_t>(wmax) * n2f +
+                           static_cast<size_t>(wmax) * wmax) +
+         sizeof(int) * 2 * static_cast<size_t>(n2f);
+}
+
+template <int TAPS>
+int launch_dense(const double* images, int R, int ny, int nx, const double* x,
+                 const double* y, long long nq, int n, double* out, void* stream) {
+  if (n < 0 || (n > 0 && nq % n != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (R <= 0 || nq <= 0) return static_cast<int>(cudaGetLastError());
+  constexpr int kWarpsK1 = kK1Threads / 32;
+  const long long ctiles = n > 0 ? (n + 7) / 8 : 0;
+  const long long runs = n > 0 ? ctiles * ((nq / n + 3) / 4) : (nq + 31) / 32;
+  const long long nruns = runs * R;
+  const long long blocks = (nruns + kWarpsK1 - 1) / kWarpsK1;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const bool pairs = (nx & 1) == 0 && (reinterpret_cast<uintptr_t>(images) & 15) == 0;
+  interp_dense_warp_kernel<TAPS><<<static_cast<unsigned int>(blocks), kK1Threads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      images, ny, nx, x, y, nq, n, ctiles, runs, nruns, pairs, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TAPS>
+int launch_sweep(double* dst, int dst_len, const double* combined, int K, int ny, int nx,
+                 const double* xt, const double* yt, int L, const int* ks, const int* imeta,
+                 const int* dmeta, const int* tiles, int ntiles, double inv_scale,
+                 double off_grid, int mode, int n_pad, int n2f, int wmax,
+                 unsigned long long* l2_tiles, void* stream) {
+  if (ntiles <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0) {
+    cudaFuncSetAttribute(sweep_pool_kernel<TAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kPoolWindowBytes);
+    sweep_pool_kernel<TAPS><<<ntiles, kThreads, kPoolWindowBytes, s>>>(
+        dst, dst_len, combined, K, ny, nx, xt, yt, L, ks, imeta, dmeta, tiles, inv_scale,
+        off_grid, l2_tiles);
+  } else {
+    const size_t smem = b_smem_bytes<TAPS>(n2f, wmax);
+    cudaFuncSetAttribute(sweep_b_kernel<TAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    sweep_b_kernel<TAPS><<<ntiles, kThreads, smem, s>>>(dst, dst_len, combined, K, ny, nx, xt,
+                                                        yt, L, ks, imeta, dmeta, tiles,
+                                                        inv_scale, off_grid, n_pad, n2f, wmax);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -541,56 +690,49 @@ extern "C" {
 // (cudaErrorInvalidValue for a bad n or more than 2^31 - 1 blocks).
 int interp_d5512_dense(const double* images, int R, int ny, int nx, const double* x,
                        const double* y, long long nq, int n, double* out, void* stream) {
-  if (n < 0 || (n > 0 && nq % n != 0)) return static_cast<int>(cudaErrorInvalidValue);
-  if (R <= 0 || nq <= 0) return static_cast<int>(cudaGetLastError());
-  constexpr int kWarpsK1 = kK1Threads / 32;
-  const long long ctiles = n > 0 ? (n + 7) / 8 : 0;
-  const long long runs = n > 0 ? ctiles * ((nq / n + 3) / 4) : (nq + 31) / 32;
-  const long long nruns = runs * R;
-  const long long blocks = (nruns + kWarpsK1 - 1) / kWarpsK1;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const bool pairs = (nx & 1) == 0 && (reinterpret_cast<uintptr_t>(images) & 15) == 0;
-  interp_dense_warp_kernel<<<static_cast<unsigned int>(blocks), kK1Threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      images, ny, nx, x, y, nq, n, ctiles, runs, nruns, pairs, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dense<10>(images, R, ny, nx, x, y, nq, n, out, stream);
 }
 
-// Shared-memory bytes a B-mode block needs for n2f and a window of at most
-// wmax x wmax samples.
-size_t sweep_b_smem_bytes(int n2f, int wmax) {
-  return sizeof(double) * (static_cast<size_t>(n2f) * 20 + static_cast<size_t>(wmax) * n2f +
-                           static_cast<size_t>(wmax) * wmax) +
-         sizeof(int) * 2 * static_cast<size_t>(n2f);
+// The same with the 8-tap G4460 family.
+int interp_g4460_dense(const double* images, int R, int ny, int nx, const double* x,
+                       const double* y, long long nq, int n, double* out, void* stream) {
+  return launch_dense<8>(images, R, ny, nx, x, y, nq, n, out, stream);
 }
 
 // dst (dst_len,) f64, updated in place; combined (K, ny, nx) f64; xt / yt (L,)
 // f64; ks (nrows,) int32; imeta (nrows, 5) int32; dmeta (nrows, 5) in mode 0
 // (pool) or (nrows, 4) in mode 1 (B), int32; tiles (ntiles, 5) int32, one
 // block each; l2_tiles one counter on the device (mode 0).  Mode 1 needs
-// n_pad, n2f and wmax.  Returns cudaGetLastError() after the launch.
+// n_pad, n2f and wmax (interp_cuda.b_window).  Returns cudaGetLastError()
+// after the launch.
 int sweep_d5512_scatter(double* dst, int dst_len, const double* combined, int K, int ny,
                         int nx, const double* xt, const double* yt, int L, const int* ks,
                         const int* imeta, const int* dmeta, const int* tiles, int ntiles,
                         double inv_scale, double off_grid, int mode, int n_pad, int n2f,
                         int wmax, unsigned long long* l2_tiles, void* stream) {
-  if (ntiles <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 0) {
-    cudaFuncSetAttribute(sweep_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kPoolWindowBytes);
-    sweep_pool_kernel<<<ntiles, kThreads, kPoolWindowBytes, s>>>(
-        dst, dst_len, combined, K, ny, nx, xt, yt, L, ks, imeta, dmeta, tiles, inv_scale,
-        off_grid, l2_tiles);
-  } else {
-    const size_t smem = sweep_b_smem_bytes(n2f, wmax);
-    cudaFuncSetAttribute(sweep_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    sweep_b_kernel<<<ntiles, kThreads, smem, s>>>(dst, dst_len, combined, K, ny, nx, xt, yt, L,
-                                                  ks, imeta, dmeta, tiles, inv_scale, off_grid,
-                                                  n_pad, n2f, wmax);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_sweep<10>(dst, dst_len, combined, K, ny, nx, xt, yt, L, ks, imeta, dmeta,
+                          tiles, ntiles, inv_scale, off_grid, mode, n_pad, n2f, wmax,
+                          l2_tiles, stream);
+}
+
+// The same with the 8-tap G4460 family.
+int sweep_g4460_scatter(double* dst, int dst_len, const double* combined, int K, int ny,
+                        int nx, const double* xt, const double* yt, int L, const int* ks,
+                        const int* imeta, const int* dmeta, const int* tiles, int ntiles,
+                        double inv_scale, double off_grid, int mode, int n_pad, int n2f,
+                        int wmax, unsigned long long* l2_tiles, void* stream) {
+  return launch_sweep<8>(dst, dst_len, combined, K, ny, nx, xt, yt, L, ks, imeta, dmeta,
+                         tiles, ntiles, inv_scale, off_grid, mode, n_pad, n2f, wmax,
+                         l2_tiles, stream);
+}
+
+// Shared-memory bytes of a B-mode block of the family with `taps` taps (10:
+// D5512, 8: G4460) for n2f and a window of at most wmax x wmax samples; 0
+// for another tap count.
+size_t interp_b_smem_bytes(int taps, int n2f, int wmax) {
+  if (taps == 10) return b_smem_bytes<10>(n2f, wmax);
+  if (taps == 8) return b_smem_bytes<8>(n2f, wmax);
+  return 0;
 }
 
 }  // extern "C"

@@ -34,18 +34,19 @@ from . import interp_cuda
 
 
 def _sweep(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scale, off_grid,
-           mode, n_pad=0, n2f=0):
+           mode, n_pad=0, n2f=0, kern="D5512"):
     if combined.is_cuda:
-        fn = interp_cuda.sweep_d5512_scatter
+        fn = interp_cuda.sweep_scatter
     elif combined.device.type == "cpu":
-        fn = interp_cuda.sweep_d5512_scatter_plain
+        fn = interp_cuda.sweep_scatter_plain
     else:
         raise ValueError(f"sweep: unsupported device {combined.device}")
     return fn(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scale, off_grid,
-              mode, n_pad, n2f)
+              mode, n_pad, n2f, kern)
 
 
-def sweep_pool(pool, combined, xt, yt, ks, imeta, pmeta, tiles, inv_scale, off_grid):
+def sweep_pool(pool, combined, xt, yt, ks, imeta, pmeta, tiles, inv_scale, off_grid,
+               kern: str = "D5512"):
     """
     Fused sweep over POOL rectangles (contract of the JAX package's
     ``sweep_pool_scan``): query j of row r compares table entries
@@ -57,14 +58,15 @@ def sweep_pool(pool, combined, xt, yt, ks, imeta, pmeta, tiles, inv_scale, off_g
     pool (P,) f64, updated in place; combined (K, ny, nx) f64; xt, yt (L,)
     f64; ks (..., ) int32; imeta (..., 5) int32 rows [i1_start, i2_start,
     w2, off, nval]; pmeta (..., 5) int32 rows [dst_base0, w2, stride, off,
-    nval]; tiles (T, 5) int32, ``interp_cuda.sweep_tiles(imeta, 0)``.
+    nval]; tiles (T, 5) int32, ``interp_cuda.sweep_tiles(imeta, 0)``;
+    `kern` the interpolation family (PSFINTERP).
     """
     return _sweep(pool, combined, xt, yt, ks, imeta, pmeta, tiles, inv_scale,
-                  off_grid, 0)
+                  off_grid, 0, kern=kern)
 
 
 def sweep_b(Bflat, combined, xt, yt, ks, imeta, bmeta, tiles, inv_scale, off_grid,
-            n_pad: int, n2f: int):
+            n_pad: int, n2f: int, kern: str = "D5512"):
     """
     Fused sweep over -B/2 rectangles (contract of ``sweep_b_scan``): as
     :func:`sweep_pool` with w2 == m == n2f**2, the value landing at
@@ -77,7 +79,7 @@ def sweep_b(Bflat, combined, xt, yt, ks, imeta, bmeta, tiles, inv_scale, off_gri
     rows [dst_base, col0, off, nval].
     """
     return _sweep(Bflat, combined, xt, yt, ks, imeta, bmeta, tiles, inv_scale,
-                  off_grid, 1, n_pad, n2f)
+                  off_grid, 1, n_pad, n2f, kern)
 
 
 def scatter_pool_constant(pool, consts, meta, bucket: int):

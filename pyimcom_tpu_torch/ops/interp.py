@@ -1,18 +1,21 @@
 """
-D5512 separable polynomial interpolation on PyTorch.
+Separable polynomial interpolation (D5512 and G4460) on PyTorch.
 
 Counterpart of pyimcom_tpu/ops/interp.py.  The weights in each direction
 are a fixed degree-9 polynomial of the fractional phase fh = x - floor(x) -
-0.5, split into even and odd parts; interpolation contracts the 10x10 pixel
-patch around each query with the row and column weights.  Queries whose
-patch would leave the grid (valid iff 4 <= floor(q) < n - 5) return 0.
+0.5, split into even and odd parts; interpolation contracts the k x k pixel
+patch around each query with the row and column weights.  Two families are
+registered (KERNEL_FAMILIES): D5512, 10 taps whose patch starts at xi - 4
+(valid iff 4 <= floor(q) < n - 5), and the faster G4460, 8 taps from xi - 3
+(valid iff 3 <= floor(q) < n - 4).  Queries whose patch would leave the
+grid return 0.
 
 The gather forms (:func:`interp2d`, :func:`interp2d_stack`,
 :func:`grid_interp`) are the contract and run in plain PyTorch.  The dense
 entry :func:`interp2d_dense` -- the contract of the JAX package's TPU
-kernel -- launches the hand-written CUDA kernel on a CUDA tensor and the
-plain gather on a CPU tensor (ops/interp_cuda.py).  Only the D5512 family is ported; the
-JAX package's banded-weight forms are a TPU workaround and are not.
+kernel -- launches the family's hand-written CUDA kernel on a CUDA tensor
+and the plain gather on a CPU tensor (ops/interp_cuda.py).  The JAX
+package's banded-weight forms are a TPU workaround and are not ported.
 """
 
 from __future__ import annotations
@@ -50,27 +53,57 @@ D5512_ODD = np.array([
      +8.993141455798455697e-01, -1.213035309579723942e+00],
 ])
 
-KERNEL_SIZE = 10
-_LO = 4            # the patch starts at xi - 4
-_HI_MARGIN = 5     # valid iff xi <= ngx - 6, i.e. xi < ngx - 5
+# G4460: 8x8 footprint, the JAX package's L2-optimal band-limited design
+# (pyimcom_tpu/ops/interp.py:99-118).  Row k gives taps w[k] and w[7-k].
+G4460_EVEN = np.array([
+    [-1.945235823911159925e-05, +1.055874006170703754e-03, -8.118995675262492134e-03,
+     +1.453840359289597893e-02, -3.143522062829661335e-03],
+    [+8.999088401166260235e-05, -5.148137838987351493e-03, +6.069481712095783216e-02,
+     -1.235960532055178779e-01, +2.718540716184886588e-02],
+    [-1.540666237308310749e-04, +9.123606051920359755e-03, -1.334507380042637137e-01,
+     +5.336865231190287551e-01, -1.252224819511615628e-01],
+    [+8.351472709485021652e-05, -5.031103870555608815e-03, +8.087359556892606549e-02,
+     -4.246267565082386120e-01, +6.011801467479378491e-01],
+])
+G4460_ODD = np.array([
+    [+7.260754694387638895e-06, -2.904202176384821071e-04, +2.238241587784505285e-03,
+     -4.005111027206044276e-03, +8.423052633873124011e-04],
+    [-4.631632696889089514e-05, +1.991059241797971720e-03, -2.378440273076087505e-02,
+     +4.853753882315355733e-02, -1.053588105750352319e-02],
+    [+1.308916996808606444e-04, -5.896228276277161624e-03, +8.761981577498251239e-02,
+     -3.533315658835169404e-01, +8.255813013281140811e-02],
+    [-2.118650110726590574e-04, +9.766034727710315444e-03, -1.596037936464457796e-01,
+     +8.453409395243187685e-01, -1.200891120242346455e+00],
+])
 
-# queries per gather chunk: bounds the (N, 10, 10) patch temporary to
+KERNEL_SIZE = 10
+_LO = 4            # D5512: the patch starts at xi - 4
+_HI_MARGIN = 5     # D5512: valid iff xi <= ngx - 6, i.e. xi < ngx - 5
+
+# registry: kern -> (EVEN, ODD, size, lo, hi_margin); the patch spans
+# [xi - lo, xi - lo + size), and a query is valid iff lo <= xi < ng - hi_margin
+KERNEL_FAMILIES = {
+    "D5512": (D5512_EVEN, D5512_ODD, 10, 4, 5),
+    "G4460": (G4460_EVEN, G4460_ODD, 8, 3, 4),
+}
+
+# queries per gather chunk: bounds the (N, k, k) patch temporary to
 # 2**15 * 100 doubles
 _CHUNK = 1 << 15
 
 
 def check_kern(kern: str) -> None:
-    """Only the D5512 family is ported; any other raises."""
-    if kern != "D5512":
-        raise NotImplementedError(
-            f"interpolation kernel {kern!r} is not ported to pyimcom_tpu_torch "
-            f"(only 'D5512'; G4460 is listed in ROADMAP.md)")
+    """Raise ValueError for an interpolation family outside KERNEL_FAMILIES."""
+    if kern not in KERNEL_FAMILIES:
+        raise ValueError(f"unknown interpolation kernel {kern!r}; choose from "
+                         f"{sorted(KERNEL_FAMILIES)}")
 
 
-def kernel_weights(fh: torch.Tensor) -> torch.Tensor:
-    """D5512 weights (..., 10) for the fractional phase fh (...,)."""
-    even = torch.as_tensor(D5512_EVEN, dtype=fh.dtype, device=fh.device)
-    odd = torch.as_tensor(D5512_ODD, dtype=fh.dtype, device=fh.device)
+def kernel_weights(fh: torch.Tensor, kern: str = "D5512") -> torch.Tensor:
+    """The family's weights (..., size) for the fractional phase fh (...,)."""
+    even_np, odd_np = KERNEL_FAMILIES[kern][:2]
+    even = torch.as_tensor(even_np, dtype=fh.dtype, device=fh.device)
+    odd = torch.as_tensor(odd_np, dtype=fh.dtype, device=fh.device)
     fh2 = fh * fh
     p = torch.stack([fh2 ** 4, fh2 ** 3, fh2 ** 2, fh2, torch.ones_like(fh2)],
                     dim=-1)
@@ -79,34 +112,36 @@ def kernel_weights(fh: torch.Tensor) -> torch.Tensor:
     return torch.cat([e + o, (e - o).flip(-1)], dim=-1)
 
 
-def _split_query(x: torch.Tensor, ng: int):
+def _split_query(x: torch.Tensor, ng: int, kern: str = "D5512"):
     """Clamped integer base index, fractional phase and validity mask (a NaN
     query is invalid, and its base index the lowest)."""
+    lo, hi = KERNEL_FAMILIES[kern][3:]
     xf = torch.floor(x)
-    valid = (xf >= _LO) & (xf < ng - _HI_MARGIN)
+    valid = (xf >= lo) & (xf < ng - hi)
     fh = x - xf - 0.5
-    xi = xf.nan_to_num(nan=float(_LO)).clamp(_LO, ng - _HI_MARGIN - 1).to(torch.int64)
+    xi = xf.nan_to_num(nan=float(lo)).clamp(lo, ng - hi - 1).to(torch.int64)
     return xi, fh, valid
 
 
 def _gather_interp(flat: torch.Tensor, base: torch.Tensor, ny: int, nx: int,
-                   x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+                   x: torch.Tensor, y: torch.Tensor, kern: str) -> torch.Tensor:
     """Interpolate at N points, point n reading the (ny, nx) image that starts
-    at flat[base[n]]: a gather of the ten 10-wide patch rows and two
+    at flat[base[n]]: a gather of the family's patch rows and two
     contractions."""
+    size, lo = KERNEL_FAMILIES[kern][2:4]
     out = torch.zeros(x.shape, dtype=flat.dtype, device=flat.device)
     flat = flat.contiguous()
-    # every 10-wide run of the flat buffer, as rows of a strided view
-    runs = flat.as_strided((flat.numel() - KERNEL_SIZE + 1, KERNEL_SIZE), (1, 1))
-    row_offs = torch.arange(KERNEL_SIZE, device=flat.device) * nx
+    # every size-wide run of the flat buffer, as rows of a strided view
+    runs = flat.as_strided((flat.numel() - size + 1, size), (1, 1))
+    row_offs = torch.arange(size, device=flat.device) * nx
     for s in range(0, x.shape[0], _CHUNK):
         sl = slice(s, s + _CHUNK)
-        xi, fhx, vx = _split_query(x[sl], nx)
-        yi, fhy, vy = _split_query(y[sl], ny)
-        wx = kernel_weights(fhx)
-        wy = kernel_weights(fhy)
-        start = base[sl] + (yi - _LO) * nx + (xi - _LO)
-        patch = runs[start[:, None] + row_offs]                # (n, 10, 10)
+        xi, fhx, vx = _split_query(x[sl], nx, kern)
+        yi, fhy, vy = _split_query(y[sl], ny, kern)
+        wx = kernel_weights(fhx, kern)
+        wy = kernel_weights(fhy, kern)
+        start = base[sl] + (yi - lo) * nx + (xi - lo)
+        patch = runs[start[:, None] + row_offs]                # (n, size, size)
         val = (torch.bmm(patch, wx[:, :, None])[..., 0] * wy).sum(dim=-1)
         out[sl] = torch.where(vx & vy, val, torch.zeros_like(val))
     return out
@@ -118,7 +153,7 @@ def interp2d(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     check_kern(kern)
     ny, nx = image.shape
     base = torch.zeros(x.shape, dtype=torch.int64, device=image.device)
-    return _gather_interp(image.reshape(-1), base, ny, nx, x, y)
+    return _gather_interp(image.reshape(-1), base, ny, nx, x, y, kern)
 
 
 def interp2d_stack(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -127,7 +162,7 @@ def interp2d_stack(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     check_kern(kern)
     _K, ny, nx = images.shape
     base = which.to(torch.int64) * (ny * nx)
-    return _gather_interp(images.reshape(-1), base, ny, nx, x, y)
+    return _gather_interp(images.reshape(-1), base, ny, nx, x, y, kern)
 
 
 def grid_interp(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -135,20 +170,20 @@ def grid_interp(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     """Separable-grid interpolation: image (ny, nx), x (P, nxo), y (P, nyo)
     -> (P, nyo, nxo), evaluated on the outer product grid of each row."""
     check_kern(kern)
+    size, lo = KERNEL_FAMILIES[kern][2:4]
     ny, nx = image.shape
     P, nxo = x.shape
     nyo = y.shape[1]
-    xi, fhx, vx = _split_query(x, nx)
-    yi, fhy, vy = _split_query(y, ny)
-    wx = kernel_weights(fhx) * vx[..., None]      # invalid -> zero weights
-    wy = kernel_weights(fhy) * vy[..., None]
-    offs = torch.arange(KERNEL_SIZE, device=image.device) - _LO
-    rows = image[yi[:, :, None] + offs]                             # (P, nyo, 10, nx)
+    xi, fhx, vx = _split_query(x, nx, kern)
+    yi, fhy, vy = _split_query(y, ny, kern)
+    wx = kernel_weights(fhx, kern) * vx[..., None]      # invalid -> zero weights
+    wy = kernel_weights(fhy, kern) * vy[..., None]
+    offs = torch.arange(size, device=image.device) - lo
+    rows = image[yi[:, :, None] + offs]                             # (P, nyo, size, nx)
     H = torch.einsum("pyin,pyi->pyn", rows, wy)                      # (P, nyo, nx)
-    ix = (xi[:, :, None] + offs).reshape(P, 1, nxo * KERNEL_SIZE)
-    cols = torch.gather(H, 2, ix.expand(P, nyo, nxo * KERNEL_SIZE))
-    return torch.einsum("pyxj,pxj->pyx",
-                        cols.reshape(P, nyo, nxo, KERNEL_SIZE), wx)
+    ix = (xi[:, :, None] + offs).reshape(P, 1, nxo * size)
+    cols = torch.gather(H, 2, ix.expand(P, nyo, nxo * size))
+    return torch.einsum("pyxj,pxj->pyx", cols.reshape(P, nyo, nxo, size), wx)
 
 
 def interp2d_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -158,17 +193,17 @@ def interp2d_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     nx), x, y (R, Nq) -> (R, Nq); 0 off-grid.
 
     The contract of the JAX package's TPU interpolation kernel, without its
-    (8, 128) alignment rule.  A CUDA tensor launches kernel K1;
-    a CPU tensor runs its plain gather version.  `lattice_row` > 0 tells K1
-    that each image's queries are a lattice in row-major order with rows of
-    that many points (it groups neighbouring points; the result is the
-    same).
+    (8, 128) alignment rule.  A CUDA tensor launches the family's kernel K1
+    (10 or 8 taps); a CPU tensor runs its plain gather version.
+    `lattice_row` > 0 tells K1 that each image's queries are a lattice in
+    row-major order with rows of that many points (it groups neighbouring
+    points; the result is the same).
     """
     from . import interp_cuda
 
     check_kern(kern)
     if images.is_cuda:
-        return interp_cuda.interp_d5512_dense(images, x, y, lattice_row=lattice_row)
+        return interp_cuda.interp_dense(images, x, y, kern, lattice_row=lattice_row)
     if images.device.type != "cpu":
         raise ValueError(f"interp2d_dense: unsupported device {images.device}")
-    return interp_cuda.interp_d5512_dense_plain(images, x, y)
+    return interp_cuda.interp_dense_plain(images, x, y, kern)

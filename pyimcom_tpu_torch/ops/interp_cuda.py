@@ -1,29 +1,36 @@
 """
-The port's hand-written Hopper kernels for D5512 interpolation, their
-ctypes wrappers, and their plain PyTorch versions.
+The port's hand-written Hopper kernels for D5512 and G4460 interpolation,
+their ctypes wrappers, and their plain PyTorch versions.
 
-K1 ``interp_d5512_dense`` replaces the JAX package's TPU interpolation
-kernel (R images at R x Nq scattered points; its dense contract is
-``pyimcom_tpu.ops.interp.interp2d_dense``).  It serves the PSF resampling
+K1 ``interp_dense`` (launch count ``interp_d5512_dense``) replaces the JAX
+package's TPU interpolation kernel (R images at R x Nq scattered points;
+its dense contract is ``pyimcom_tpu.ops.interp.interp2d_dense``).  It serves the PSF resampling
 and the star and galaxy injection, whose queries are lattices in row-major
 order: a warp takes a run of 32 queries (8 x 4 neighbouring lattice points
 where the caller gives the lattice's row length, else 32 consecutive
 queries), a lane one query, and reads each patch row in 16-byte pairs
 through L1 / L2.
 
-K2 ``sweep_d5512_scatter`` replaces that kernel's outer-difference-query
-variant, fused with the scatters of ``pyimcom_tpu/ops/assemble.py``'s
+K2 ``sweep_scatter`` (``sweep_d5512_scatter.pool`` / ``.B``) replaces that
+kernel's outer-difference-query variant, fused with the scatters of
+``pyimcom_tpu/ops/assemble.py``'s
 ``sweep_pool_scan`` (mode 0, the submatrix pool) and ``sweep_b_scan``
 (mode 1, -B/2): each query is formed from the f64 coordinate tables,
 interpolated and added where it lands.
 
-Both live in ``csrc/interp_d5512.cu`` (its header names the TPU kernel
+Each has a G4460 form, the same template with an 8 x 8 patch, taken with
+``kern="G4460"``: K1 ``interp_g4460_dense`` (the JAX package's XLA
+``interp2d_dense(..., "G4460")``: the wing resample of split-PSF wing
+subtraction and the PSF sampling of PSFINTERP "G4460" blocks) and K2
+``sweep_g4460_scatter`` (the sweep of those blocks).
+
+All live in ``csrc/interp_d5512.cu`` (its header names the TPU kernel
 file and functions they replace, what bounds them on the card and what the
 design does about it), built by ``nvcc`` at first use (``_build.py``).  A
 wrapper takes CUDA tensors only and raises on anything else; it launches on
 the current stream, allocates its outputs with torch, checks the launch,
 and counts it in ``launches``.  The plain versions compute the same
-function with a gather of the 10x10 patches, two contractions and
+function with a gather of the family's patches, two contractions and
 ``index_add_``; the CPU path uses them, and ``chip_smoke.py``
 holds each kernel against its plain version on the card.
 """
@@ -39,18 +46,22 @@ import torch
 from .. import _build
 from . import interp as _interp
 
+# the C entries of each family's K1 and K2
+K1 = {"D5512": "interp_d5512_dense", "G4460": "interp_g4460_dense"}
+K2 = {"D5512": "sweep_d5512_scatter", "G4460": "sweep_g4460_scatter"}
+
 # launches of each kernel since the last reset_launch_counts(); incremented
 # by the wrappers where they launch, and nowhere else (K2 by mode: its pool
 # and B forms are two kernels)
-launches = {"interp_d5512_dense": 0, "sweep_d5512_scatter.pool": 0,
-            "sweep_d5512_scatter.B": 0}
+launches = {name: 0 for kern in K1 for name in
+            (K1[kern], f"{K2[kern]}.pool", f"{K2[kern]}.B")}
 
 _p, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-_SIGNATURES = {
-    "interp_d5512_dense": (_p, _i, _i, _i, _p, _p, _ll, _i, _p, _p),
-    "sweep_d5512_scatter": (_p, _i, _p, _i, _i, _i, _p, _p, _i, _p, _p, _p, _p, _i,
-                            _d, _d, _i, _i, _i, _i, _p, _p),
-}
+_K1_ARGS = (_p, _i, _i, _i, _p, _p, _ll, _i, _p, _p)
+_K2_ARGS = (_p, _i, _p, _i, _i, _i, _p, _p, _i, _p, _p, _p, _p, _i, _d, _d, _i, _i, _i, _i,
+            _p, _p)
+_SIGNATURES = {**{name: _K1_ARGS for name in K1.values()},
+               **{name: _K2_ARGS for name in K2.values()}}
 
 
 def reset_launch_counts() -> None:
@@ -91,10 +102,11 @@ def _launch(name: str, count: str, device: torch.device, *args) -> None:
 # K1: dense scattered-point interpolation
 # --------------------------------------------------------------------------
 
-def interp_d5512_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
-                       lattice_row: int = 0) -> torch.Tensor:
+def interp_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                 kern: str = "D5512", *, lattice_row: int = 0) -> torch.Tensor:
     """
-    K1: images (R, ny, nx), x, y (R, Nq), f64 CUDA -> (R, Nq), 0 off-grid.
+    K1 of the family `kern`: images (R, ny, nx), x, y (R, Nq), f64 CUDA ->
+    (R, Nq), 0 off-grid.
 
     A warp takes a run of 32 queries of one image: 32 consecutive ones, or,
     where the caller says that each image's queries are a lattice in
@@ -102,6 +114,7 @@ def interp_d5512_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *
     Nq), 8 x 4 neighbouring points of it.  The result does not depend on
     the layout.
     """
+    _interp.check_kern(kern)
     dev = images.device
     _check(images, "images", torch.float64, dev, 3)
     R, ny, nx = images.shape
@@ -118,19 +131,18 @@ def interp_d5512_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *
     out = torch.empty(x.shape, dtype=torch.float64, device=dev)
     if out.numel() == 0:
         return out
-    _launch("interp_d5512_dense", "interp_d5512_dense", dev, images.data_ptr(), R, ny, nx,
+    _launch(K1[kern], K1[kern], dev, images.data_ptr(), R, ny, nx,
             x.data_ptr(), y.data_ptr(), x.shape[1], int(lattice_row), out.data_ptr())
     return out
 
 
-def interp_d5512_dense_plain(images: torch.Tensor, x: torch.Tensor,
-                             y: torch.Tensor) -> torch.Tensor:
+def interp_dense_plain(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                       kern: str = "D5512") -> torch.Tensor:
     """Plain version of K1 (same function, any device)."""
     R, Nq = x.shape
     which = torch.arange(R, device=images.device).repeat_interleave(Nq)
     return _interp.interp2d_stack(images, x.reshape(-1), y.reshape(-1),
-                                  which).reshape(R, Nq)
-
+                                  which, kern).reshape(R, Nq)
 
 
 # --------------------------------------------------------------------------
@@ -144,8 +156,6 @@ TILE_QUERIES = 1024
 TILE_COLS = 32
 # shared memory a block may use on the card (sm_90)
 _SMEM_LIMIT = 232448
-# the launch count of each mode's kernel
-SWEEP_KERNELS = {0: "sweep_d5512_scatter.pool", 1: "sweep_d5512_scatter.B"}
 _LATTICE_ERROR = ("the output coordinates of a B row are not an exact {n2f} x {n2f} "
                   "integer lattice inside the coordinate tables (or its w2 is not "
                   "n2f**2); K2's B mode needs one")
@@ -202,10 +212,26 @@ def sweep_tiles(imeta, mode: int, xt=None, yt=None, n2f: int = 0) -> np.ndarray:
     return tiles.astype(np.int32).reshape(-1, 5)
 
 
-def b_window(n2f: int, inv_scale: float) -> int:
+def sweep_kernel(kern: str, mode: int) -> str:
+    """The launch count's name of K2 of family `kern` in `mode`."""
+    return f"{K2[kern]}.{'pool' if mode == 0 else 'B'}"
+
+
+def b_window(n2f: int, inv_scale: float, kern: str = "D5512") -> int:
     """The widest window (samples per axis) that the query floors of one
-    n2f-point lattice axis can span, with the 10-tap guard."""
-    return int(math.floor((n2f - 1) * abs(inv_scale))) + 12
+    n2f-point lattice axis can span: they differ by at most
+    floor((n2f - 1) |inv_scale|) + 2, rounding included, and the family's
+    taps add their width."""
+    return int(math.floor((n2f - 1) * abs(inv_scale))) + 2 + _interp.KERNEL_FAMILIES[kern][2]
+
+
+def b_smem_bytes(n2f: int, wmax: int, kern: str = "D5512") -> int:
+    """Shared memory of a B-mode block of the family for n2f and a window
+    of at most wmax x wmax samples, as the kernel's library sizes it
+    (csrc/interp_d5512.cu, b_smem_bytes)."""
+    fn = _build.library("interp_d5512").interp_b_smem_bytes
+    fn.argtypes, fn.restype = (_i, _i, _i), ctypes.c_size_t
+    return int(fn(_interp.KERNEL_FAMILIES[kern][2], n2f, wmax))
 
 
 def _sweep_args(ks, imeta, dmeta, tiles, mode, n_pad, n2f):
@@ -268,12 +294,12 @@ def reset_l2_tiles() -> None:
         c.zero_()
 
 
-def sweep_d5512_scatter(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scale,
-                        off_grid, mode: int, n_pad: int = 0,
-                        n2f: int = 0) -> torch.Tensor:
+def sweep_scatter(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scale,
+                  off_grid, mode: int, n_pad: int = 0, n2f: int = 0,
+                  kern: str = "D5512") -> torch.Tensor:
     """
-    K2: add the interpolated overlap value of every query into `dst` (in
-    place; returned).
+    K2 of the family `kern`: add the interpolated overlap value of every
+    query into `dst` (in place; returned).
 
     dst (P,) f64; combined (K, ny, nx) f64; xt, yt (L,) f64; ks (..., )
     int32 image per row; imeta (..., 5) int32 rows [i1_start, i2_start, w2,
@@ -287,6 +313,7 @@ def sweep_d5512_scatter(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scal
     atomics, in no fixed order: where no destination receives two queries
     (as on the coadd's path) its result does not depend on it.
     """
+    _interp.check_kern(kern)
     dev = dst.device
     ks, imeta, dmeta, tiles = _sweep_args(ks, imeta, dmeta, tiles, mode, n_pad, n2f)
     _check(dst, "dst", torch.float64, dev, 1)
@@ -302,15 +329,15 @@ def sweep_d5512_scatter(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scal
                          "must hold fewer than 2**31 entries")
     wmax = 0
     if mode == 1:
-        wmax = b_window(n2f, inv_scale)
-        smem = 8 * (20 * n2f + wmax * n2f + wmax * wmax) + 8 * n2f
+        wmax = b_window(n2f, inv_scale, kern)
+        smem = b_smem_bytes(n2f, wmax, kern)
         if smem > _SMEM_LIMIT:
             raise ValueError(f"B mode: n2f {n2f} at {inv_scale} samples per output "
                              f"pixel needs {smem} bytes of shared memory a block")
     if tiles.shape[0] == 0:
         return dst
     K, ny, nx = combined.shape
-    _launch("sweep_d5512_scatter", SWEEP_KERNELS[mode], dev, dst.data_ptr(), dst.shape[0],
+    _launch(K2[kern], sweep_kernel(kern, mode), dev, dst.data_ptr(), dst.shape[0],
             combined.data_ptr(), K, ny, nx, xt.data_ptr(), yt.data_ptr(),
             xt.shape[0], ks.data_ptr(), imeta.data_ptr(), dmeta.data_ptr(),
             tiles.data_ptr(), tiles.shape[0], float(inv_scale), float(off_grid),
@@ -318,9 +345,9 @@ def sweep_d5512_scatter(dst, combined, xt, yt, ks, imeta, dmeta, tiles, inv_scal
     return dst
 
 
-def sweep_d5512_scatter_plain(dst, combined, xt, yt, ks, imeta, dmeta, tiles,
-                              inv_scale, off_grid, mode: int, n_pad: int = 0,
-                              n2f: int = 0) -> torch.Tensor:
+def sweep_scatter_plain(dst, combined, xt, yt, ks, imeta, dmeta, tiles,
+                        inv_scale, off_grid, mode: int, n_pad: int = 0,
+                        n2f: int = 0, kern: str = "D5512") -> torch.Tensor:
     """Plain version of K2 (same function and arguments, any device): the
     queries of every tile, interpolated and added with ``index_add_``;
     updates dst in place."""
@@ -369,5 +396,5 @@ def sweep_d5512_scatter_plain(dst, combined, xt, yt, ks, imeta, dmeta, tiles,
             x2, y2 = xt[i2s] + v % n2f, yt[i2s] + v // n2f
         qx = (xt[i1] - x2) * inv_scale + off_grid
         qy = (yt[i1] - y2) * inv_scale + off_grid
-        dst.index_add_(0, d, _interp.interp2d_stack(combined, qx, qy, k))
+        dst.index_add_(0, d, _interp.interp2d_stack(combined, qx, qy, k, kern))
     return dst

@@ -372,7 +372,7 @@ def test_bench_plan_tiles_match_rows(bench_plan, mode):
     want = _sweep_by_rows(torch.zeros(size, dtype=torch.float64), _t(combined), xt, yt,
                           _t(ks), _t(imeta), _t(dmeta), p["inv_scale"], p["off_grid"],
                           mode, p["n_pad"], m)
-    got = interp_cuda.sweep_d5512_scatter_plain(
+    got = interp_cuda.sweep_scatter_plain(
         torch.zeros(size, dtype=torch.float64), _t(combined), xt, yt, _t(ks), _t(imeta),
         _t(dmeta), _t(interp_cuda.sweep_tiles(imeta, mode, p["xt"], p["yt"], p["n2f"])),
         p["inv_scale"], p["off_grid"], mode, p["n_pad"], p["n2f"])

@@ -6,9 +6,9 @@ cstar14, NPIXPSF 16, INPAD 0.3, FLATPEN 1e-7) for one full 2x2 group
 (STOP 4); the reference runs its device group engine
 (PYIMCOM_DEVICE_ASSEMBLY=1) on one device.  The outputs are compared as
 test_device_assembly._compare_outputs does: the science cube to 1e-8 of its
-scale, the quantized maps to 1 LSB, INWEIGHT to 1e-8.  The port reads the
-input-layer cache that the reference run wrote, so star injection (tested in
-test_torch_layer.py) is paid once.
+scale, the quantized maps to 1 LSB, INWEIGHT to 1e-8.  Both read the
+input-layer cache that the reference's layer wrapper wrote when the survey
+was built, so star injection (tested in test_torch_layer.py) is paid once.
 
 The other LAKERNELs are held against the reference in the same way by
 :func:`port_vs_reference`, one solver family per test file.
@@ -31,9 +31,14 @@ def small_survey(tmp_path_factory):
     """The reduced survey, built once for the whole session: the port's
     block tests of every solver family read it (each writes its own
     outputs), so pytest-xdist workers share one directory under the
-    session's temporary root, and a file lock lets one of them build it."""
+    session's temporary root, and a file lock lets one of them build it.
+    Under the same lock the reference's layer wrapper builds its input-layer
+    cache, which every block on the survey then loads: built by the
+    reference Block of whichever test came first, the same cubes were built
+    several times at once by the workers."""
     from filelock import FileLock
 
+    from pyimcom_tpu.layer_wrapper import build_all_layers
     from survey_fixture import build_survey
 
     base = tmp_path_factory.getbasetemp()
@@ -43,9 +48,11 @@ def small_survey(tmp_path_factory):
     with FileLock(str(root) + ".lock"):
         if (root / "cfg.json").exists():
             return json.loads((root / "cfg.json").read_text())
-        return build_survey(root, n_obs=8, extrainput=["cstar14"],
-                            config_overrides={"NPIXPSF": 16, "INPAD": 0.3,
-                                              "FLATPEN": 1e-7})
+        cfg = build_survey(root, n_obs=8, extrainput=["cstar14"],
+                           config_overrides={"NPIXPSF": 16, "INPAD": 0.3,
+                                             "FLATPEN": 1e-7})
+        build_all_layers(cfg, nworkers=1)
+        return cfg
 
 
 def _cfg(cfg_dict, suffix, stop=4, **over):
@@ -108,7 +115,10 @@ def test_block_matches_reference(small_survey, monkeypatch):
     # on the CPU every interpolation takes the kernels' plain versions
     assert interp_cuda.launches == {"interp_d5512_dense": 0,
                                     "sweep_d5512_scatter.pool": 0,
-                                    "sweep_d5512_scatter.B": 0}
+                                    "sweep_d5512_scatter.B": 0,
+                                    "interp_g4460_dense": 0,
+                                    "sweep_g4460_scatter.pool": 0,
+                                    "sweep_g4460_scatter.B": 0}
     times = blk.phase_times()
     assert times["stamp.sweep"]["calls"] == 1
     assert times["stamp.sweep"]["device_ms"] is None
@@ -120,19 +130,59 @@ def test_block_matches_reference(small_survey, monkeypatch):
     assert np.all(np.isfinite(sci)) and np.abs(sci).max() > 0
 
 
+def split_psfs(cfg_dict):
+    """Split the survey's PSFs for `cfg_dict` (which sets PSFSPLIT) into
+    INLAYERCACHE.psf/ with the port's splitpsf.main, once a session (under
+    a file lock: the block tests share the survey)."""
+    from filelock import FileLock
+
+    from pyimcom_tpu_torch.config import Config
+    from pyimcom_tpu_torch.splitpsf import splitpsf
+
+    target = cfg_dict["INLAYERCACHE"] + ".psf"
+    with FileLock(target + ".lock"):
+        if not os.path.exists(os.path.join(target, "done")):
+            assert splitpsf.main(Config(dict(cfg_dict))) >= 4
+            open(os.path.join(target, "done"), "w").close()
+
+
+def same_oldcfg(out_a, out_b):
+    """The OLDCFG HDUs of two PSFSPLIT blocks: the iteration and the
+    history text, equal."""
+    from pyimcom_tpu.fitsio import fits_read
+
+    a, b = fits_read(out_a)["OLDCFG"], fits_read(out_b)["OLDCFG"]
+    assert a.header["IMSBITER"] == b.header["IMSBITER"]
+    assert [str(t) for t in a.data["text"]] == [str(t) for t in b.data["text"]]
+    return int(a.header["IMSBITER"])
+
+
 @pytest.mark.parametrize("over", [{"LAKERNEL": "Empirical", "EMPIRNQC": True},
                                   {"SOLVERPREC": "mixed"},
                                   {"PSFSPLIT": [6.0, 7.0, 1e-3]},
                                   {"PSFINTERP": "G4460"}],
                          ids=["empirnqc", "mixed", "psfsplit", "G4460"])
 def test_configs_outside_the_slice_raise(small_survey, monkeypatch, over):
-    """The configurations the port does not cover raise.  Empirical without
-    quality control (EMPIRNQC) is covered now: its case holds the port's
-    block to the reference's host solve path, its only path, at STOP 2."""
+    """The configurations the port does not cover raise: SOLVERPREC
+    "mixed".  The others are covered now, and their cases hold the port's
+    block to the reference's at STOP 2 (compare_outputs_f32): Empirical
+    without quality control (EMPIRNQC) against the reference's host solve
+    path, its only path; PSFINTERP G4460 (K1 and K2 in their 8-tap forms,
+    plain on the CPU) and an iteration-0 PSFSPLIT block (the short-range
+    PSFs of the port's split files, the doubled overlap window, OLDCFG with
+    IMSBITER 0) against its device group engine."""
     from pyimcom_tpu_torch.coadd import Block
 
     if over.get("EMPIRNQC"):
         port_vs_reference(small_survey, monkeypatch, "_empirnqc", "0", **over)
+        return
+    if "PSFINTERP" in over:
+        port_vs_reference(small_survey, monkeypatch, "_g4460", "1", **over)
+        return
+    if "PSFSPLIT" in over:
+        split_psfs(dict(small_survey, **over))
+        out_port = port_vs_reference(small_survey, monkeypatch, "_psfsplit", "1", **over)
+        assert same_oldcfg(out_port.replace("_port", "_ref"), out_port) == 0
         return
     cfg, _ = _cfg(small_survey, "_never", **over)
     with pytest.raises(NotImplementedError):

@@ -80,9 +80,9 @@ def _k1_case(cuda, images, x, y, **kw):
     images, x, y = (torch.as_tensor(np.ascontiguousarray(a), device=cuda)
                     for a in (images, x, y))
     interp_cuda.reset_launch_counts()
-    got = interp_cuda.interp_d5512_dense(images, x, y, **kw)
+    got = interp_cuda.interp_dense(images, x, y, **kw)
     assert interp_cuda.launches["interp_d5512_dense"] == 1
-    want = interp_cuda.interp_d5512_dense_plain(images, x, y)
+    want = interp_cuda.interp_dense_plain(images, x, y)
     assert interp_cuda.launches["interp_d5512_dense"] == 1
     return got, want
 
@@ -110,9 +110,9 @@ def test_k1_odd_rows_read_sample_by_sample(cuda):
     shifted = stack[1:].view(images.shape)          # 8 bytes past a 16-byte boundary
     xq, yq = torch.as_tensor(x, device=cuda), torch.as_tensor(y, device=cuda)
     interp_cuda.reset_launch_counts()
-    got = interp_cuda.interp_d5512_dense(shifted, xq, yq, lattice_row=40)
+    got = interp_cuda.interp_dense(shifted, xq, yq, lattice_row=40)
     assert interp_cuda.launches["interp_d5512_dense"] == 1
-    assert _rel(got, interp_cuda.interp_d5512_dense_plain(shifted, xq, yq)) < TOL
+    assert _rel(got, interp_cuda.interp_dense_plain(shifted, xq, yq)) < TOL
 
 
 @pytest.mark.parametrize("lattice", [False, True], ids=["runs", "lattice"])
@@ -132,7 +132,7 @@ def test_k1_no_queries_launches_nothing(cuda):
     images = torch.zeros((2, 30, 30), dtype=torch.float64, device=cuda)
     q = torch.zeros((2, 0), dtype=torch.float64, device=cuda)
     interp_cuda.reset_launch_counts()
-    assert interp_cuda.interp_d5512_dense(images, q, q).shape == (2, 0)
+    assert interp_cuda.interp_dense(images, q, q).shape == (2, 0)
     assert interp_cuda.launches["interp_d5512_dense"] == 0
 
 
@@ -156,7 +156,7 @@ def test_k1_matches_plain_and_counts_launches(cuda):
     interp_cuda.reset_launch_counts()
     got = interp.interp2d_dense(images, x, y)
     assert interp_cuda.launches["interp_d5512_dense"] == 1
-    want = interp_cuda.interp_d5512_dense_plain(images, x, y)
+    want = interp_cuda.interp_dense_plain(images, x, y)
     assert interp_cuda.launches["interp_d5512_dense"] == 1
     assert _rel(got, want) < TOL
     assert torch.equal(got == 0, want == 0)
@@ -209,13 +209,13 @@ def test_k2_matches_plain(cuda, mode, spread):
     size, args, tiles, nval = _k2_case(cuda, mode, spread)
     interp_cuda.reset_launch_counts()
     interp_cuda.reset_l2_tiles()
-    got = interp_cuda.sweep_d5512_scatter(
+    got = interp_cuda.sweep_scatter(
         torch.zeros(size, dtype=torch.float64, device=cuda), *args)
-    assert interp_cuda.launches[interp_cuda.SWEEP_KERNELS[mode]] == 1
+    assert interp_cuda.launches[interp_cuda.sweep_kernel("D5512", mode)] == 1
     l2 = interp_cuda.l2_tiles(cuda)
-    want = interp_cuda.sweep_d5512_scatter_plain(
+    want = interp_cuda.sweep_scatter_plain(
         torch.zeros(size, dtype=torch.float64, device=cuda), *args)
-    assert interp_cuda.launches[interp_cuda.SWEEP_KERNELS[mode]] == 1
+    assert interp_cuda.launches[interp_cuda.sweep_kernel("D5512", mode)] == 1
     assert int((want != 0).sum()) > int(nval.sum()) // 2
     assert _rel(got, want) < TOL
     assert (0 < l2 <= len(tiles)) if spread > 100 else (l2 == 0), (l2, len(tiles))
@@ -231,7 +231,7 @@ def test_k2_raises_on_what_it_cannot_take(cuda):
     def sweep(**over):
         a = dict(combined=combined, xt=xt, yt=yt, imeta=imeta)
         a.update(over)
-        return interp_cuda.sweep_d5512_scatter(
+        return interp_cuda.sweep_scatter(
             torch.zeros(size, dtype=torch.float64, device=cuda), a["combined"], a["xt"],
             a["yt"], ks, a["imeta"], dmeta, tiles, *rest)
 
@@ -248,11 +248,11 @@ def test_wrappers_reject_bad_inputs_on_the_card(cuda):
     images = torch.zeros((2, 20, 20), dtype=torch.float32, device=cuda)
     q = torch.zeros((2, 8), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):
-        interp_cuda.interp_d5512_dense(images, q, q)
+        interp_cuda.interp_dense(images, q, q)
     with pytest.raises(ValueError):
-        interp_cuda.interp_d5512_dense(images.double(), q.T.contiguous(), q.T.contiguous())
+        interp_cuda.interp_dense(images.double(), q.T.contiguous(), q.T.contiguous())
     with pytest.raises(ValueError, match="lattice_row"):
-        interp_cuda.interp_d5512_dense(images.double(), q, q, lattice_row=3)
+        interp_cuda.interp_dense(images.double(), q, q, lattice_row=3)
 
 
 def test_probe_kernel_builds_and_adds_one(cuda):
@@ -525,3 +525,97 @@ def test_empirical_no_qlt_block_launches_no_kernel(cuda, tmp_path):
     np.testing.assert_array_equal(np.isfinite(outs["cuda"]), fin)
     assert fin.any()
     assert _rel(torch.as_tensor(outs["cuda"][fin]), torch.as_tensor(outs["cpu"][fin])) < TOL
+
+
+# --------------------------------------------------------------------------
+# the G4460 forms: K1 and K2 with an 8 x 8 patch
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lattice", [False, True], ids=["runs", "lattice"])
+@pytest.mark.parametrize("kind", K1_SETS)
+def test_k1_g4460_matches_plain(cuda, kind, lattice):
+    """K1<8> against its plain version on the callers' query sets, in both
+    run layouts, with odd and even image rows (sample reads and 16-byte
+    pairs)."""
+    for ns in (140, 141):
+        images, x, y = k1_query_set(kind, 6, 40, ns, seed=30 + K1_SETS.index(kind))
+        images, x, y = (torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+                        for a in (images, x, y))
+        interp_cuda.reset_launch_counts()
+        got = interp.interp2d_dense(images, x, y, "G4460", lattice_row=40 * lattice)
+        assert interp_cuda.launches["interp_g4460_dense"] == 1
+        assert interp_cuda.launches["interp_d5512_dense"] == 0
+        want = interp_cuda.interp_dense_plain(images, x, y, "G4460")
+        assert int((want != 0).sum()) > 0
+        assert _rel(got, want) < TOL
+        assert torch.equal(got == 0, want == 0)
+
+
+def test_k1_g4460_valid_range_edges(cuda):
+    """Queries on both sides of each edge of G4460's valid range (3 <=
+    floor(q) < n - 4) on the card: the kernel's zeros are the plain
+    version's, so no edge query is dropped or read past the image."""
+    rng = np.random.default_rng(40)
+    for ny, nx in ((31, 29), (12, 13)):
+        images = rng.normal(size=(2, ny, nx))
+        fl_x = np.array([2, 3, 4, nx - 6, nx - 5, nx - 4, nx - 3])
+        fl_y = np.array([2, 3, 4, ny - 6, ny - 5, ny - 4, ny - 3])
+        fx, fy = (a.ravel() for a in np.meshgrid(fl_x, fl_y))
+        x = np.stack([fx + rng.uniform(0, 1, fx.size)] * 2)
+        y = np.stack([fy + rng.uniform(0, 1, fy.size)] * 2)
+        images, x, y = (torch.as_tensor(a, device=cuda) for a in (images, x, y))
+        got = interp_cuda.interp_dense(images, x, y, "G4460")
+        want = interp_cuda.interp_dense_plain(images, x, y, "G4460")
+        ok = (torch.floor(x) >= 3) & (torch.floor(x) < nx - 4) & \
+            (torch.floor(y) >= 3) & (torch.floor(y) < ny - 4)
+        assert torch.equal(want != 0, ok)
+        assert torch.equal(got == 0, want == 0)
+        assert _rel(got, want) < TOL
+
+
+@pytest.mark.parametrize("mode, spread", [(0, 20.0), (0, 120.0), (1, 20.0)],
+                         ids=["pool", "pool-l2", "B"])
+def test_k2_g4460_matches_plain(cuda, mode, spread):
+    """K2 in its G4460 form against its plain version, on the rows of
+    test_k2_matches_plain."""
+    size, args, tiles, nval = _k2_case(cuda, mode, spread)
+    interp_cuda.reset_launch_counts()
+    got = interp_cuda.sweep_scatter(torch.zeros(size, dtype=torch.float64, device=cuda),
+                                    *args, kern="G4460")
+    assert interp_cuda.launches[interp_cuda.sweep_kernel("G4460", mode)] == 1
+    assert interp_cuda.launches[interp_cuda.sweep_kernel("D5512", mode)] == 0
+    want = interp_cuda.sweep_scatter_plain(
+        torch.zeros(size, dtype=torch.float64, device=cuda), *args, kern="G4460")
+    assert int((want != 0).sum()) > int(nval.sum()) // 2
+    assert _rel(got, want) < TOL
+
+
+def test_b_shared_memory_follows_the_family(cuda):
+    """K2's B-mode shared memory, as the kernel library sizes it: x and y
+    tap sets at the family's pitch (10 doubles for D5512, 9 for G4460),
+    horizontal sums, the window and the int32 floors; a lattice whose
+    window outgrows the card's shared memory raises before any launch."""
+    for kern, pitch in (("D5512", 10), ("G4460", 9)):
+        w = interp_cuda.b_window(27, 2.18, kern)
+        assert interp_cuda.b_smem_bytes(27, w, kern) == \
+            8 * (2 * pitch * 27 + w * 27 + w * w) + 8 * 27
+    size, args, _tiles, _nval = _k2_case(cuda, 1, 20.0)
+    *head, inv_scale, off_grid, mode, n_pad, n2f = args
+    interp_cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        interp_cuda.sweep_scatter(torch.zeros(size, dtype=torch.float64, device=cuda),
+                                  *head, 200.0, off_grid, mode, n_pad, n2f, kern="G4460")
+    assert interp_cuda.launches[interp_cuda.sweep_kernel("G4460", 1)] == 0
+
+
+def test_fftconvolve_multi_card_matches_cpu(cuda):
+    """The wing convolution on cuFFT against the CPU route, at a canvas side
+    with the factor 79 of the production canvases (2 * 3 * 79 = 474)."""
+    from pyimcom_tpu_torch.splitpsf.imsubtract import fftconvolve_multi
+
+    rng = np.random.default_rng(41)
+    canvas, kernels = rng.normal(size=(474, 474)), rng.normal(size=(2, 60, 60))
+    want = fftconvolve_multi(torch.as_tensor(canvas), torch.as_tensor(kernels))
+    got = fftconvolve_multi(torch.as_tensor(canvas, device=cuda),
+                            torch.as_tensor(kernels, device=cuda)).cpu()
+    assert _rel(got, want) < TOL

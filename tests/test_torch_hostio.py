@@ -3,8 +3,9 @@
 pyimcom_tpu_torch keeps its own copy of every jax-free host module it uses
 (config, fitsio, wcsutil, sphere, asdfio, profiling, ops/psfmodels,
 utils/moments, utils/compareutils, layer's helpers in layer_host,
-imdestripe's host helpers, compress, truthcats and analysis; analysis's
-cases on block files are in test_torch_pipeline.py).  Each case runs the copy
+imdestripe's host helpers, compress, truthcats, analysis, splitpsf,
+update_cube and imsubtract's host helpers; analysis's cases on block files
+are in test_torch_pipeline.py).  Each case runs the copy
 and the original on the same seeded inputs: configurations, FITS files,
 WCS transforms and every helper must agree exactly (bit for bit, or equal
 objects), since the copies are the same code.
@@ -560,3 +561,93 @@ def test_star_catalog_is_bit_equal(tmp_path):
     got = analysis.StarsAnal(blk, layer="cstar14").catalog()
     assert list(got) == analysis.StarsAnal.COLUMNS and got["converged"].sum() > 0
     assert _same(want, got)
+
+
+# --------------------------------------------------------------------------
+# splitpsf: the split (splitpsf.py), the cache update (update_cube.py) and
+# imsubtract's host helpers
+# --------------------------------------------------------------------------
+
+def _psf_cube(npoly=4, n=72):
+    cube = np.zeros((npoly, n, n))
+    cube[0] = psfmodels.psf_cplx_airy(n, 6 * 1.326, sigma=6 * 0.3, features=2)
+    cube[1:] = 0.02 * np.random.default_rng(21).normal(size=(npoly - 1, n, n)) * cube[0]
+    return cube
+
+
+@pytest.mark.parametrize("distortion", ["none", "wcs"])
+def test_split_psf_is_bit_equal(distortion):
+    """SplitPSF.build, without a WCS and with one (the Gamma covariance from
+    the local pixel derivatives): every array the same."""
+    from pyimcom_tpu.splitpsf.splitpsf import SplitPSF as RefSplit
+    from pyimcom_tpu_torch.splitpsf.splitpsf import SplitPSF
+
+    pars = {"smallstamp_size": 48, "sigmaGamma": 0.93, "r_in": 3.0, "r_out": 6.0,
+            "eps": 0.01, "oversamp": 6}
+    w = WCS_CASES["ARC"] if distortion == "wcs" else None
+    a = RefSplit(_psf_cube(), ref_wcsutil.WCS(**w) if w else None, pars)
+    b = SplitPSF(_psf_cube(), wcsutil.WCS(**w) if w else None, pars)
+    a.build()
+    b.build()
+    for name in ("psfcube", "smallpsf", "K_Legendre", "K_real", "zeta_real", "Cov"):
+        assert _same(getattr(a, name), getattr(b, name)), name
+
+
+def test_split_psf_file_is_bit_equal(tmp_path):
+    """split_psf_to_fits with a per-SCA WCS list and SAVEZETA: the same
+    bytes."""
+    from pyimcom_tpu.splitpsf.splitpsf import split_psf_to_fits as ref_split
+    from pyimcom_tpu_torch.splitpsf.splitpsf import split_psf_to_fits
+
+    cube = _psf_cube(n=48).astype(np.float32)
+    fitsio.fits_write(tmp_path / "psf.fits", fitsio.HDUList(
+        [fitsio.ImageHDU(None)] + [fitsio.ImageHDU(cube) for _ in range(2)]))
+    pars = {"oversamp": 6, "r_in": 2.0, "r_out": 3.5, "SAVEZETA": True}
+    ref_split(str(tmp_path / "psf.fits"),
+              [ref_wcsutil.WCS(**WCS_CASES["TAN"]), None], pars, str(tmp_path / "a.fits"))
+    split_psf_to_fits(str(tmp_path / "psf.fits"),
+                      [wcsutil.WCS(**WCS_CASES["TAN"]), None], pars, str(tmp_path / "b.fits"))
+    assert (tmp_path / "a.fits").read_bytes() == (tmp_path / "b.fits").read_bytes()
+
+
+def test_update_cube_is_the_same(tmp_path):
+    """Both packages' update on twin caches: the same swapped files,
+    archive, iteration counters and history (up to the cache's path)."""
+    from pyimcom_tpu.splitpsf.update_cube import update as ref_update
+    from pyimcom_tpu_torch.splitpsf.update_cube import update
+
+    def cache(name):
+        root = tmp_path / name
+        root.mkdir()
+        for obsid, sca in ((3, 1), (7, 1), (7, 4)):
+            (root / f"in_{obsid:08d}_{sca:02d}.fits").write_text(f"old {obsid} {sca}")
+            if sca == 1:
+                (root / f"in_{obsid:08d}_{sca:02d}_subI.fits").write_text(f"new {obsid}")
+        return str(root / "in")
+
+    def listing(root):
+        return {str(p.relative_to(root)): p.read_text().replace(str(root), "ROOT")
+                for p in sorted(root.rglob("*")) if p.is_file()}
+
+    src = _bench_cfg(tmp_path)
+    for name, fn, mod in (("ref", ref_update, ref_config), ("port", update, config)):
+        c = cache(name)
+        cfg = mod.Config(dict(src, INLAYERCACHE=c))
+        assert [fn(cfg), fn(cfg)] == [1, 2]
+    assert listing(tmp_path / "ref") == listing(tmp_path / "port")
+
+
+def test_imsubtract_host_helpers_are_bit_equal():
+    """The Tukey windows, reinterp and the 2x2 kernel binning (the trimming
+    branch at oversampling 6, the padding branch at 4)."""
+    import pyimcom_tpu.splitpsf.imsubtract as ref_imsub
+    from pyimcom_tpu_torch.splitpsf import imsubtract
+
+    for n, width in ((30, 10), (17, 0), (9, 4), (64, 12)):
+        assert _same(ref_imsub.tukey_window_1d(n, width), imsubtract.tukey_window_1d(n, width))
+        assert _same(ref_imsub.tukey_window_2d(n, width), imsubtract.tukey_window_2d(n, width))
+    arr = np.random.default_rng(22).normal(size=(26, 30))
+    assert _same(ref_imsub.reinterp(arr), imsubtract.reinterp(arr))
+    for ov, n in ((6, 48), (4, 40)):
+        K = np.random.default_rng(ov).normal(size=(3, n, n))
+        assert _same(ref_imsub.bin_kernel_2x2(K, ov), imsubtract.bin_kernel_2x2(K, ov))

@@ -29,7 +29,9 @@ MODULES = ("pyimcom_tpu_torch", "pyimcom_tpu_torch.coadd",
            "pyimcom_tpu_torch.bench", "pyimcom_tpu_torch.runner",
            "pyimcom_tpu_torch.compress", "pyimcom_tpu_torch.truthcats",
            "pyimcom_tpu_torch.analysis", "pyimcom_tpu_torch.layer_wrapper",
-           "pyimcom_tpu_torch.pipeline", "pyimcom_tpu_torch.outmaps")
+           "pyimcom_tpu_torch.pipeline", "pyimcom_tpu_torch.outmaps",
+           "pyimcom_tpu_torch.splitpsf", "pyimcom_tpu_torch.splitpsf.splitpsf",
+           "pyimcom_tpu_torch.splitpsf.imsubtract", "pyimcom_tpu_torch.splitpsf.update_cube")
 
 CASES = {
     # jax made unimportable: every import must still succeed

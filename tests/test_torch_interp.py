@@ -142,23 +142,35 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     they raise, and the CPU route is the callers' plain version."""
     z3 = torch.zeros((1, 16, 16), dtype=torch.float64)
     q = torch.zeros((1, 4), dtype=torch.float64)
-    with pytest.raises(ValueError, match="CUDA"):
-        interp_cuda.interp_d5512_dense(z3, q, q)
     i32 = torch.zeros((1, 5), dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        interp_cuda.sweep_d5512_scatter(torch.zeros(8, dtype=torch.float64), z3,
-                                        q[0], q[0], i32[:, 0], i32, i32, i32, 1.0, 0.0,
-                                        0)
+    for kern in ("D5512", "G4460"):
+        with pytest.raises(ValueError, match="CUDA"):
+            interp_cuda.interp_dense(z3, q, q, kern)
+        with pytest.raises(ValueError, match="CUDA"):
+            interp_cuda.sweep_scatter(torch.zeros(8, dtype=torch.float64), z3, q[0], q[0],
+                                      i32[:, 0], i32, i32, i32, 1.0, 0.0, 0, kern=kern)
     assert interp_cuda.launches == {"interp_d5512_dense": 0,
                                     "sweep_d5512_scatter.pool": 0,
-                                    "sweep_d5512_scatter.B": 0}
+                                    "sweep_d5512_scatter.B": 0,
+                                    "interp_g4460_dense": 0,
+                                    "sweep_g4460_scatter.pool": 0,
+                                    "sweep_g4460_scatter.B": 0}
 
 
-@pytest.mark.parametrize("fn", ["interp2d", "grid_interp", "interp2d_dense"])
+@pytest.mark.parametrize("fn", ["interp2d", "grid_interp", "interp2d_dense", "unknown"])
 def test_other_kernel_families_raise(fn):
+    """The G4460 family is ported: each entry that raised for it now
+    matches the JAX package's G4460 form to 1e-13 of the image scale, with
+    queries on both sides of each edge of its valid range (3 <= floor(q) <
+    ng - 4); a family outside KERNEL_FAMILIES still raises."""
     z = torch.zeros((1, 16, 16), dtype=torch.float64)
     q = torch.zeros((1, 4), dtype=torch.float64)
-    args = {"interp2d": (z[0], q[0], q[0]), "grid_interp": (z[0], q, q),
-            "interp2d_dense": (z, q, q)}[fn]
-    with pytest.raises(NotImplementedError):
-        getattr(interp, fn)(*args, kern="G4460")
+    if fn == "unknown":
+        for name, args in {"interp2d": (z[0], q[0], q[0]), "grid_interp": (z[0], q, q),
+                           "interp2d_dense": (z, q, q)}.items():
+            with pytest.raises(ValueError, match="unknown interpolation kernel"):
+                getattr(interp, name)(*args, kern="X9999")
+        return
+    from test_torch_g4460 import edge_scene, g4460_port_vs_ref
+
+    g4460_port_vs_ref(fn, *edge_scene(seed=11))
