@@ -11,8 +11,10 @@ LAKERNEL and both interpolation families, the split-PSF entries
 ``pyimcom_tpu_torch.splitpsf.{splitpsf,imsubtract,update_cube}``, the
 destriping entry point ``pyimcom_tpu_torch.imdestripe.main``,
 the toolchain probe ``pyimcom_tpu_torch.probe``, the bench entry
-``pyimcom_tpu_torch.bench``, the block runner ``pyimcom_tpu_torch.runner``
-and the chained pipeline ``pyimcom_tpu_torch.pipeline``:
+``pyimcom_tpu_torch.bench``, the block runner ``pyimcom_tpu_torch.runner``,
+the chained pipeline ``pyimcom_tpu_torch.pipeline``, the Piff conversion
+``pyimcom_tpu_torch.utils.piffutils.piff_to_legendre_multi`` and
+metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
 
 1. build: the card's name and power limit, the nvcc builds of the D5512 /
    G4460 and bilinear kernels (and of the earlier revisions in PARENTS, each
@@ -114,11 +116,35 @@ and the chained pipeline ``pyimcom_tpu_torch.pipeline``:
    resident set and seconds; fftconv_full: one fftconvolve_multi at the unbinned
    production canvas (FFT_SIDE^2, a 120^2 kernel, seeded random data on the
    card): device ms, peak memory, a 2048^2 crop against the CPU route
-   (1e-12 of scale); g4460_kernels: K1<8> alone on its captured launches
+   (1e-12 of scale), and the bytes and operations bounds of one
+   convolution at the three canvas sides the phases run (fft_bounds);
+   g4460_kernels: K1<8> alone on its captured launches
    (PSF sampling of the G4460 block, the first wing canvas of each wing
    task, at most 2^22 queries of one) and K2<8> (pool, B) on
    the G4460 block's first group, against their plain versions (1e-12 of
    scale), with their bounds;
+11b. piff_block (in .smoke_work/piff/): the bench survey with each
+   observation's PSF written as a Piff file as tests/test_piff.py:115-127
+   writes them (survey_fixture_torch.write_piff_files: per SCA the cube's
+   plane 0 smeared by the pixel tophat, at the cube's own sampling of
+   1/INPSF[2] native pixel, order 1 with seeded u and v terms of at most
+   1e-3 of the peak) and INPSF [dir, "piff", 8]: block 1, all 16 stamps,
+   a first run, then the measured warm run: seconds, blocks/hour, SL1 and
+   the U/C median (|SL1-1| < 5e-4, U/C < 1e-6) and their difference from
+   the bench block's, block.inputs and psf.sample_group host seconds, the
+   Piff draws (utils.piffutils.draw_models, one a PSF group): calls, their
+   host seconds and device time in the block (the block's psf.draw phase)
+   and alone (the group's interpolation behind the sleep), one group's
+   batched draw against its S single draws (host seconds), and the card's
+   draw of that group against the CPU route's (1 float32 spacing of
+   max|stamp|); K1 and K2 launched; the warm run's first K1 launch of PSF
+   sampling (as k1_main_path) and its first group's K2 launches (as
+   k2_main_path) against their plain versions (1e-12 of scale);
+   piff_legendre: piff_to_legendre_multi on one observation's Piff file for
+   the SCAs block 1 reads of it, at the JAX defaults (stamp 128,
+   oversampling 6, Legendre order 5), on the card and on the CPU route:
+   seconds, the cubes within 2 float32 spacings of max|cube[0]|, OVSAMP in
+   the header;
 12. destripe (in .smoke_work/destripe/): build_survey(n_obs=6) -- 4 F184
    SCAs at 4088^2 overlapping in 12 ordered pairs -- with row stripes
    injected as scripts/run_chained_pipeline.py does, then
@@ -153,7 +179,22 @@ and the chained pipeline ``pyimcom_tpu_torch.pipeline``:
    U/C median of every block < 1e-6; |SL1 - 1| < 5e-3 of the science star
    on block _00_01 (tests/test_full_pipeline.py's bound); every compressed
    layer read back through compress.ReadFile within the I24B step plus
-   float32 noise (pipeline.compression_check) and every other HDU equal.
+   float32 noise (pipeline.compression_check) and every other HDU equal;
+13b. meta_shear: meta.MetaMosaic on block _00_01 of the chain's mosaic (its
+   3x3 neighbourhood: 4 blocks of 256^2), examples/read_and_shear.py's
+   steps -- mask_fidelity_cut(40), shearimage(N = n1 n2, the reduced shear
+   (0.02, 0), psfgrow 1.08), then its mask_noise_cut(-3) (which masks
+   every pixel: the noise map holds Sigma, not dB) and the same shear --
+   on the card and on the CPU route, the images within 2 float32 spacings
+   of the maximum and the masks equal, with seconds, UMAX, SMAX and the
+   masked share of each; then MultiInterp at production
+   size: a seeded 3x3 mosaic of 2560^2 blocks (7680^2, 2 float32 layers),
+   307 rows of a 2560-wide output at its centre (META_ROWS: 2 of the 17
+   blocks of 393216 points of the whole 2560^2 output) under the same
+   shear and smoothing: InterpMatrix's
+   host seconds, the tap gather's device time (CUDA events around each
+   block's gather_taps) and kernel launches (torch.profiler), the seconds,
+   peak device memory and the host resident set.
 
 Timing.  A kernel's time is the median CUDA-event time of single calls,
 each enqueued behind a torch.cuda._sleep of SLEEP_CYCLES, so that the
@@ -216,6 +257,16 @@ PSFSPLIT = [3.0, 6.0, 0.01]
 FFT_SIDE = 6 * (4088 + 2 * 10)
 # the wing correction from the card against the CPU route, of its largest value
 CORRECTION_TOL = 1e-10
+# the Piff block draws at oversampling 8 (INPSF [dir, "piff", 8]) from files
+# at the cube's own sampling, with seeded order-1 terms of at most 1e-3 of
+# the peak (survey_fixture_torch.write_piff_files)
+PIFF_OV, PIFF_GRAD, PIFF_SEED = 8, 1e-3, 20261017
+# examples/read_and_shear.py: the reduced shear (g1, g2) and psfgrow; the
+# MultiInterp run at production size: output rows of a block's side
+# (OUTSIZE 80 stamps of 32 px) over a 3x3 mosaic of such blocks, 307 of the
+# 2560 rows (2 of MultiInterp's 17 blocks of 393216 points: InterpMatrix
+# costs ~30 us a point of host time, 12 s a block on the card's host)
+META_SHEAR, META_PSFGROW, META_PROD, META_ROWS = (0.02, 0.0), 1.08, 2560, 307
 PARENT_DIR = REPO / "pyimcom_tpu_torch" / "_build" / "parent"
 # earlier revisions of csrc/<name>.cu timed beside the current kernels where
 # PARENT_DIR holds them: the commit and the SHA-256 of the only revision
@@ -894,6 +945,13 @@ def trace_kernels(torch, fn, top=12):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return profile_rows(prof, top)
+
+
+def profile_rows(prof, top=12):
+    """The device time of every kernel of a torch.profiler trace by name
+    (ms, launches), the `top` longest, their sum and their launches; None
+    where the trace shows no device time."""
     rows = []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -905,7 +963,8 @@ def trace_kernels(torch, fn, top=12):
     total = sum(r["ms"] for r in rows)
     if total <= 0:
         return None
-    return {"device_ms": total, "kernels": len(rows), "top": rows[:top]}
+    return {"device_ms": total, "kernels": len(rows),
+            "launches": sum(r["launches"] for r in rows), "top": rows[:top]}
 
 
 def striped_survey(root):
@@ -1699,12 +1758,32 @@ def phase_wing_production(root, cfg0, idsca, split_file, k1_caps):
     return rec
 
 
+def fft_bounds(A, m):
+    """Bounds of one convolution of fftconvolve_multi on an A^2 canvas with
+    an m^2 kernel, in f64.  Bytes: `bound_ms`, the function's inputs read
+    once and its valid output written once; `transforms_bound_ms`, each of
+    its three transforms (canvas, kernel, inverse) reading its input and
+    writing its output once, A (A/2 + 1) complex128 a spectrum, and the
+    spectral product reading two spectra and writing one.  Operations: 2.5 N
+    log2 N a real 2-D transform of N = A^2 points, three of them."""
+    spec = 16 * A * (A // 2 + 1)
+    valid = 8 * (A - m + 1) ** 2
+    flops = 3 * 2.5 * A * A * np.log2(A * A)
+    fn = bound(8 * A * A + 8 * m * m + valid, flops)
+    tr = bound((8 * A * A + spec) + (8 * m * m + spec) + 3 * spec + (spec + 8 * A * A) + valid,
+               flops)
+    return {"bound_ms": fn[0], "bound_by": fn[1], "transforms_bound_ms": tr[0],
+            "transforms_bound_by": tr[1]}
+
+
 def phase_fftconv_full(torch, dev):
     """One fftconvolve_multi on the card at the unbinned production canvas
     (FFT_SIDE^2, one 120^2 kernel; seeded random data made on the card):
     its device time (the second of two calls; the first plans cuFFT), its
     peak device memory, and the valid window of a 2048^2 crop against the
-    CPU route to 1e-12 of scale."""
+    CPU route to 1e-12 of scale; and the bounds of one convolution
+    (fft_bounds) at this side and at those of wing_production and the
+    split-PSF loop."""
     from pyimcom_tpu_torch.splitpsf.imsubtract import fftconvolve_multi
 
     A, m, crop = FFT_SIDE, 120, 2048
@@ -1728,7 +1807,9 @@ def phase_fftconv_full(torch, dev):
     got = out[:, :crop - m + 1, :crop - m + 1].cpu()
     want = fftconvolve_multi(canvas[:crop, :crop].cpu(), kernel.cpu())
     rec = {"phase": "fftconv_full", "canvas": [A, A], "kernel": [m, m],
-           "out": list(out.shape), "device_ms": times, "inputs_GiB": base / 2 ** 30,
+           "out": list(out.shape), "device_ms": times,
+           "bounds": {str(side): fft_bounds(side, m) for side in (A, 12324, 4208)},
+           "inputs_GiB": base / 2 ** 30,
            "max_memory_allocated_GiB": peak / 2 ** 30,
            "crop": crop, "crop_vs_cpu": rel_err(torch, got, want),
            "finite": bool(torch.isfinite(out).all())}
@@ -1750,6 +1831,262 @@ def phase_g4460_kernels(torch, dev, k1_caps, plan, floor_ms):
     k2 = k2_main_path(torch, dev, "g4460_bench_group_1", plan, floor_ms)
     emit({"phase": "g4460_kernels", "criterion": TOL, "K1": k1, "K2": k2})
     return k1, k2
+
+
+class capture_first_draw:
+    """While active, keep the arguments of the first Piff draw of a block
+    (coadd.draw_models, one call a PSF group) in `.first`: models, x, y,
+    keywords."""
+
+    def __enter__(self):
+        from pyimcom_tpu_torch import coadd
+
+        self._coadd, self._draw = coadd, coadd.draw_models
+        self.first = None
+
+        def draw(models, x, y, **kw):
+            if self.first is None:
+                self.first = (list(models), np.array(x), np.array(y), dict(kw))
+            return self._draw(models, x, y, **kw)
+
+        coadd.draw_models = draw
+        return self
+
+    def __exit__(self, *exc):
+        self._coadd.draw_models = self._draw
+
+
+def host_median_s(fn, reps=5):
+    """Median host seconds of fn() (which returns host arrays) over `reps`
+    calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_piff_block(torch, dev, cfg_dict, bench, floor_ms, parent):
+    """The bench block with Piff PSF files (module docstring, 11b): a first
+    run, then the measured warm run, whose first K1 launch of PSF sampling
+    and first group's K2 launches are held against their plain versions;
+    one PSF group's draws timed and held to the CPU route.  `bench` holds
+    the bench block's block_s, SL1 and uc_median.  Returns (the warm block,
+    its launches, the Piff directory, the K1 record, the K2 record)."""
+    from survey_fixture_torch import write_piff_files
+
+    from pyimcom_tpu_torch.bench import quality_check
+    from pyimcom_tpu_torch.ops.interp import grid_interp
+    from pyimcom_tpu_torch.utils import piffutils
+
+    piff_dir = WORK / "piff"
+    piff_dir.mkdir()
+    n_files = write_piff_files(cfg_dict["INPSF"][0], piff_dir, ov=cfg_dict["INPSF"][2],
+                               order=1, grad=PIFF_GRAD, seed=PIFF_SEED)
+    over = dict(INPSF=[str(piff_dir), "piff", PIFF_OV])
+    _b, _o, t_first, first_launches = run_block(cfg_dict, "_piff1", **over)
+    k1_caps = {}
+    with capture_first_draw() as cap, capture_first_plan() as plan_cap, \
+            capture_k1("piff", ["psf_sampling"], k1_caps):
+        blk, out, t_block, launches = run_block(cfg_dict, "_piff", **over)
+    SL1, uc_med = quality_check(out)
+    times = phase_times(blk)
+
+    models, x, y, kw = cap.first
+    card = piffutils.draw_models(models, x, y, **kw)
+    cpu = piffutils.draw_models(models, x, y, **dict(kw, device="cpu"))
+    err = max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(card, cpu))
+    spacing = float(np.spacing(np.float32(max(np.abs(b).max() for b in cpu))))
+    # the group's interpolation alone: the survey's Piff files share one
+    # grid size and spacing, so the group is one interpolation
+    assert len({(m.size, m.scale) for m in models}) == 1
+    grids = np.stack([m.params(a, b) for m, a, b in zip(models, x, y)])
+    image, q = piffutils.draw_inputs(grids, models[0].scale, kw["stamp_size"],
+                                     kw["oversamp"], None, dev)
+    # the interpolation's least work: the padded grids, the query axes and
+    # the stamps once; the row contraction and the column contraction
+    S, ny, nx = image.shape
+    ns, taps = q.shape[1], TAPS["D5512"]
+    interp_bound = bound(8 * (image.numel() + 2 * q.numel() + S * ns * ns),
+                         2 * S * ns * taps * nx + 2 * S * ns * ns * taps)
+
+    draw = times["psf.draw"]
+    rec = {"phase": "piff_block", "piff_files": n_files, "inpsf": over["INPSF"],
+           "stamps": len(blk.stamp_stats), "first_block_s": t_first,
+           "first_launches": first_launches, "block_s": t_block,
+           "blocks_per_hour": 3600.0 / t_block, "SL1": SL1, "uc_median": uc_med,
+           "minus_bench": {"block_s": t_block - bench["block_s"], "SL1": SL1 - bench["SL1"],
+                           "uc_median": uc_med - bench["uc_median"]},
+           "inputs_s": times["block.inputs"]["host_s"],
+           "sample_group_s": times["psf.sample_group"]["host_s"],
+           "draws": {"calls": draw["calls"], "host_s": draw["host_s"],
+                     "event_ms": draw["device_ms"],
+                     "group_stamps": len(models), "stamp": list(card[0].shape),
+                     "grid": list(image.shape),
+                     "interp_device_ms": median_ms(torch, lambda: grid_interp(image, q, q), 20),
+                     "interp_bound_ms": interp_bound[0], "interp_bound_by": interp_bound[1],
+                     "interp_trace": trace_kernels(torch, lambda: grid_interp(image, q, q), 6),
+                     "batched_s": host_median_s(lambda: piffutils.draw_models(models, x, y, **kw)),
+                     "single_s": host_median_s(lambda: [m.draw(a, b, **kw) for m, a, b
+                                                        in zip(models, x, y)]),
+                     "card_vs_cpu_max_abs": err, "float32_spacing": spacing},
+           "launches": launches, "phases": times}
+    emit(rec)
+    assert len(blk.stamp_stats) == 16, blk.stamp_stats
+    assert abs(SL1 - 1.0) < SL1_TOL and uc_med < UC_MAX, (SL1, uc_med)
+    assert draw["calls"] == times["psf.sample_group"]["calls"] > 0, rec["draws"]
+    assert err <= spacing, rec["draws"]
+    del image, q
+    k1 = k1_main_path(torch, dev, "piff/psf_sampling", k1_caps.pop("piff/psf_sampling"),
+                      floor_ms, parent)
+    emit({"phase": "k1_main_path", "criterion": TOL, **k1})
+    k2 = k2_main_path(torch, dev, "piff_group_1", plan_cap.plan, floor_ms)
+    del plan_cap.plan
+    emit({"phase": "k2_main_path", "criterion": TOL, **k2})
+    return blk, launches, piff_dir, k1, k2
+
+
+def phase_piff_legendre(torch, dev, piff_dir, obslist):
+    """piff_to_legendre_multi at the JAX defaults on the first observation
+    of the Piff block, for the SCAs of it that the block reads, on the card
+    and on the CPU route (module docstring, 11b)."""
+    from pyimcom_tpu_torch.fitsio import fits_read
+    from pyimcom_tpu_torch.utils import piffutils
+
+    obsid = obslist[0][0]
+    chips = sorted({sca for o, sca in obslist if o == obsid})
+    src = str(piff_dir / f"ffov_{obsid:d}.piff")
+    secs, files = {}, {}
+    for route, device in (("card", dev), ("cpu", "cpu")):
+        files[route] = piff_dir / f"legendre_{route}.fits"
+        t0 = time.perf_counter()
+        piffutils.piff_to_legendre_multi(src, str(files[route]), chips=chips, device=device)
+        secs[route] = time.perf_counter() - t0
+    got, want = fits_read(files["card"]), fits_read(files["cpu"])
+    spacings = {}
+    for sca in chips:
+        a, b = np.asarray(got[sca].data, np.float64), np.asarray(want[sca].data, np.float64)
+        spacings[sca] = float(np.abs(a - b).max() / np.spacing(np.float32(np.abs(b[0]).max())))
+    rec = {"phase": "piff_legendre", "source": Path(src).name, "chips": chips,
+           "cube": list(np.shape(want[chips[0]].data)), "card_s": secs["card"],
+           "cpu_s": secs["cpu"], "card_vs_cpu_float32_spacings": spacings,
+           "OVSAMP": got[0].header.get("OVSAMP"), "header": dict(got[0].header)}
+    emit(rec)
+    for path in files.values():
+        path.unlink()
+    assert all(v <= 2 for v in spacings.values()), spacings
+    assert rec["OVSAMP"] == 6 and dict(got[0].header) == dict(want[0].header), rec
+
+
+def phase_meta_shear(torch, dev, chain):
+    """Metadetection on the chain's blocks and MultiInterp at production
+    size (module docstring, 13b)."""
+    from pyimcom_tpu_torch.config import Settings
+    from pyimcom_tpu_torch.meta import ginterp
+    from pyimcom_tpu_torch.meta.distortimage import MetaMosaic
+
+    block = next(p for p in chain["coadd_block_s"] if p.endswith("_00_01.fits"))
+    g1, g2 = META_SHEAR
+    jac = np.array([[1 - g1, -g2], [-g2, 1 + g1]]) / np.sqrt(1 - g1 * g1 - g2 * g2)
+
+    def shear(mm):
+        t0 = time.perf_counter()
+        res = mm.shearimage(mm.cfg.n1 * mm.cfg.n2, jac=jac, psfgrow=META_PSFGROW)
+        return res, time.perf_counter() - t0
+
+    def summary(res, secs):
+        return {"s": secs, "UMAX": res["pars"]["UMAX"], "SMAX": res["pars"]["SMAX"],
+                "masked_share": float(res["mask"].mean()), "image": list(res["image"].shape)}
+
+    runs, example = {}, {}
+    for route, device in (("card", dev), ("cpu", "cpu")):
+        mm = MetaMosaic(block, device=device)
+        mm.mask_fidelity_cut(40)
+        runs[route] = shear(mm)
+        mm.mask_noise_cut(-3)
+        example[route] = shear(mm)
+    card, cpu = runs["card"][0], runs["cpu"][0]
+    scale = float(np.abs(cpu["image"]).max())
+    err = float(np.abs(card["image"].astype(np.float64) - cpu["image"]).max())
+    ex_card, ex_cpu = example["card"][0], example["cpu"][0]
+
+    # production size: a seeded 3x3 mosaic of META_PROD^2 blocks, the same
+    # shear and smoothing as shearimage gives the chain's mosaic
+    cfg = mm.cfg
+    sigma = cfg.sigmatarget * Settings.pixscale_native * (180.0 / np.pi) / cfg.dtheta
+    dCov = sigma ** 2 * (META_PSFGROW ** 2 * jac @ jac.T - np.identity(2))
+    N, rows, n_in = META_PROD, META_ROWS, 3 * META_PROD
+    image = np.random.default_rng(PIFF_SEED).standard_normal((2, n_in, n_in), dtype=np.float32)
+    in_mask = np.zeros((n_in, n_in), dtype=bool)
+    origin = np.full(2, (n_in - 1) / 2.0) - jac @ np.array([(N - 1) / 2.0, (rows - 1) / 2.0])
+    host_s, gather_events, gather_bytes, gather_flops = [], [], [], []
+    interp_matrix, gather_taps = ginterp.InterpMatrix, ginterp.gather_taps
+
+    def timed_matrix(*a, **k):
+        t0 = time.perf_counter()
+        out = interp_matrix(*a, **k)
+        host_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_gather(img, msk, base, offsets, T, sub_mask):
+        # the least bytes: T, the cells and edge flags read once, about one
+        # reached mosaic pixel (all layers, and its mask) an output pixel,
+        # the values and mask written once
+        n, nl, es = len(base), img.shape[0], img.element_size()
+        gather_bytes.append(T.nbytes + 8 * n + n + n * (nl * es + 1) + n * (nl * es + 1))
+        gather_flops.append(2 * len(offsets) * n * nl)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = gather_taps(img, msk, base, offsets, T, sub_mask)
+        e1.record()
+        gather_events.append((e0, e1))
+        return out
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ginterp.InterpMatrix, ginterp.gather_taps = timed_matrix, timed_gather
+    try:
+        with HostRSS() as rss, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out, out_mask, Umax, Smax = ginterp.MultiInterp(
+                image, in_mask, (rows, N), origin, jac, 6.0, sigma * np.sqrt(8 * np.log(2)),
+                [dCov[0, 0], dCov[0, 1], dCov[1, 1]], device=dev)
+            t_prod = time.perf_counter() - t0
+    finally:
+        ginterp.InterpMatrix, ginterp.gather_taps = interp_matrix, gather_taps
+    trace = profile_rows(prof, top=6)
+    gather_ms = [a.elapsed_time(b) for a, b in gather_events]
+    gather_bound = bound(sum(gather_bytes), sum(gather_flops))
+    rec = {"phase": "meta_shear", "block": Path(block).name, "shear": [g1, g2],
+           "psfgrow": META_PSFGROW, "fidelity_cut": {"card": summary(*runs["card"]),
+                                                     "cpu": summary(*runs["cpu"])},
+           "card_vs_cpu_max_abs": err, "float32_spacing": float(np.spacing(np.float32(scale))),
+           "example_cuts": {"card": summary(*example["card"]), "cpu": summary(*example["cpu"]),
+                            "card_vs_cpu_max_abs": float(np.abs(
+                                ex_card["image"].astype(np.float64) - ex_cpu["image"]).max())},
+           "production": {"mosaic": [2, n_in, n_in], "out": [rows, N], "s": t_prod,
+                          "blocks": len(host_s), "interp_matrix_host_s": sum(host_s),
+                          "interp_matrix_host_s_each": host_s,
+                          "gather_event_ms": sum(gather_ms), "gather_event_ms_each": gather_ms,
+                          "gather_bound_ms": gather_bound[0], "gather_bound_by": gather_bound[1],
+                          "trace": trace, "Umax": Umax, "Smax": Smax,
+                          "masked_share": float(out_mask.mean()),
+                          "finite": bool(np.all(np.isfinite(out))),
+                          "max_memory_allocated_GiB": torch.cuda.max_memory_allocated(dev)
+                          / 2 ** 30,
+                          "host_rss_GiB": [rss.start_GiB, rss.peak_GiB]}}
+    emit(rec)
+    assert err <= 2 * rec["float32_spacing"] and scale > 0, rec
+    assert np.array_equal(card["mask"], cpu["mask"]) and not card["mask"].all(), rec
+    assert np.array_equal(ex_card["mask"], ex_cpu["mask"]), rec
+    assert rec["example_cuts"]["card_vs_cpu_max_abs"] <= 2 * rec["float32_spacing"], rec
+    assert len(host_s) == len(gather_ms) == -(-rows * N // 393216), rec["production"]
+    assert rec["production"]["finite"] and rec["production"]["masked_share"] < 0.05, rec
+    return rec
 
 
 def galaxy_moments(path):
@@ -1990,16 +2327,29 @@ def main():
     del g4460_plan
     assert not k1_caps, sorted(k1_caps)
 
+    # ---- 11b. Piff PSF files drawn on the card; their Legendre conversion ----
+    piff_blk, piff_launches, piff_dir, piff_k1, piff_k2 = phase_piff_block(
+        torch, dev, cfg_dict, {"block_s": t_block, "SL1": SL1, "uc_median": uc_med},
+        floor_ms, parent)
+    phase_piff_legendre(torch, dev, piff_dir, piff_blk.obslist)
+    del piff_blk
+    torch.cuda.empty_cache()
+
     # ---- 12. destriping, from imdestripe.main to the coadd ------------------------
     k3, k4, ds_launches = phase_destripe(torch, dev, floor_ms, parent_k4, k4_build)
     torch.cuda.empty_cache()
 
     # ---- 13. the chained 2x2 mosaic, from destripe to compression -----------
-    phase_mosaic_chain()
+    chain = phase_mosaic_chain()
+
+    # ---- 13b. metadetection on the chain's blocks, and at production size ----
+    phase_meta_shear(torch, dev, chain)
 
     # ---- summary ---------------------------------------------------------------
     # the kernels line's bound is bytes and operations alone (roofline_ms);
-    # its K1 and K2 times are those of the main path's own launches
+    # its K1 and K2 times are those of the main path's own launches, its
+    # D5512 launches those of the bench block and the Piff block, whose
+    # errors are those of every captured D5512 launch, the Piff block's too
     src = "pyimcom_tpu_torch/csrc/interp_d5512.cu"
     no_lib = None           # no PyTorch call computes D5512 or G4460 interpolation
 
@@ -2011,16 +2361,20 @@ def main():
                 "launch_floor_ms": floor_ms}
 
     k1 = main_k1["bench/psf_sampling"]
-    k1_errs = [kern["K1"]["max_abs_err"]] + [r["max_abs_err"] for r in main_k1.values()]
+    k1_errs = ([kern["K1"]["max_abs_err"], piff_k1["max_abs_err"]]
+               + [r["max_abs_err"] for r in main_k1.values()])
     summary = [line("interp_d5512_dense", src, "pyimcom_tpu/ops/interp_pallas.py:85",
-                    launches["interp_d5512_dense"], max(k1_errs), k1, no_lib)]
+                    launches["interp_d5512_dense"] + piff_launches["interp_d5512_dense"],
+                    max(k1_errs), k1, no_lib)]
     k2 = {one["mode"]: one for one in main_k2[0]["launches"]}
     for mode, key in (("pool", "K2_pool"), ("B", "K2_B")):
-        errs = [kern[key]["max_abs_err"]] + [one["max_abs_err"] for rec in main_k2
+        errs = [kern[key]["max_abs_err"]] + [one["max_abs_err"] for rec in main_k2 + [piff_k2]
                                               for one in rec["launches"] if one["mode"] == mode]
         summary.append(line(f"sweep_d5512_scatter.{mode}", src,
                             "pyimcom_tpu/ops/interp_pallas.py:140",
-                            launches[f"sweep_d5512_scatter.{mode}"], max(errs), k2[mode], no_lib))
+                            launches[f"sweep_d5512_scatter.{mode}"]
+                            + piff_launches[f"sweep_d5512_scatter.{mode}"],
+                            max(errs), k2[mode], no_lib))
     # the G4460 forms: launches of the G4460 bench block and the wing
     # subtraction tasks; K1's time is the G4460 block's PSF sampling, K2's
     # its first group's

@@ -168,10 +168,12 @@ def interp2d_stack(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 def grid_interp(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 kern: str = "D5512") -> torch.Tensor:
     """Separable-grid interpolation: image (ny, nx), x (P, nxo), y (P, nyo)
-    -> (P, nyo, nxo), evaluated on the outer product grid of each row."""
+    -> (P, nyo, nxo), evaluated on the outer product grid of each row.  A
+    stack of images (P, ny, nx) gives each row its own image (the batched
+    Piff draw); each row's arithmetic is that of a single image."""
     check_kern(kern)
     size, lo = KERNEL_FAMILIES[kern][2:4]
-    ny, nx = image.shape
+    ny, nx = image.shape[-2:]
     P, nxo = x.shape
     nyo = y.shape[1]
     xi, fhx, vx = _split_query(x, nx, kern)
@@ -179,7 +181,11 @@ def grid_interp(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     wx = kernel_weights(fhx, kern) * vx[..., None]      # invalid -> zero weights
     wy = kernel_weights(fhy, kern) * vy[..., None]
     offs = torch.arange(size, device=image.device) - lo
-    rows = image[yi[:, :, None] + offs]                             # (P, nyo, size, nx)
+    if image.dim() == 3:
+        pick = torch.arange(P, device=image.device)[:, None, None]
+        rows = image[pick, yi[:, :, None] + offs]                   # (P, nyo, size, nx)
+    else:
+        rows = image[yi[:, :, None] + offs]                         # (P, nyo, size, nx)
     H = torch.einsum("pyin,pyi->pyn", rows, wy)                      # (P, nyo, nx)
     ix = (xi[:, :, None] + offs).reshape(P, 1, nxo * size)
     cols = torch.gather(H, 2, ix.expand(P, nyo, nxo * size))

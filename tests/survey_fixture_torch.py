@@ -222,3 +222,43 @@ def build_survey(tmp_path, n_obs=14, extrainput=None, config_overrides=None):
     with open(tmp_path / "cfg.json", "w") as f:
         json.dump(cfg, f, indent=1)
     return cfg
+
+
+def write_piff_files(cube_dir, piff_dir, ov, order=0, grad=0.0, seed=0):
+    """
+    Each observation's PSF as a Piff file in `piff_dir`
+    (pyimcom_tpu_torch.utils.piffutils.write_piff_file's layout), as
+    tests/test_piff.py:115-127 writes them: ffov_{obsid}.piff holds one
+    PixelGrid solution per SCA whose constant term is plane 0 of that SCA's
+    Legendre cube in `cube_dir` (psf_polyfit_{obsid}.fits) smeared by a
+    tophat of `ov` samples and scaled by ov**2, on a grid of spacing 1/ov
+    native pixel.  With order 1, the u and v terms are the grid's x and y
+    derivatives scaled to a seeded fraction of the grid's peak, at most
+    `grad`: they move the PSF by a small part of a sample across the chip
+    and keep its flux.  Returns the number of files written.
+    """
+    from pathlib import Path
+
+    from pyimcom_tpu_torch.fitsio import fits_read
+    from pyimcom_tpu_torch.ops.psfmodels import smooth_and_pad
+    from pyimcom_tpu_torch.utils.piffutils import write_piff_file
+
+    if order not in (0, 1):
+        raise ValueError(f"order {order}: the fixture writes orders 0 and 1")
+    files = sorted(Path(cube_dir).glob("psf_polyfit_*.fits"))
+    for path in files:
+        obsid = int(path.stem.rsplit("_", 1)[1])
+        rng = np.random.default_rng(seed + obsid)
+        f = fits_read(path)
+        grids = {}
+        for sca in range(1, len(f)):
+            sm = smooth_and_pad(np.asarray(f[sca].data, np.float64)[0], tophatwidth=ov) * ov ** 2
+            terms = [sm.ravel()]
+            if order == 1:
+                for axis, c in zip((1, 0), rng.uniform(-grad, grad, 2)):
+                    d = np.gradient(sm, axis=axis)
+                    terms.append((c * sm.max() / np.abs(d).max() * d).ravel())
+            grids[sca - 1] = np.stack(terms, axis=1)
+        write_piff_file(str(Path(piff_dir) / f"ffov_{obsid:d}.piff"), grids, sm.shape[0],
+                        order=order, scale=1.0 / ov)
+    return len(files)

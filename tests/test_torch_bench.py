@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import bench as ref_bench
-from test_torch_block import compare_outputs_f32, small_survey  # noqa: F401
+from test_torch_block import compare_outputs_f32, reference_block, small_survey  # noqa: F401
 from pyimcom_tpu_torch import bench
 
 torch.set_num_threads(1)
@@ -28,13 +28,11 @@ LSB = 10 ** (1 / 5000)          # one step of the FIDELITY encoding
 
 
 @pytest.fixture(scope="module")
-def blocks(small_survey):
-    """(reference output, the port's bench_block result) at 4 stamps."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("PYIMCOM_DEVICE_ASSEMBLY", "1")
-        mp.setenv("PYIMCOM_NDEVICES", "1")
-        ref_bench.run_region(small_survey, stop=4, out_suffix="_benchref")
-    ref_out = small_survey["OUT"] + "_benchref_00_01.fits"
+def blocks(small_survey, reference_block):
+    """(reference output, the port's bench_block result) at 4 stamps: the
+    reference's run_region is test_torch_block.reference_block, made once
+    for the session."""
+    ref_out = reference_block
     port = bench.bench_block(dict(small_survey, OUT=small_survey["OUT"] + "_bport"),
                              device="cpu", stop=4, warmup=False)
     return ref_out, port

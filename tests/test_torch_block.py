@@ -4,11 +4,13 @@ package's Block on the CPU.
 Both run the reduced small_survey of tests/test_device_assembly.py (n_obs 8,
 cstar14, NPIXPSF 16, INPAD 0.3, FLATPEN 1e-7) for one full 2x2 group
 (STOP 4); the reference runs its device group engine
-(PYIMCOM_DEVICE_ASSEMBLY=1) on one device.  The outputs are compared as
-test_device_assembly._compare_outputs does: the science cube to 1e-8 of its
-scale, the quantized maps to 1 LSB, INWEIGHT to 1e-8.  Both read the
-input-layer cache that the reference's layer wrapper wrote when the survey
-was built, so star injection (tested in test_torch_layer.py) is paid once.
+(PYIMCOM_DEVICE_ASSEMBLY=1) on one device, once for the session
+(reference_block, which test_torch_bench.py shares).  The outputs are
+compared as test_device_assembly._compare_outputs does: the science cube
+to 1e-8 of its scale, the quantized maps to 1 LSB, INWEIGHT to 1e-8.  Both
+read the input-layer cache that the reference's layer wrapper wrote when
+the survey was built, so star injection (tested in test_torch_layer.py) is
+paid once.
 
 The other LAKERNELs are held against the reference in the same way by
 :func:`port_vs_reference`, one solver family per test file.
@@ -55,6 +57,27 @@ def small_survey(tmp_path_factory):
         return cfg
 
 
+@pytest.fixture(scope="module")
+def reference_block(small_survey):
+    """The reference's block 1 of the reduced survey at STOP 4 (bench.py's
+    run_region: its device group engine on one device), made once for the
+    session under a file lock; test_block_matches_reference and
+    test_torch_bench.py hold the port's block and its bench entry to it.
+    Returns its output path."""
+    from filelock import FileLock
+
+    import bench as ref_bench
+
+    out = small_survey["OUT"] + "_ref_00_01.fits"
+    with FileLock(out + ".lock"):
+        if not os.path.exists(out):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("PYIMCOM_DEVICE_ASSEMBLY", "1")
+                mp.setenv("PYIMCOM_NDEVICES", "1")
+                ref_bench.run_region(small_survey, stop=4, out_suffix="_ref")
+    return out
+
+
 def _cfg(cfg_dict, suffix, stop=4, **over):
     from pyimcom_tpu.config import Config
 
@@ -99,16 +122,11 @@ def port_vs_reference(cfg_dict, monkeypatch, suffix, assembly, stop=2, **over):
     return out_port
 
 
-def test_block_matches_reference(small_survey, monkeypatch):
-    from pyimcom_tpu.coadd import Block as RefBlock
+def test_block_matches_reference(small_survey, reference_block):
     from pyimcom_tpu_torch.coadd import Block
     from pyimcom_tpu_torch.ops import interp_cuda
 
-    monkeypatch.setenv("PYIMCOM_DEVICE_ASSEMBLY", "1")
-    monkeypatch.setenv("PYIMCOM_NDEVICES", "1")
-    cfg, out_ref = _cfg(small_survey, "_ref")
-    RefBlock(cfg=cfg, this_sub=1)
-
+    out_ref = reference_block
     interp_cuda.reset_launch_counts()
     cfg, out_port = _cfg(small_survey, "_port")
     blk = Block(cfg=cfg, this_sub=1, device="cpu")

@@ -619,3 +619,48 @@ def test_fftconvolve_multi_card_matches_cpu(cuda):
     got = fftconvolve_multi(torch.as_tensor(canvas, device=cuda),
                             torch.as_tensor(kernels, device=cuda)).cpu()
     assert _rel(got, want) < TOL
+
+
+def test_piff_draw_card_matches_cpu(cuda, tmp_path):
+    """A batched Piff draw (a seeded order-2 PixelGrid, the block's stamp
+    of 48 native pixels at oversampling 8) on the card against the CPU
+    route: float32 stamps within one float32 spacing of max|stamp|."""
+    from pyimcom_tpu_torch.utils import piffutils
+
+    rng = np.random.default_rng(41)
+    size = 41
+    c = (size - 1) / 2.0
+    yy, xx = np.mgrid[0:size, 0:size]
+    g = np.exp(-0.5 * ((xx - c) ** 2 + (yy - c) ** 2) / 4.0 ** 2)
+    q = 1e-3 * g.max() * rng.standard_normal((size * size, 6))
+    q[:, 0] = g.ravel() / g.sum()
+    piffutils.write_piff_file(str(tmp_path / "m.piff"), q, size, 2, scale=1.0 / 6)
+    model = piffutils.PiffPSFModel(str(tmp_path / "m.piff"), 3)
+    xs, ys = rng.uniform(0, 4087, 12), rng.uniform(0, 4087, 12)
+    kw = dict(stamp_size=48, oversamp=8, normbox=5)
+    got = np.stack(piffutils.draw_models([model] * 12, xs, ys, device=cuda, **kw))
+    want = np.stack(piffutils.draw_models([model] * 12, xs, ys, device="cpu", **kw))
+    assert got.dtype == want.dtype == np.float32 and got.shape == (12, 384, 384)
+    assert np.abs(got.astype(np.float64) - want).max() <= np.spacing(np.abs(want).max())
+
+
+def test_multiinterp_card_matches_cpu(cuda):
+    """MultiInterp's gather on the card against the CPU route on a 2-layer
+    float32 mosaic with a mask, a sheared map and extra smoothing, in two
+    blocks of output pixels: within one float32 spacing of max|out|, the
+    mask, Umax and Smax equal."""
+    from pyimcom_tpu_torch.meta.ginterp import MultiInterp
+
+    rng = np.random.default_rng(43)
+    n = 160
+    img = rng.standard_normal((2, n, n)).astype(np.float32)
+    mask = rng.uniform(size=(n, n)) < 1e-3
+    J = np.array([[1.02, 0.01], [-0.01, 0.98]])
+    args = (img, mask, (140, 140), np.array([4.2, 3.7]), J, 6.0, 4.0, [0.6, 0.1, 0.5])
+    got = MultiInterp(*args, blocksize=12000, device=cuda)
+    want = MultiInterp(*args, blocksize=12000, device="cpu")
+    assert got[0].dtype == np.float32
+    assert np.abs(got[0].astype(np.float64) - want[0]).max() <= np.spacing(
+        np.abs(want[0]).max())
+    assert np.array_equal(got[1], want[1]) and not got[1].all()
+    assert got[2:] == want[2:]

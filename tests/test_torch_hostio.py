@@ -4,8 +4,9 @@ pyimcom_tpu_torch keeps its own copy of every jax-free host module it uses
 (config, fitsio, wcsutil, sphere, asdfio, profiling, ops/psfmodels,
 utils/moments, utils/compareutils, layer's helpers in layer_host,
 imdestripe's host helpers, compress, truthcats, analysis, splitpsf,
-update_cube and imsubtract's host helpers; analysis's cases on block files
-are in test_torch_pipeline.py).  Each case runs the copy
+update_cube and imsubtract's host helpers, piffutils's reader, writer and
+Legendre quadrature, meta's InterpMatrix and MetaMosaic's reader, masks and
+writer; analysis's cases on block files are in test_torch_pipeline.py).  Each case runs the copy
 and the original on the same seeded inputs: configurations, FITS files,
 WCS transforms and every helper must agree exactly (bit for bit, or equal
 objects), since the copies are the same code.
@@ -651,3 +652,86 @@ def test_imsubtract_host_helpers_are_bit_equal():
     for ov, n in ((6, 48), (4, 40)):
         K = np.random.default_rng(ov).normal(size=(3, n, n))
         assert _same(ref_imsub.bin_kernel_2x2(K, ov), imsubtract.bin_kernel_2x2(K, ov))
+
+
+# --------------------------------------------------------------------------
+# Piff input and metadetection
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chips", [False, True], ids=["one", "per-chip"])
+def test_piff_file_writer_and_reader_are_bit_equal(chips, tmp_path):
+    """write_piff_file: the same bytes; PiffPSFModel: the same grid, basis
+    and parameters from either file."""
+    import pyimcom_tpu.utils.piffutils as ref_piff
+    from pyimcom_tpu_torch.utils import piffutils
+
+    rng = np.random.default_rng(31)
+    size, order = 11, 1
+    q = {0: rng.normal(size=(size * size, 3)), 6: rng.normal(size=(size * size, 3))}
+    q = q if chips else q[0]
+    ref_piff.write_piff_file(str(tmp_path / "a.piff"), q, size, order, scale=0.25)
+    piffutils.write_piff_file(str(tmp_path / "b.piff"), q, size, order, scale=0.25)
+    assert (tmp_path / "a.piff").read_bytes() == (tmp_path / "b.piff").read_bytes()
+    for sca in (1, 7):
+        a = ref_piff.PiffPSFModel(str(tmp_path / "a.piff"), sca)
+        b = piffutils.PiffPSFModel(str(tmp_path / "a.piff"), sca)
+        assert (a.scale, a.size, a.order, a.exponents) == (b.scale, b.size, b.order, b.exponents)
+        assert _same(a.q, b.q)
+        assert _same(a.basis(1000.5, 17.0), b.basis(1000.5, 17.0))
+        assert _same(a.params(1000.5, 17.0), b.params(1000.5, 17.0))
+
+
+def test_legendre_quadrature_is_bit_equal():
+    """psf_stamps_to_legendre_cube on the same drawing function."""
+    import pyimcom_tpu.utils.piffutils as ref_piff
+    from pyimcom_tpu_torch.utils import piffutils
+
+    def draw(x, y):
+        r = np.random.default_rng(int(x * 7 + y))
+        return r.normal(size=(9, 9)) * (1 + x / 4088.0)
+
+    for lorder in (0, 2):
+        assert _same(ref_piff.psf_stamps_to_legendre_cube(draw, lorder),
+                     piffutils.psf_stamps_to_legendre_cube(draw, lorder))
+
+
+@pytest.mark.parametrize("cov", [[0.0, 0.0, 0.0], [1.5, 0.3, 0.9]], ids=["none", "smooth"])
+def test_interp_matrix_is_bit_equal(cov):
+    import pyimcom_tpu.meta.ginterp as ref_ginterp
+    from pyimcom_tpu_torch.meta import ginterp
+
+    r = np.random.default_rng(5)
+    x, y = r.uniform(0, 1, 200), r.uniform(0, 1, 200)
+    for Rsearch, samp, stest in ((6.0, 4.0, 1), (3.5, 2.7, 3)):
+        assert _same(ref_ginterp.InterpMatrix(Rsearch, samp, x, y, cov, stest=stest),
+                     ginterp.InterpMatrix(Rsearch, samp, x, y, cov, stest=stest))
+
+
+def test_metamosaic_reader_masks_and_writer_are_the_same(tmp_path):
+    """MetaMosaic on a 3x3 block set and on a 1-pixel extension (extpix), its
+    masks (fidelity, noise, caps, a pixel mask), origimage and to_file."""
+    from pyimcom_tpu.meta.distortimage import MetaMosaic as RefMetaMosaic
+    from test_torch_meta import write_blocks
+    from pyimcom_tpu_torch.meta.distortimage import MetaMosaic
+
+    fname = write_blocks(tmp_path)
+    for kw in ({}, {"extpix": 7}, {"bbox": (0, 2, 1, 3)}):
+        a, b = RefMetaMosaic(fname, **kw), MetaMosaic(fname, device="cpu", **kw)
+        for name in ("nlayer", "im_dtype", "stem", "ix", "iy", "trunc", "Nside",
+                     "in_image", "in_fidelity", "in_noise", "in_mask"):
+            assert _same(getattr(a, name), getattr(b, name)), (kw, name)
+        assert a.wcs.to_header() == b.wcs.to_header()
+        extra = np.zeros((a.Nside, a.Nside), dtype=bool)
+        extra[3:5, 8:9] = True
+        for m in (a, b):
+            m.mask_fidelity_cut(40)
+            m.mask_noise_cut(2.5)
+            m.maskpix(extra)
+            m.mask_caps([60.0504], [-3.8], [2e-4])
+        assert _same(a.in_mask, b.in_mask)
+        oa, ob = a.origimage(N=21, select_layers=[1]), b.origimage(N=21, select_layers=[1])
+        assert _same(oa["image"], ob["image"]) and _same(oa["mask"], ob["mask"])
+        assert oa["layers"] == ob["layers"]
+        a.to_file(oa, str(tmp_path / "a.fits"))
+        b.to_file(ob, str(tmp_path / "b.fits"))
+        assert (tmp_path / "a.fits").read_bytes() == (tmp_path / "b.fits").read_bytes()

@@ -31,7 +31,9 @@ MODULES = ("pyimcom_tpu_torch", "pyimcom_tpu_torch.coadd",
            "pyimcom_tpu_torch.analysis", "pyimcom_tpu_torch.layer_wrapper",
            "pyimcom_tpu_torch.pipeline", "pyimcom_tpu_torch.outmaps",
            "pyimcom_tpu_torch.splitpsf", "pyimcom_tpu_torch.splitpsf.splitpsf",
-           "pyimcom_tpu_torch.splitpsf.imsubtract", "pyimcom_tpu_torch.splitpsf.update_cube")
+           "pyimcom_tpu_torch.splitpsf.imsubtract", "pyimcom_tpu_torch.splitpsf.update_cube",
+           "pyimcom_tpu_torch.utils.piffutils", "pyimcom_tpu_torch.meta",
+           "pyimcom_tpu_torch.meta.ginterp", "pyimcom_tpu_torch.meta.distortimage")
 
 CASES = {
     # jax made unimportable: every import must still succeed

@@ -87,11 +87,22 @@ def _same_images(path_a, path_b):
             np.testing.assert_array_equal(np.asarray(hb.data), np.asarray(ha.data))
 
 
-def test_cli_block_matches_block_and_skips_when_done(small_survey, tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def block_1(small_survey):
+    """Block 1 of the reduced survey at STOP 1, coadded once by Block in
+    this process for the CLI and the worker-pool tests; its output path."""
     from pyimcom_tpu_torch import coadd
 
     cfg, out_blk = _cfg(small_survey, "_rblock", stop=1)
     coadd.Block(cfg=cfg, this_sub=1, device="cpu")
+    return out_blk
+
+
+def test_cli_block_matches_block_and_skips_when_done(small_survey, block_1, tmp_path,
+                                                     monkeypatch):
+    from pyimcom_tpu_torch import coadd
+
+    out_blk = block_1
     d = dict(small_survey, STOP=1, OUT=small_survey["OUT"] + "_rcli")
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(d))
@@ -108,18 +119,20 @@ def test_cli_block_matches_block_and_skips_when_done(small_survey, tmp_path, mon
         runner.run_block(dict(d), 1, skip_existing=False, device="cpu")
 
 
-def test_run_mosaic_worker_pool_matches_run_block(small_survey, monkeypatch):
+def test_run_mosaic_worker_pool_matches_run_block(small_survey, block_1, monkeypatch):
     """Two blocks (one stamp each) over a pool of two forkserver workers
-    write the files that run_block writes in this process, and a rerun of
-    the mosaic skips both."""
+    write the files that Block (block 1, the module's run) and run_block
+    (block 0) write in this process, and a rerun of the mosaic skips both."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")     # read by the workers' torch
     here = dict(small_survey, STOP=1, OUT=small_survey["OUT"] + "_rhere")
     pool = dict(here, OUT=small_survey["OUT"] + "_rpool")
-    want = [runner.run_block(dict(here), b, device="cpu") for b in (1, 0)]
+    want = {block_1: pool["OUT"] + "_00_01.fits"}
+    path = runner.run_block(dict(here), 0, device="cpu")
+    want[path] = path.replace("_rhere", "_rpool")
     got = runner.run_mosaic(pool, blocks=[1, 0], nworkers=2, device="cpu")
-    assert sorted(got) == sorted(p.replace("_rhere", "_rpool") for p in want)
-    for path in want:
-        _same_images(path, path.replace("_rhere", "_rpool"))
+    assert sorted(got) == sorted(want.values())
+    for path, pooled in want.items():
+        _same_images(path, pooled)
     stamp = {p: os.path.getmtime(p) for p in got}
     assert sorted(runner.run_mosaic(pool, blocks=[1, 0], nworkers=2, device="cpu")) == sorted(got)
     assert {p: os.path.getmtime(p) for p in got} == stamp
