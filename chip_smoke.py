@@ -63,9 +63,14 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    NPIXPSF 48) with Cholesky, with the production default solve of
    configs/default_config.json (Iterative, KAPPAC [0.0], ITERRTOL 0.0015,
    ITERMAX 30) and with Eigen: seconds per stamp, n per stamp, peak device
-   memory, U/C and Sigma medians; every output map must be finite; then
-   pool_budget: STOP 324 (two rows of 40 groups and the first group of the
-   third) with Cholesky, first with the default pool budget, then with a
+   memory, U/C and Sigma medians; every output map must be finite; beside
+   the Cholesky group, production_mixed: the same group at SOLVERPREC
+   "mixed" (a float32 factorization with float64 refinement), its U/C and
+   Sigma medians within 1e-6 and 1e-4 of the Cholesky group's
+   (tests/test_solvers.py::test_mixed_precision_matches_f64's bounds), and
+   both solves alone at n 5120 (solve_alone); then
+   pool_budget: STOP 164 (a row of 40 groups and the first group of the
+   second) with Cholesky, first with the default pool budget, then with a
    third of that run's retained peak: the retained pool bytes after each
    group, peak and reserved device memory, seconds a stamp, evictions,
    recomputed submatrices and the extra K2 launches, the second run within
@@ -90,38 +95,47 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
 11. g4460_block: the bench block with PSFINTERP "G4460", warm: blocks/hour,
    phase times, SL1 and the U/C median, equal to the port's CPU record of
    the same block (CPU_RECORD_G4460) to 1e-8 relative; psfsplit_loop (in
-   .smoke_work/psfsplit/): tests/test_psfsplit_e2e.py's loop at its
-   settings (n_obs 8, cstar14, NPIXPSF 16, INPAD 0.4, PSFSPLIT [3.0, 6.0,
-   0.01]; the whole block 1; the survey's split files carry no OVSAMP, so
-   the wing kernels are taken at oversampling 1 and an exposure's canvas is
-   4208^2) through the port's entries:
-   splitpsf.main, the iteration-0 block, the wing subtraction as one
-   job-array task (``imsubtract cfg <sca>`` for the SCA with the fewest
-   cached exposures, at least one; 4088^2, every layer), update_cube, the
-   iteration-1 block: seconds per stage; per exposure the canvas side, the
-   host geometry seconds, the K1<8> launches and device ms, the FFT device
-   ms and peak device memory; the e2e test's criteria (count >= 4, GSSKIP,
-   KERSKIP, IMSBITER 0 then 1, max|delta| > 0, median|delta| < 0.5
-   max|a|, the history's iteration 0, finite maps), SL1 and U/C of both
-   iterations, and the first exposure's first layer against the port's CPU
-   route on the same canvas geometry: the f64 correction (K * mosaic at
-   the exposure's pixels) within CORRECTION_TOL of its largest value, and
-   the card's float32 output within 2 float32 spacings at max|cube|;
-   within the loop, before the update, wing_production: the same exposure
-   at its PSFs' own oversampling (6, given to run_imsubtract) with bin2x2,
-   a 12324^2 canvas -- run_imsubtract on the loop's mosaic, every layer,
-   then the first layer from one block covering the whole canvas (seeded
-   random data; one K1<8> launch of 12324^2 queries) -- with each task's
-   K1<8> launches and device ms, FFT device ms, peak device memory, host
-   resident set and seconds; fftconv_full: one fftconvolve_multi at the unbinned
-   production canvas (FFT_SIDE^2, a 120^2 kernel, seeded random data on the
-   card): device ms, peak memory, a 2048^2 crop against the CPU route
-   (1e-12 of scale), and the bytes and operations bounds of one
-   convolution at the three canvas sides the phases run (fft_bounds);
-   g4460_kernels: K1<8> alone on its captured launches
-   (PSF sampling of the G4460 block, the first wing canvas of each wing
-   task, at most 2^22 queries of one) and K2<8> (pool, B) on
-   the G4460 block's first group, against their plain versions (1e-12 of
+   .smoke_work/psfsplit/): BASELINE.json config 3 as one run on
+   tests/test_psfsplit_e2e.py's survey (n_obs 8, NPIXPSF 16, INPAD 0.4; the
+   science layer only: injecting its cstar14 grid with the 768^2 Legendre
+   stamps costs ~50 s of host time an exposure; the whole block 1) through
+   the port's entries -- each
+   observation's PSF written as a Piff file (as piff_block below writes
+   them, at the cube's own sampling), piff_to_legendre_multi on the card
+   for the chip each observation places on the field (C3_LEGENDRE: stamp
+   128 and oversampling 6, the JAX defaults, at Legendre order 1), with
+   the first observation's conversion on the CPU route beside it;
+   splitpsf.main as a job array (one process an observation, INPSF
+   [legendre dir, "L2_2506", 6], PSFSPLIT [3.0, 6.0, 0.01, true]); the
+   iteration-0 block; the wing subtraction as one job-array task
+   (``imsubtract cfg <sca>`` for the SCA with the fewest cached exposures,
+   at least one; 4088^2) at the split files' oversampling
+   with bin2x2, given none; update_cube; the iteration-1 block: seconds per
+   stage; the conversion's seconds and bytes, the split tasks' seconds and
+   the split files' bytes; per exposure the canvas side, the host geometry
+   seconds, the K1<8> launches and device ms, the FFT device ms, peak
+   device memory and the host resident set; the criteria: the card's
+   Legendre cubes within 2 float32 spacings of max|cube[0]| of the CPU
+   route's and equal headers, OVSAMP 6 in the Legendre and split files,
+   every split HDU finite (placeholders too), count >= 4, GSSKIP, KERSKIP,
+   IMSBITER 0 then 1, the history's iteration 0, the canvas of the split
+   files' binned kernels, max|delta| > 0, median|delta| < 0.5 max|a|, and
+   in both iterations finite maps, a U/C median < 1e-6 and the science
+   star's SL1 within 5e-3 (tests/test_full_pipeline.py:165's bound) of
+   survey_fixture_torch.pixel_twice_sl1 -- the Legendre cubes converted
+   from Piff files hold the pixel response, which the split applies again,
+   a fault both packages share (ROADMAP.md queue 3) -- and iteration 1's
+   VAR below max(1.05 x iteration 0's, 1e-5) (:166); the iteration-0
+   block's first K1 launch of PSF sampling (as k1_main_path) and its first
+   group's K2 launches (as k2_main_path) against their plain versions;
+   fftconv_full: one fftconvolve_multi at the unbinned production canvas
+   (FFT_SIDE^2, a 120^2 kernel, seeded random data on the card): device
+   ms, peak memory, a 2048^2 crop against the CPU route (1e-12 of scale),
+   and the bytes and operations bounds of one convolution at that side and
+   at the loop's (fft_bounds); g4460_kernels: K1<8> alone on its captured
+   launches (PSF sampling of the G4460 block, the first wing canvas of the
+   loop's task, at most 2^22 queries of it) and K2<8> (pool, B) on the
+   G4460 block's first group, against their plain versions (1e-12 of
    scale), with their bounds;
 11b. piff_block (in .smoke_work/piff/): the bench survey with each
    observation's PSF written as a Piff file as tests/test_piff.py:115-127
@@ -140,13 +154,9 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    max|stamp|); K1 and K2 launched; the warm run's first K1 launch of PSF
    sampling (as k1_main_path) and its first group's K2 launches (as
    k2_main_path) against their plain versions (1e-12 of scale);
-   piff_legendre: piff_to_legendre_multi on one observation's Piff file for
-   the SCAs block 1 reads of it, at the JAX defaults (stamp 128,
-   oversampling 6, Legendre order 5), on the card and on the CPU route:
-   seconds, the cubes within 2 float32 spacings of max|cube[0]|, OVSAMP in
-   the header;
-12. destripe (in .smoke_work/destripe/): build_survey(n_obs=6) -- 4 F184
-   SCAs at 4088^2 overlapping in 12 ordered pairs -- with row stripes
+12. destripe (in .smoke_work/destripe/): build_survey(n_obs=6) less its
+   fourth F184 exposure -- 3 F184 SCAs at 4088^2 overlapping in 6 ordered
+   pairs (the host builds ~10 s of pair map a pair) -- with row stripes
    injected as scripts/run_chained_pipeline.py does, then
    ``pyimcom_tpu_torch.imdestripe.main(cfg, maxiter=5)`` on the card (object
    mask and WCS gain on): the host map build and upload seconds, peak device
@@ -168,7 +178,7 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    than the striped, by RMS, and the SL1 of all three;
 13. mosaic_chain (in .smoke_work/mosaic_chain/): ``pyimcom_tpu_torch.pipeline``
    as scripts/run_chained_pipeline.py's defaults run it, except --n-obs 6
-   (the destripe phase's 4 F184 SCAs): a 2x2 mosaic of 8 x 8 stamps of 32
+   (4 F184 SCAs, 12 ordered pairs): a 2x2 mosaic of 8 x 8 stamps of 32
    px at 0.0390625", NPIXPSF 48, INPAD 1.055, PAD 1 on every side, cstar14
    and whitenoise1, through destripe (5 CG iterations), the layer caches
    (a forkserver pool), the four blocks, the halo exchange and compression:
@@ -180,6 +190,8 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    on block _00_01 (tests/test_full_pipeline.py's bound); every compressed
    layer read back through compress.ReadFile within the I24B step plus
    float32 noise (pipeline.compression_check) and every other HDU equal;
+   without the report stage (``report=False``: the card's machine has no
+   matplotlib, which the report draws with);
 13b. meta_shear: meta.MetaMosaic on block _00_01 of the chain's mosaic (its
    3x3 neighbourhood: 4 blocks of 256^2), examples/read_and_shear.py's
    steps -- mask_fidelity_cut(40), shearimage(N = n1 n2, the reduced shear
@@ -189,7 +201,7 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    of the maximum and the masks equal, with seconds, UMAX, SMAX and the
    masked share of each; then MultiInterp at production
    size: a seeded 3x3 mosaic of 2560^2 blocks (7680^2, 2 float32 layers),
-   307 rows of a 2560-wide output at its centre (META_ROWS: 2 of the 17
+   153 rows of a 2560-wide output at its centre (META_ROWS: 1 of the 17
    blocks of 393216 points of the whole 2560^2 output) under the same
    shear and smoothing: InterpMatrix's
    host seconds, the tap gather's device time (CUDA events around each
@@ -207,6 +219,11 @@ TFLOP/s (the H100 SXM data sheet; the f64 rate is that of the tensor cores,
 twice the vector units') -- `roofline_ms`, the kernel line's bound -- and,
 in `bound_ms`, the launch floor besides: a kernel whose bound is the floor
 is at its bound.
+
+``python3 chip_smoke.py --legendre-order N`` runs only legendre_cost: what
+config 3's conversion and split cost at Legendre order N (the conversion
+of one observation on the card, its file's bytes, one SCA's split on the
+host, a split file's bytes), for the choice of C3_LEGENDRE's order.
 
 Every block runs with the kernel launch counts set to 0 just before it and
 read just after, and fails if a kernel of its path was not launched.  Each
@@ -237,36 +254,37 @@ CPU_RECORD = {"SL1": 0.999938, "uc_median": 3.65e-7}   # .bench_cpu_baseline.jso
 MULTI_KAPPA = [5e-4, 1e-3, 2e-3]                        # BASELINE.json configs[1]
 STAR_REGION = np.s_[0:25, 25:50]                        # the stamp with the star
 PROD = dict(OUTSIZE=[80, 32, 0.0390625], INPAD=1.055, NPIXPSF=48, STOP=4)
-# production: two rows of 40 groups and the first group of the third.  The
+# production: a row of 40 groups and the first group of the second.  The
 # sim pass counts the references of the stamps a run will coadd, so a row's
 # pools are retained only when the run goes on to the next row's
 POOL_ROW = PROD["OUTSIZE"][0] // 2
-POOL_STOP = 4 * (2 * POOL_ROW + 1)
+POOL_STOP = 4 * (POOL_ROW + 1)
 GALAXY = "gsext14,n=0.5,hlr=0.1,shape=0.2:0.1"          # tests/test_e2e_galaxy.py
 # the G4460 bench block on the CPU: python -m pyimcom_tpu_torch.bench --device cpu
 # --full --psfinterp G4460
 CPU_RECORD_G4460 = {"SL1": 0.9999383490946347, "uc_median": 8.283235329759168e-07}
-# tests/test_psfsplit_e2e.py's survey and split.  The survey's PSF files
-# carry no OVSAMP, so neither do the split files, and the wing subtraction
-# takes the kernels at oversampling 1 (the JAX package's default): a 4208^2
-# canvas for a 4088^2 SCA, where bin2x2 (PSFSPLIT[3]) would raise (odd
-# oversampling) in both packages
+# config 3 as one run on tests/test_psfsplit_e2e.py's survey: its PSFs as
+# Piff files, converted to Legendre cubes at piff_to_legendre_multi's JAX
+# defaults for stamp and oversampling but Legendre order 1 (the survey
+# cubes' 4 planes; order 5's 36 planes make a 4.6 GB split file an
+# observation and ~9 minutes of host splitting one: PERF.md section 4), the
+# split files' OVSAMP 6 taken by the wing subtraction with bin2x2
 PSFSPLIT_OVERRIDES = {"NPIXPSF": 16, "INPAD": 0.4}
-PSFSPLIT = [3.0, 6.0, 0.01]
-# the unbinned wing canvas of a 4088^2 SCA: oversampling 6, I_pad 10
+PSFSPLIT = [3.0, 6.0, 0.01, True]
+C3_LEGENDRE = dict(stamp_size=128, oversamp=6, legendre_order=1)
+# the unbinned wing canvas of a 4088^2 SCA: oversampling 6, I_pad 10 (the
+# survey cubes' 120^2 kernels)
 FFT_SIDE = 6 * (4088 + 2 * 10)
-# the wing correction from the card against the CPU route, of its largest value
-CORRECTION_TOL = 1e-10
 # the Piff block draws at oversampling 8 (INPSF [dir, "piff", 8]) from files
 # at the cube's own sampling, with seeded order-1 terms of at most 1e-3 of
 # the peak (survey_fixture_torch.write_piff_files)
 PIFF_OV, PIFF_GRAD, PIFF_SEED = 8, 1e-3, 20261017
 # examples/read_and_shear.py: the reduced shear (g1, g2) and psfgrow; the
 # MultiInterp run at production size: output rows of a block's side
-# (OUTSIZE 80 stamps of 32 px) over a 3x3 mosaic of such blocks, 307 of the
-# 2560 rows (2 of MultiInterp's 17 blocks of 393216 points: InterpMatrix
+# (OUTSIZE 80 stamps of 32 px) over a 3x3 mosaic of such blocks, 153 of the
+# 2560 rows (1 of MultiInterp's 17 blocks of 393216 points: InterpMatrix
 # costs ~30 us a point of host time, 12 s a block on the card's host)
-META_SHEAR, META_PSFGROW, META_PROD, META_ROWS = (0.02, 0.0), 1.08, 2560, 307
+META_SHEAR, META_PSFGROW, META_PROD, META_ROWS = (0.02, 0.0), 1.08, 2560, 153
 PARENT_DIR = REPO / "pyimcom_tpu_torch" / "_build" / "parent"
 # earlier revisions of csrc/<name>.cu timed beside the current kernels where
 # PARENT_DIR holds them: the commit and the SHA-256 of the only revision
@@ -968,8 +986,9 @@ def profile_rows(prof, top=12):
 
 
 def striped_survey(root):
-    """The destripe phase's survey: build_survey(n_obs=6) (4 F184 SCAs at
-    4088^2), a clean copy of each L2 image under root/clean, and row stripes
+    """The destripe phase's survey: build_survey(n_obs=6) less the image and
+    mask of its fourth F184 exposure (3 F184 SCAs at 4088^2, 6 ordered
+    pairs), a clean copy of each L2 image under root/clean, and row stripes
     injected into the L2 images as scripts/run_chained_pipeline.py does
     (pipeline.inject_stripes).  Returns (config dict, the L2 paths)."""
     from survey_fixture_torch import build_survey
@@ -977,6 +996,8 @@ def striped_survey(root):
     from pyimcom_tpu_torch.pipeline import inject_stripes, raw_images
 
     cfg = build_survey(root, n_obs=6, extrainput=["cstar14"])
+    for p in (root / "in").glob("sim_L2_F184_3_*.fits"):
+        p.unlink()
     raw = [Path(p) for p in raw_images(root)]
     inject_stripes(root, raw)
     return cfg, raw
@@ -1010,7 +1031,7 @@ def destripe_inputs(root, raw, dsdir, variant):
 
 
 def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
-    """imdestripe.main on 4 striped F184 SCAs at 4088^2 (12 ordered pairs)
+    """imdestripe.main on 3 striped F184 SCAs at 4088^2 (6 ordered pairs)
     with 5 CG iterations, object mask and WCS gain on; K3 and K4 at the
     phase's shapes; the kernel route of the cost against the plain route;
     then the bench block coadded from the clean, striped and destriped
@@ -1045,7 +1066,7 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     assert all(k > 0 for k in launches.values()), launches
     prob = cap.problem
     dc = prob.device_cost
-    assert len(dc.pairs) == 12 and dc.imgs.shape == (4, 4088, 4088), (dc.pairs, dc.imgs.shape)
+    assert len(dc.pairs) == 6 and dc.imgs.shape == (3, 4088, 4088), (dc.pairs, dc.imgs.shape)
 
     cost0 = prob.cost(np.zeros_like(params))
     ts = [h["t"] for h in history]
@@ -1080,7 +1101,7 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
           "cost_and_grad_device_ms": cg_ms, "cost_and_grad_host_s": cg_host_s,
           "cost_and_grad_trace": trace if trace is not None else "not measured",
           "routes": routes, "row_median_std": quality, "improved": improved})
-    assert len(quality) == 4 and history[-1]["cost"] < cost0, quality
+    assert len(quality) == 3 and history[-1]["cost"] < cost0, quality
     assert improved >= len(quality) // 2, quality
 
     # ---- K3 and K4 alone at the phase's shapes ----
@@ -1126,14 +1147,14 @@ def phase_mosaic_chain():
 
     interp_cuda.reset_launch_counts()
     bilinear_cuda.reset_launch_counts()
-    res = pipeline.run(WORK / "mosaic_chain", n_obs=6)
+    res = pipeline.run(WORK / "mosaic_chain", n_obs=6, report=False)
     in_process = {**interp_cuda.launches, **bilinear_cuda.launches}
     finite = {Path(p).name: all(bool(np.all(np.isfinite(np.asarray(h.data))))
                                 for h in fits_read(p) if getattr(h, "data", None) is not None
                                 and np.asarray(h.data).dtype.kind in "fiu")
               for p in res["coadd_block_s"]}
     emit({"phase": "mosaic_chain", **res, "launches_in_process": in_process,
-          "finite": finite})
+          "finite": finite, "report": "left out: the card's machine has no matplotlib"})
     st = res["launches"]
     assert st["destripe"]["bilinear_gather"] > 0 and st["destripe"]["bilinear_scatter_adjoint"] > 0
     assert st["layers"]["interp_d5512_dense"] > 0, st["layers"]
@@ -1320,8 +1341,8 @@ def phase_runner(cfg_dict, warm_out, stop2_out):
 
 
 def phase_pool_budget(torch, dev, cfg_dict):
-    """Production geometry at STOP 324 (two rows of 40 groups and the first
-    group of the third), Cholesky: with the default budget, then with a
+    """Production geometry at STOP 164 (a row of 40 groups and the first
+    group of the second), Cholesky: with the default budget, then with a
     third of that run's retained peak; the second held to the first."""
     runs = {}
     for name in ("default", "third"):
@@ -1365,7 +1386,8 @@ def solve_ms_per_stamp(blk):
 
 
 def run_production(torch, dev, cfg_dict, phase, suffix, **over):
-    """One 2x2 group at production geometry; prints its phase line."""
+    """One 2x2 group at production geometry; prints and returns its phase
+    line."""
     from pyimcom_tpu_torch.fitsio import fits_read
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1375,15 +1397,84 @@ def run_production(torch, dev, cfg_dict, phase, suffix, **over):
             if getattr(h, "data", None) is not None and np.asarray(h.data).dtype.kind in "fiu"
             and np.asarray(h.data).ndim >= 2}
     finite = {k: bool(np.all(np.isfinite(v))) for k, v in maps.items()}
-    emit({"phase": phase, "solve": over or "Cholesky", "stamps": len(prod.stamp_stats),
-          "block_s": t_prod, "s_per_stamp": t_prod / max(len(prod.stamp_stats), 1),
-          "solve_ms_per_stamp": solve_ms_per_stamp(prod),
-          "n": [s["n"] for s in prod.stamp_stats],
-          "uc_median": [s["uc_median"] for s in prod.stamp_stats],
-          "sigma_median": [s["sigma_median"] for s in prod.stamp_stats],
-          "max_memory_allocated_GiB": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-          "finite": finite, "launches": launches, "phases": phase_times(prod)})
+    rec = {"phase": phase, "solve": over or "Cholesky", "stamps": len(prod.stamp_stats),
+           "block_s": t_prod, "s_per_stamp": t_prod / max(len(prod.stamp_stats), 1),
+           "solve_ms_per_stamp": solve_ms_per_stamp(prod),
+           "n": [s["n"] for s in prod.stamp_stats],
+           "uc_median": [s["uc_median"] for s in prod.stamp_stats],
+           "sigma_median": [s["sigma_median"] for s in prod.stamp_stats],
+           "max_memory_allocated_GiB": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "finite": finite, "launches": launches, "phases": phase_times(prod)}
+    emit(rec)
     assert len(prod.stamp_stats) == 4 and all(finite.values()), finite
+    return rec
+
+
+def phase_production_mixed(torch, dev, cfg_dict, f64):
+    """The production group at SOLVERPREC "mixed" (float32 factorization,
+    float64 refinement) beside the float64 Cholesky group `f64` (its
+    line): each stamp's U/C and Sigma medians within the bounds of
+    tests/test_solvers.py::test_mixed_precision_matches_f64 for a
+    production-like node (1e-6, 1e-4); then the solve alone at n = 5120
+    (solve_alone)."""
+    rec = run_production(torch, dev, cfg_dict, "production_mixed", "_prodmix",
+                         SOLVERPREC="mixed")
+    diff = {key: max(abs(a - b) for a, b in zip(rec[key], f64[key]))
+            for key in ("uc_median", "sigma_median")}
+    alone = solve_alone(torch, dev)
+    emit({"phase": "production_mixed_vs_f64", "median_abs_diff": diff,
+          "s_per_stamp": {"mixed": rec["s_per_stamp"], "f64": f64["s_per_stamp"]},
+          "solve_ms_per_stamp": {"mixed": rec["solve_ms_per_stamp"],
+                                 "f64": f64["solve_ms_per_stamp"]}, "solve_alone": alone})
+    assert rec["n"] == f64["n"], (rec["n"], f64["n"])
+    assert diff["uc_median"] < 1e-6 and diff["sigma_median"] < 1e-4, diff
+    assert alone["UC_max_abs_diff"] < 1e-6 and alone["Sigma_max_abs_diff"] < 1e-4, alone
+
+
+def solve_alone(torch, dev, n=5120, m=1156, reps=3):
+    """cholesky_solve and cholesky_solve_mixed alone on the card at the
+    production group's size (PERF.md's solve-alone system: n 5120, m 1156, one
+    target PSF, KAPPAC [5e-4]; A = X X^T / n + 1e-3 I of a seeded normal X,
+    -B/2 seeded normal): the median of `reps` calls after a warm-up, CUDA
+    events around each call (the solvers read the factorization's status
+    on the host, so the time holds that sync), and the largest differences
+    of U/C and Sigma."""
+    from pyimcom_tpu_torch.solvers import cholesky_solve, cholesky_solve_mixed
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261018)
+    X = torch.randn((n, n), dtype=torch.float64, device=dev, generator=g)
+    A = X @ X.T / n + 1e-3 * torch.eye(n, dtype=torch.float64, device=dev)
+    del X
+    mb = torch.randn((1, m, n), dtype=torch.float64, device=dev, generator=g) / n
+    C = torch.ones(1, dtype=torch.float64, device=dev)
+    kC = torch.tensor([5e-4], dtype=torch.float64, device=dev)
+    out, ms = {}, {}
+    for name, fn in (("f64", cholesky_solve), ("mixed", cholesky_solve_mixed)):
+        fn(A, mb, C, kC, 1e-3, 1.0)
+        times = []
+        for _ in range(reps):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out[name] = fn(A, mb, C, kC, 1e-3, 1.0)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        ms[name] = statistics.median(times)
+    # the least work: A, -B/2 and T once; the f64 solve's factorization
+    # (n^3 / 3) and triangular solves (2 n^2 m); the mixed solve's f32
+    # factorization and 1 + 2 solves, and its 2 f64 residual products
+    # (2 m n^2 each), every operation at the card's 67 TFLOP/s
+    nbytes = 8 * (n * n + 2 * m * n)
+    flops = {"f64": n ** 3 / 3 + 2 * n * n * m,
+             "mixed": n ** 3 / 3 + 3 * 2 * n * n * m + 2 * 2 * m * n * n}
+    bounds_ = {k: bound(nbytes, f) for k, f in flops.items()}
+    return {"n": n, "m": m, "ms": ms, "mixed_over_f64": ms["mixed"] / ms["f64"],
+            "bound_ms": {k: b[0] for k, b in bounds_.items()},
+            "bound_by": {k: b[1] for k, b in bounds_.items()},
+            "UC_max_abs_diff": float((out["mixed"][3] - out["f64"][3]).abs().max()),
+            "Sigma_max_abs_diff": float((out["mixed"][2] - out["f64"][2]).abs().max()),
+            "T_max_abs_diff": float((out["mixed"][0] - out["f64"][0]).abs().max())}
 
 
 def phase_g4460_block(cfg_dict, k1_caps):
@@ -1536,29 +1627,59 @@ def maps_finite(path):
                and np.asarray(h.data).dtype.kind in "fiu")
 
 
-def phase_psfsplit_loop(torch, k1_caps):
-    """The split-PSF loop of tests/test_psfsplit_e2e.py through the port's
-    entries (in .smoke_work/psfsplit/): splitpsf.main -> the iteration-0
-    block (the whole block 1, cold) -> the wing subtraction of one SCA as a
-    job-array task (``imsubtract cfg <sca>``: the SCA with the fewest cached
-    exposures, at least one; full 4088^2 and every layer; the survey's
-    kernels at oversampling 1, PSFSPLIT) -> update_cube -> the iteration-1
-    block.  The e2e test's criteria, SL1 and U/C of both iterations, and
-    the first exposure's first layer against the port's CPU route: its
-    correction to CORRECTION_TOL of scale, the card's float32 output to 2
-    float32 spacings at max|cube|.  Before the update, wing_production on
-    the first exposure.  Returns (the task's launches, wing_production's
-    record)."""
+def split_tasks(cfg_dict, legdir, obsids):
+    """splitpsf.main as a job array: one process an observation (``python -m
+    pyimcom_tpu_torch.splitpsf.splitpsf cfg.json``, one thread each), its
+    INPSF directory holding only that observation's Legendre file, all
+    writing INLAYERCACHE.psf/; returns the seconds of each task and of the
+    array."""
+    import os
+
+    procs, t0 = {}, time.perf_counter()
+    for obsid in obsids:
+        task = Path(legdir) / f"task_{obsid:d}"
+        task.mkdir()
+        name = f"psf_polyfit_{obsid:d}.fits"
+        (task / name).symlink_to(Path(legdir) / name)
+        cfg_path = task / "cfg.json"
+        cfg_path.write_text(json.dumps(dict(cfg_dict, INPSF=[str(task), *cfg_dict["INPSF"][1:]])))
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                   OPENBLAS_NUM_THREADS="1")
+        procs[obsid] = (subprocess.Popen([sys.executable, "-m",
+                                          "pyimcom_tpu_torch.splitpsf.splitpsf", str(cfg_path)],
+                                         cwd=REPO, env=env, stdout=subprocess.DEVNULL), t0)
+    secs = {}
+    for obsid, (proc, start) in procs.items():
+        assert proc.wait() == 0, (obsid, proc.returncode)
+        secs[obsid] = time.perf_counter() - start
+    return {"task_s": secs, "array_s": time.perf_counter() - t0}
+
+
+def dir_bytes(path, pattern):
+    return sum(p.stat().st_size for p in Path(path).glob(pattern))
+
+
+def phase_psfsplit_loop(torch, dev, k1_caps, floor_ms, parent):
+    """Config 3 as one run through the port's entries (module docstring,
+    11; in .smoke_work/psfsplit/): Piff files -> piff_to_legendre_multi on
+    the card -> splitpsf.main as a job array -> the iteration-0 block -> the
+    wing subtraction of one SCA as a job-array task (``imsubtract cfg
+    <sca>``) at the split files' oversampling with bin2x2 -> update_cube ->
+    the iteration-1 block.  Returns (the task's launches, the iteration-0
+    block's launches, its first K1 launch's record, its first group's K2
+    record, the wing canvas's side and the binned kernel's)."""
     import importlib
     import re
 
-    from survey_fixture_torch import build_survey
+    from survey_fixture_torch import (build_survey, field_chips, pixel_twice_sl1,
+                                      write_piff_files)
 
-    from pyimcom_tpu_torch.bench import quality_check
-    from pyimcom_tpu_torch.config import Config
+    from pyimcom_tpu_torch.bench import uc_median
     from pyimcom_tpu_torch.fitsio import fits_read
     from pyimcom_tpu_torch.ops import interp_cuda
-    from pyimcom_tpu_torch.splitpsf import imsubtract, splitpsf
+    from pyimcom_tpu_torch.pipeline import star_quality
+    from pyimcom_tpu_torch.splitpsf import imsubtract
+    from pyimcom_tpu_torch.utils import piffutils
 
     update_cube = importlib.import_module("pyimcom_tpu_torch.splitpsf.update_cube")
     root = WORK / "psfsplit"
@@ -1569,22 +1690,63 @@ def phase_psfsplit_loop(torch, k1_caps):
         stages[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    cfg_dict = build_survey(root, n_obs=8, extrainput=["cstar14"],
-                            config_overrides=PSFSPLIT_OVERRIDES)
-    cache = str(root / "cache" / "in")
-    d = dict(cfg_dict, INLAYERCACHE=cache, PSFSPLIT=PSFSPLIT)
-    cfg_path = root / "cfg_split.json"
-    cfg_path.write_text(json.dumps(d))
+    cfg_dict = build_survey(root, n_obs=8, extrainput=[], config_overrides=PSFSPLIT_OVERRIDES)
+    ov = int(cfg_dict["INPSF"][2])
+    piff_dir, legdir = root / "piff", root / "legendre"
+    piff_dir.mkdir()
+    legdir.mkdir()
+    n_piff = write_piff_files(cfg_dict["INPSF"][0], piff_dir, ov=ov, order=1, grad=PIFF_GRAD,
+                              seed=PIFF_SEED)
     stage("survey")
 
-    count = splitpsf.main(str(cfg_path))
-    sf = fits_read(cache + ".psf/psf_0.fits")
+    chips = field_chips(cfg_dict)
+    convert_s = {}
+    for obsid, obs_chips in chips.items():
+        t = time.perf_counter()
+        piffutils.piff_to_legendre_multi(str(piff_dir / f"ffov_{obsid:d}.piff"),
+                                         str(legdir / f"psf_polyfit_{obsid:d}.fits"),
+                                         chips=obs_chips, device=dev, **C3_LEGENDRE)
+        convert_s[obsid] = time.perf_counter() - t
+    stage("legendre")
+    # the first observation's conversion on the CPU route
+    first_obs = min(chips)
+    cpu_file = root / "legendre_cpu.fits"
+    t = time.perf_counter()
+    piffutils.piff_to_legendre_multi(str(piff_dir / f"ffov_{first_obs:d}.piff"), str(cpu_file),
+                                     chips=chips[first_obs], device="cpu", **C3_LEGENDRE)
+    cpu_s = time.perf_counter() - t
+    got, want = fits_read(legdir / f"psf_polyfit_{first_obs:d}.fits"), fits_read(cpu_file)
+    legendre = {"chips": chips, "card_s": convert_s, "cpu_route_s": cpu_s,
+                "cube": list(np.shape(want[chips[first_obs][0]].data)),
+                "OVSAMP": got[0].header.get("OVSAMP"),
+                "headers_equal": [dict(g.header) for g in got] == [dict(w.header) for w in want],
+                "card_vs_cpu_float32_spacings": {
+                    sca: float(np.abs(np.asarray(got[sca].data, np.float64) - want[sca].data).max()
+                               / np.spacing(np.float32(np.abs(want[sca].data[0]).max())))
+                    for sca in chips[first_obs]},
+                "bytes": dir_bytes(legdir, "psf_polyfit_*.fits")}
+    cpu_file.unlink()
+    stage("legendre_cpu_route")
+
+    cache = str(root / "cache" / "in")
+    d = dict(cfg_dict, INLAYERCACHE=cache, INPSF=[str(legdir), "L2_2506", ov],
+             PSFSPLIT=PSFSPLIT)
+    cfg_path = root / "cfg_split.json"
+    cfg_path.write_text(json.dumps(d))
+    tasks = split_tasks(d, legdir, sorted(chips))
+    split_files = sorted(Path(cache + ".psf").glob("psf_*.fits"))
+    sf = fits_read(split_files[0])
     nsca = int(sf[0].header["NSCA"])
-    split = dict(count=count, NSCA=nsca, GSSKIP=int(sf[0].header["GSSKIP"]),
-                 KERSKIP=int(sf[0].header["KERSKIP"]))
+    split = dict(count=len(split_files), NSCA=nsca, GSSKIP=int(sf[0].header["GSSKIP"]),
+                 KERSKIP=int(sf[0].header["KERSKIP"]),
+                 OVSAMP=sorted({fits_read(p)[0].header.get("OVSAMP") for p in split_files}),
+                 finite=all(bool(np.all(np.isfinite(np.asarray(h.data))))
+                            for p in split_files for h in list(fits_read(p))[1:]),
+                 bytes=dir_bytes(cache + ".psf", "psf_*.fits"), **tasks)
     stage("split")
 
-    blk0, out0, _t, launches0 = run_block(d, "_it0")
+    with capture_first_plan() as plan_cap, capture_k1("psfsplit", ["psf_sampling"], k1_caps):
+        blk0, out0, _t, launches0 = run_block(d, "_it0")
     stage("iteration0")
 
     pat = re.compile(r"_(\d{8})_(\d{2})\.fits$")
@@ -1602,42 +1764,17 @@ def phase_psfsplit_loop(torch, k1_caps):
                                                 max_queries=1 << 22):
         assert imsubtract._cli([str(cfg0_path), str(sca), "--device", "cuda"]) == 0
     task_launches = dict(interp_cuda.launches)
-    stage("imsubtract")
-
     first = cap.exposures[0]
     orig = np.asarray(fits_read(first["result"].replace("_subI", ""))[0].data, np.float64)
     sub = np.asarray(fits_read(first["result"])[0].data, np.float64)
     diff = np.abs(orig - sub)
-    # the first layer's correction (K * mosaic at the exposure's pixels, f64)
-    # from the card and from the CPU route on the same canvas geometry, and
-    # the card's float32 output against the CPU route's
-    cfg0 = Config(dict(d0))
-    obsid = first["idsca"][0]
-    split_file = cache + f".psf/psf_{obsid:d}.fits"
-    K, ov = imsubtract.wing_kernels(split_file, sca, bin2x2=cfg0.psfsplit_bin2x2)
-    f = fits_read(cache + f"_{obsid:08d}_{sca:02d}.fits")
-    ewcs = imsubtract.get_cache_wcs(f)
-    reader = imsubtract._default_block_reader(cfg0.outstem)
-    corr = {}
-    for where in ("cuda", "cpu"):
-        ((_n, kh),) = imsubtract.wing_corrections(
-            ewcs, K, ov, orig.shape[-1], cfg0.nblock, cfg0.n2 * cfg0.postage_pad, reader,
-            [0], device=where, geometry=cap.geometries[0])
-        corr[where] = kh.cpu().numpy()
-    cpu0 = np.array(f[0].data, np.float32)[0]
-    cpu0 -= corr["cpu"]
-    card = np.asarray(fits_read(first["result"])[0].data, np.float32)
-    spacing = float(np.spacing(np.float32(np.abs(cpu0).max())))
-    scale = float(np.abs(corr["cpu"]).max())
-    card_vs_cpu = dict(max_abs=float(np.abs(card[0].astype(np.float64) - cpu0).max()),
-                       limit=2 * spacing, float32_spacing=spacing,
-                       correction_max_abs=scale,
-                       correction_max_abs_diff=float(np.abs(corr["cuda"] - corr["cpu"]).max()),
-                       correction_limit=CORRECTION_TOL * scale)
-    stage("cpu_route_layer0")
-
-    wing = phase_wing_production(root, cfg0, (obsid, sca), split_file, k1_caps)
-    stage("imsubtract_production")
+    # the canvas the split file's kernels give: oversampling OVSAMP / 2
+    # (bin2x2), padded by half the binned kernel (wing_corrections)
+    K, ov_b = imsubtract.wing_kernels(cache + f".psf/psf_{first['idsca'][0]:d}.fits", sca,
+                                      bin2x2=True)
+    pad = int(np.ceil(K.shape[-1] / 2 / ov_b))
+    canvas = ov_b * (orig.shape[-1] + 2 * pad)
+    stage("imsubtract")
 
     it = update_cube.main(str(cfg_path))
     stage("update")
@@ -1646,115 +1783,100 @@ def phase_psfsplit_loop(torch, k1_caps):
 
     outs = {"it0": fits_read(out0), "it1": fits_read(out1)}
     hist = json.loads("".join(str(r) for r in outs["it1"]["OLDCFG"].data["text"]))
-    quality = {k: dict(zip(("SL1", "uc_median"), quality_check(p)), finite=maps_finite(p))
-               for k, p in (("it0", out0), ("it1", out1))}
-    rec = {"phase": "psfsplit_loop", "psfsplit": PSFSPLIT, "stages_s": stages, **split,
+    quality = {k: dict(zip(("SL1", "VAR"), star_quality(p, d)), uc_median=uc_median(p),
+                       finite=maps_finite(p)) for k, p in (("it0", out0), ("it1", out1))}
+    sl1_pixel_twice = pixel_twice_sl1(d)
+    rec = {"phase": "psfsplit_loop", "psfsplit": PSFSPLIT, "legendre_kw": C3_LEGENDRE,
+           "stages_s": stages, "piff_files": n_piff, "legendre": legendre, "split": split,
            "sca": sca, "cached_exposures_per_sca": {k: len(v) for k, v in per_sca.items()},
+           "kernels": {"oversampling": ov_b, "shape": list(K.shape)}, "canvas_side": canvas,
            "exposures": [{k: v for k, v in e.items() if k != "result"} for e in cap.exposures],
            "layers": int(orig.shape[0]), "image": list(orig.shape[1:]),
            "max_abs_delta": float(diff.max()), "median_abs_delta": float(np.median(diff)),
-           "max_abs_cube": float(np.abs(orig).max()), "card_vs_cpu_layer0": card_vs_cpu,
+           "max_abs_cube": float(np.abs(orig).max()),
            "IMSBITER": [int(outs[k]["OLDCFG"].header["IMSBITER"]) for k in ("it0", "it1")],
            "iteration_after_update": it, "history_iteration0": hist[0]["iteration"],
-           "quality": quality, "task_launches": task_launches,
+           "quality": quality, "SL1_pixel_twice": sl1_pixel_twice,
+           "task_launches": task_launches,
            "launches": {"it0": launches0, "it1": launches1},
            "stamps": [len(blk0.stamp_stats), len(blk1.stamp_stats)]}
     emit(rec)
-    assert count >= 4 and split["GSSKIP"] == nsca and split["KERSKIP"] == 2 * nsca, split
+    assert legendre["OVSAMP"] == ov and legendre["headers_equal"], legendre
+    assert all(v <= 2 for v in legendre["card_vs_cpu_float32_spacings"].values()), legendre
+    assert split["count"] >= 4 and split["GSSKIP"] == nsca and split["KERSKIP"] == 2 * nsca, split
+    assert split["OVSAMP"] == [ov] and split["finite"], split
     assert rec["IMSBITER"] == [0, 1] and it == 1 and hist[0]["iteration"] == 0, rec
-    assert orig.shape == sub.shape and orig.shape[1:] == (4088, 4088), orig.shape
+    assert ov_b == ov // 2 and orig.shape == sub.shape and orig.shape[1:] == (4088, 4088), rec
+    assert all(e["canvas_side"] == canvas for e in cap.exposures), rec
     assert diff.max() > 0 and np.median(diff) < 0.5 * np.abs(orig).max(), rec
-    assert all(q["finite"] for q in quality.values()), quality
+    # the Legendre cubes hold the Piff model's pixel response, and the split
+    # convolves them with the pixel again (a fault both packages share,
+    # ROADMAP.md queue 3): SL1 is held to its value for a pixel counted
+    # twice, at the e2e bound
+    assert all(q["finite"] and q["uc_median"] < UC_MAX
+               and abs(q["SL1"] - sl1_pixel_twice) < CHAIN_SL1_TOL
+               for q in quality.values()), (quality, sl1_pixel_twice)
+    assert quality["it1"]["VAR"] < max(1.05 * quality["it0"]["VAR"], 1e-5), quality
     assert len(cap.exposures) >= 1 and all(e["k1_launches"] > 0 for e in cap.exposures), rec
     assert task_launches["interp_g4460_dense"] > 0, task_launches
     assert all(n == 0 for k, n in task_launches.items() if k != "interp_g4460_dense"), \
         task_launches
-    assert card_vs_cpu["max_abs"] <= card_vs_cpu["limit"], card_vs_cpu
-    assert scale > 0 and card_vs_cpu["correction_max_abs_diff"] <= \
-        card_vs_cpu["correction_limit"], card_vs_cpu
-    return task_launches, wing
+    k1 = k1_main_path(torch, dev, "psfsplit/psf_sampling", k1_caps.pop("psfsplit/psf_sampling"),
+                      floor_ms, parent)
+    emit({"phase": "k1_main_path", "criterion": TOL, **k1})
+    k2 = k2_main_path(torch, dev, "psfsplit_group_1", plan_cap.plan, floor_ms)
+    del plan_cap.plan
+    emit({"phase": "k2_main_path", "criterion": TOL, **k2})
+    return task_launches, launches0, k1, k2, (canvas, K.shape[-1])
 
 
-def covering_block(geometry, ewcs, cfg):
-    """A block at the output pixel scale with the exposure's projection and
-    axes (its WCS scaled, without distortion terms) that holds every point
-    of the canvas `geometry` with 8 pixels to spare: (WCS, N)."""
-    from pyimcom_tpu_torch.wcsutil import WCS
-
-    A = geometry.A
-    ra, dec = geometry.ra.reshape(A, A), geometry.dec.reshape(A, A)
-
-    def rim(a):
-        return np.concatenate([a[0], a[-1], a[:, 0], a[:, -1]])
-
-    def block(crpix):
-        cd = ewcs.cd / np.sqrt(abs(np.linalg.det(ewcs.cd))) * cfg.dtheta
-        return WCS(ctype=ewcs.ctype, crval=ewcs.crval, crpix=crpix, cd=cd,
-                   lonpole=ewcs.lonpole)
-
-    x, y = block((0.0, 0.0)).world2pix(rim(ra), rim(dec))
-    return block((8 - x.min(), 8 - y.min())), int(np.ceil(max(np.ptp(x), np.ptp(y)))) + 17
-
-
-def phase_wing_production(root, cfg0, idsca, split_file, k1_caps):
-    """The wing subtraction of one exposure at its PSFs' own oversampling
-    (INPSF[2] = 6, given to run_imsubtract: the survey's split files carry
-    no OVSAMP) with bin2x2 -- kernels at oversampling 3, a 12324^2 canvas
-    for a 4088^2 SCA: (1) run_imsubtract on the loop's iteration-0 mosaic
-    (2x2 blocks of 4"), every layer, written apart from the cache's _subI
-    files; its mosaic reaches few canvas points; (2) the first layer again,
-    on the same canvas geometry, from one block at the output pixel scale
-    that covers the whole canvas (covering_block; seeded random data): one
-    K1<8> launch of 12324^2 queries.  Per task its record
-    (capture_imsubtract); for (2) also the K1 launch's bound (its block,
-    queries and results once; QUERY_FLOP a query).  Counts reset before,
-    read after.  Returns the phase's record."""
-    import torch
+def legendre_cost(torch, dev, order):
+    """What config 3's conversion and split cost at Legendre order `order`
+    (``python3 chip_smoke.py --legendre-order N``): the psfsplit survey's
+    first observation converted on the card at the JAX defaults for stamp
+    and oversampling, its seconds and file bytes; then the host seconds of
+    one SCA's split (SplitPSF.build) for a converted chip and for a
+    placeholder, and the bytes of a split file (three cubes an SCA).
+    Prints its line."""
+    from survey_fixture_torch import build_survey, field_chips, write_piff_files
 
     from pyimcom_tpu_torch.fitsio import fits_read
-    from pyimcom_tpu_torch.ops import interp_cuda
-    from pyimcom_tpu_torch.splitpsf import imsubtract
+    from pyimcom_tpu_torch.splitpsf import splitpsf
+    from pyimcom_tpu_torch.utils import piffutils
 
-    obsid, sca = idsca
-    ov = int(cfg0.inpsf_oversamp)
-    interp_cuda.reset_launch_counts()
-    with capture_imsubtract() as cap:
-        with capture_k1("wing_production", ["wing_canvas"], k1_caps, max_queries=1 << 22):
-            out = imsubtract.run_imsubtract(cfg0, idsca, split_file,
-                                            out_file=str(root / "wing_production.fits"),
-                                            oversamp=ov, bin2x2=True, device="cuda")
-        geom = cap.geometries[0]
-        K, ov_b = imsubtract.wing_kernels(split_file, sca, ov, bin2x2=True)
-        f = fits_read(cfg0.inlayercache + f"_{obsid:08d}_{sca:02d}.fits")
-        ewcs = imsubtract.get_cache_wcs(f)
-        bwcs, N = covering_block(geom, ewcs, cfg0)
-        block = np.random.default_rng(20261017).standard_normal((N, N))
-        with capture_k1("wing_covering", ["wing_canvas"], k1_caps, max_queries=1 << 22):
-            cov = cap.measure({"covering_block": [N, N]}, imsubtract.subtract_wings_blockwise,
-                              np.asarray(f[0].data, np.float32)[:1], ewcs, K, ov_b, 1, 0,
-                              lambda ix, iy: (block, bwcs), device="cuda", geometry=geom)
-    launches = dict(interp_cuda.launches)
-    task, covering = cap.exposures
-    orig = np.asarray(f[0].data, np.float64)
-    sub = np.asarray(fits_read(out)[0].data, np.float64)
-    reached = geom.on_block((0, 0), bwcs, N)[0].size
-    nq = geom.A ** 2
-    k1_bound = bound(8 * ((N + 12) ** 2 + 3 * nq), QUERY_FLOP["G4460"] * reached)
-    rec = {"phase": "wing_production", "oversampling": [ov, ov_b], "kernel": list(K.shape),
-           "tasks": [{k: v for k, v in e.items() if k != "result"} for e in cap.exposures],
-           "covering_reached_share": reached / nq,
-           "covering_k1_bound_ms": k1_bound[0], "covering_k1_bound_by": k1_bound[1],
-           "delta_max_abs": np.abs(orig - sub).max(axis=(1, 2)).tolist(),
-           "covering_delta_max_abs": float(np.abs(orig[0] - cov[0]).max()),
-           "launches": launches}
+    root = WORK / "legendre_cost"
+    cfg_dict = build_survey(root, n_obs=8, extrainput=[], config_overrides=PSFSPLIT_OVERRIDES)
+    ov = int(cfg_dict["INPSF"][2])
+    write_piff_files(cfg_dict["INPSF"][0], root, ov=ov, order=1, grad=PIFF_GRAD,
+                     seed=PIFF_SEED)
+    chips = field_chips(cfg_dict)
+    obsid = min(chips)
+    out = root / f"psf_polyfit_{obsid:d}.fits"
+    kw = dict(C3_LEGENDRE, legendre_order=order)
+    t = time.perf_counter()
+    piffutils.piff_to_legendre_multi(str(root / f"ffov_{obsid:d}.piff"), str(out),
+                                     chips=chips[obsid], device=dev, **kw)
+    convert_s = time.perf_counter() - t
+    f = fits_read(out)
+    r2 = PSFSPLIT[1]
+    small = int(np.ceil(r2 * ov * 2 + 4))
+    pars = {"smallstamp_size": small + 8 - small % 8, "sigmaGamma": cfg_dict["EXTRASMOOTH"],
+            "r_in": PSFSPLIT[0], "r_out": r2, "eps": PSFSPLIT[2], "oversamp": ov}
+    split_s = {}
+    for kind, sca in (("converted", chips[obsid][0]),
+                      ("placeholder", 1 if chips[obsid][0] != 1 else 2)):
+        t = time.perf_counter()
+        sp = splitpsf.SplitPSF(np.asarray(f[sca].data, np.float64), None, pars)
+        sp.build()
+        split_s[kind] = time.perf_counter() - t
+    nsca = int(f[0].header["NSCA"])
+    cube_bytes = int(np.asarray(f[1].data).nbytes)
+    rec = {"phase": "legendre_cost", "order": order, "legendre_kw": kw,
+           "cube": list(np.shape(f[1].data)), "convert_s": convert_s,
+           "legendre_file_bytes": out.stat().st_size, "sca_split_s": split_s,
+           "split_file_bytes": 3 * nsca * cube_bytes,
+           "split_file_s_one_process": nsca * split_s["placeholder"]}
     emit(rec)
-    assert task["canvas_side"] == covering["canvas_side"] == 12324, rec
-    assert task["k1_launches"] > 0 and covering["k1_launches"] == 1, rec
-    assert launches["interp_g4460_dense"] == task["k1_launches"] + 1, launches
-    assert all(n == 0 for k, n in launches.items() if k != "interp_g4460_dense"), launches
-    assert reached == nq, rec
-    assert np.all(np.isfinite(sub)) and np.all(np.isfinite(cov)), rec
-    assert max(rec["delta_max_abs"]) > 0 and rec["covering_delta_max_abs"] > 0, rec
     return rec
 
 
@@ -1776,14 +1898,14 @@ def fft_bounds(A, m):
             "transforms_bound_by": tr[1]}
 
 
-def phase_fftconv_full(torch, dev):
+def phase_fftconv_full(torch, dev, loop):
     """One fftconvolve_multi on the card at the unbinned production canvas
     (FFT_SIDE^2, one 120^2 kernel; seeded random data made on the card):
     its device time (the second of two calls; the first plans cuFFT), its
     peak device memory, and the valid window of a 2048^2 crop against the
     CPU route to 1e-12 of scale; and the bounds of one convolution
-    (fft_bounds) at this side and at those of wing_production and the
-    split-PSF loop."""
+    (fft_bounds) at this side and at the split-PSF loop's `loop` (canvas
+    side, kernel side)."""
     from pyimcom_tpu_torch.splitpsf.imsubtract import fftconvolve_multi
 
     A, m, crop = FFT_SIDE, 120, 2048
@@ -1808,7 +1930,7 @@ def phase_fftconv_full(torch, dev):
     want = fftconvolve_multi(canvas[:crop, :crop].cpu(), kernel.cpu())
     rec = {"phase": "fftconv_full", "canvas": [A, A], "kernel": [m, m],
            "out": list(out.shape), "device_ms": times,
-           "bounds": {str(side): fft_bounds(side, m) for side in (A, 12324, 4208)},
+           "bounds": {str(A): fft_bounds(A, m), str(loop[0]): fft_bounds(*loop)},
            "inputs_GiB": base / 2 ** 30,
            "max_memory_allocated_GiB": peak / 2 ** 30,
            "crop": crop, "crop_vs_cpu": rel_err(torch, got, want),
@@ -1820,14 +1942,12 @@ def phase_fftconv_full(torch, dev):
 
 def phase_g4460_kernels(torch, dev, k1_caps, plan, floor_ms):
     """K1<8> alone on its captured main-path launches -- PSF sampling of
-    the G4460 bench block and the first wing canvas of each wing-subtraction
-    task (the loop's at oversampling 1, wing_production's at oversampling 3
-    and its covering block's; at most 2^22 of a launch's queries) -- and
-    K2<8> (pool, B) on the G4460 bench block's first group, against their
-    plain versions.  Returns (the K1 records, the K2 record)."""
+    the G4460 bench block and the first wing canvas of the split-PSF loop's
+    wing-subtraction task (at oversampling 3, at most 2^22 of its queries)
+    -- and K2<8> (pool, B) on the G4460 bench block's first group, against
+    their plain versions.  Returns (the K1 records, the K2 record)."""
     k1 = {key: k1_main_path(torch, dev, key, k1_caps.pop(key), floor_ms, None)
-          for key in ("g4460/psf_sampling", "psfsplit/wing_canvas",
-                      "wing_production/wing_canvas", "wing_covering/wing_canvas")}
+          for key in ("g4460/psf_sampling", "psfsplit/wing_canvas")}
     k2 = k2_main_path(torch, dev, "g4460_bench_group_1", plan, floor_ms)
     emit({"phase": "g4460_kernels", "criterion": TOL, "K1": k1, "K2": k2})
     return k1, k2
@@ -1873,8 +1993,8 @@ def phase_piff_block(torch, dev, cfg_dict, bench, floor_ms, parent):
     run, then the measured warm run, whose first K1 launch of PSF sampling
     and first group's K2 launches are held against their plain versions;
     one PSF group's draws timed and held to the CPU route.  `bench` holds
-    the bench block's block_s, SL1 and uc_median.  Returns (the warm block,
-    its launches, the Piff directory, the K1 record, the K2 record)."""
+    the bench block's block_s, SL1 and uc_median.  Returns (the warm
+    block's launches, the K1 record, the K2 record)."""
     from survey_fixture_torch import write_piff_files
 
     from pyimcom_tpu_torch.bench import quality_check
@@ -1945,39 +2065,7 @@ def phase_piff_block(torch, dev, cfg_dict, bench, floor_ms, parent):
     k2 = k2_main_path(torch, dev, "piff_group_1", plan_cap.plan, floor_ms)
     del plan_cap.plan
     emit({"phase": "k2_main_path", "criterion": TOL, **k2})
-    return blk, launches, piff_dir, k1, k2
-
-
-def phase_piff_legendre(torch, dev, piff_dir, obslist):
-    """piff_to_legendre_multi at the JAX defaults on the first observation
-    of the Piff block, for the SCAs of it that the block reads, on the card
-    and on the CPU route (module docstring, 11b)."""
-    from pyimcom_tpu_torch.fitsio import fits_read
-    from pyimcom_tpu_torch.utils import piffutils
-
-    obsid = obslist[0][0]
-    chips = sorted({sca for o, sca in obslist if o == obsid})
-    src = str(piff_dir / f"ffov_{obsid:d}.piff")
-    secs, files = {}, {}
-    for route, device in (("card", dev), ("cpu", "cpu")):
-        files[route] = piff_dir / f"legendre_{route}.fits"
-        t0 = time.perf_counter()
-        piffutils.piff_to_legendre_multi(src, str(files[route]), chips=chips, device=device)
-        secs[route] = time.perf_counter() - t0
-    got, want = fits_read(files["card"]), fits_read(files["cpu"])
-    spacings = {}
-    for sca in chips:
-        a, b = np.asarray(got[sca].data, np.float64), np.asarray(want[sca].data, np.float64)
-        spacings[sca] = float(np.abs(a - b).max() / np.spacing(np.float32(np.abs(b[0]).max())))
-    rec = {"phase": "piff_legendre", "source": Path(src).name, "chips": chips,
-           "cube": list(np.shape(want[chips[0]].data)), "card_s": secs["card"],
-           "cpu_s": secs["cpu"], "card_vs_cpu_float32_spacings": spacings,
-           "OVSAMP": got[0].header.get("OVSAMP"), "header": dict(got[0].header)}
-    emit(rec)
-    for path in files.values():
-        path.unlink()
-    assert all(v <= 2 for v in spacings.values()), spacings
-    assert rec["OVSAMP"] == 6 and dict(got[0].header) == dict(want[0].header), rec
+    return launches, k1, k2
 
 
 def phase_meta_shear(torch, dev, chain):
@@ -2121,15 +2209,27 @@ def galaxy_moments(path):
                 flux=float(sub.sum() * (0.04 / 0.11) ** 2))
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="smoke run of pyimcom_tpu_torch on one GPU")
+    ap.add_argument("--legendre-order", type=int, default=None,
+                    help="only measure config 3's Legendre conversion and split at this "
+                         "order (legendre_cost)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
     sys.path[:0] = [str(REPO), str(REPO / "tests")]
     dev = torch.device("cuda", 0)
     smi = gpu_name_and_power()
+    if args.legendre_order is not None:
+        shutil.rmtree(WORK / "legendre_cost", ignore_errors=True)
+        legendre_cost(torch, dev, args.legendre_order)
+        print(smi, flush=True)
+        return 0
 
     # ---- 1. device and build ------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
@@ -2274,7 +2374,8 @@ def main():
 
     # ---- 7. production geometry: one 2x2 group, three solvers -----------------
     with capture_first_plan() as prod_cap, capture_k1("production", ["psf_sampling"], k1_caps):
-        run_production(torch, dev, cfg_dict, "production_group", "_prod")
+        prod_f64 = run_production(torch, dev, cfg_dict, "production_group", "_prod")
+    phase_production_mixed(torch, dev, cfg_dict, prod_f64)
     run_production(torch, dev, cfg_dict, "production_iterative", "_prodit",
                    LAKERNEL="Iterative", KAPPAC=[0.0], ITERRTOL=0.0015, ITERMAX=30)
     run_production(torch, dev, cfg_dict, "production_eigen", "_prodeig",
@@ -2319,20 +2420,19 @@ def main():
 
     # ---- 11. G4460: the bench block, the split-PSF loop, the full canvas ----
     g4460_plan, g4460_launches = phase_g4460_block(cfg_dict, k1_caps)
-    task_launches, wing = phase_psfsplit_loop(torch, k1_caps)
+    task_launches, split_launches, split_k1, split_k2, loop = phase_psfsplit_loop(
+        torch, dev, k1_caps, floor_ms, parent)
     torch.cuda.empty_cache()
-    phase_fftconv_full(torch, dev)
+    phase_fftconv_full(torch, dev, loop)
     torch.cuda.empty_cache()
     g_k1, g_k2 = phase_g4460_kernels(torch, dev, k1_caps, g4460_plan, floor_ms)
     del g4460_plan
     assert not k1_caps, sorted(k1_caps)
 
-    # ---- 11b. Piff PSF files drawn on the card; their Legendre conversion ----
-    piff_blk, piff_launches, piff_dir, piff_k1, piff_k2 = phase_piff_block(
+    # ---- 11b. Piff PSF files drawn on the card --------------------------------
+    piff_launches, piff_k1, piff_k2 = phase_piff_block(
         torch, dev, cfg_dict, {"block_s": t_block, "SL1": SL1, "uc_median": uc_med},
         floor_ms, parent)
-    phase_piff_legendre(torch, dev, piff_dir, piff_blk.obslist)
-    del piff_blk
     torch.cuda.empty_cache()
 
     # ---- 12. destriping, from imdestripe.main to the coadd ------------------------
@@ -2348,8 +2448,9 @@ def main():
     # ---- summary ---------------------------------------------------------------
     # the kernels line's bound is bytes and operations alone (roofline_ms);
     # its K1 and K2 times are those of the main path's own launches, its
-    # D5512 launches those of the bench block and the Piff block, whose
-    # errors are those of every captured D5512 launch, the Piff block's too
+    # D5512 launches those of the bench block, the Piff block and the
+    # split-PSF loop's iteration-0 block, whose errors are those of every
+    # captured D5512 launch, theirs too
     src = "pyimcom_tpu_torch/csrc/interp_d5512.cu"
     no_lib = None           # no PyTorch call computes D5512 or G4460 interpolation
 
@@ -2361,27 +2462,26 @@ def main():
                 "launch_floor_ms": floor_ms}
 
     k1 = main_k1["bench/psf_sampling"]
-    k1_errs = ([kern["K1"]["max_abs_err"], piff_k1["max_abs_err"]]
+    k1_errs = ([kern["K1"]["max_abs_err"], piff_k1["max_abs_err"], split_k1["max_abs_err"]]
                + [r["max_abs_err"] for r in main_k1.values()])
+    d5512 = [launches, piff_launches, split_launches]
     summary = [line("interp_d5512_dense", src, "pyimcom_tpu/ops/interp_pallas.py:85",
-                    launches["interp_d5512_dense"] + piff_launches["interp_d5512_dense"],
-                    max(k1_errs), k1, no_lib)]
+                    sum(n["interp_d5512_dense"] for n in d5512), max(k1_errs), k1, no_lib)]
     k2 = {one["mode"]: one for one in main_k2[0]["launches"]}
     for mode, key in (("pool", "K2_pool"), ("B", "K2_B")):
-        errs = [kern[key]["max_abs_err"]] + [one["max_abs_err"] for rec in main_k2 + [piff_k2]
+        errs = [kern[key]["max_abs_err"]] + [one["max_abs_err"]
+                                              for rec in main_k2 + [piff_k2, split_k2]
                                               for one in rec["launches"] if one["mode"] == mode]
         summary.append(line(f"sweep_d5512_scatter.{mode}", src,
                             "pyimcom_tpu/ops/interp_pallas.py:140",
-                            launches[f"sweep_d5512_scatter.{mode}"]
-                            + piff_launches[f"sweep_d5512_scatter.{mode}"],
+                            sum(n[f"sweep_d5512_scatter.{mode}"] for n in d5512),
                             max(errs), k2[mode], no_lib))
     # the G4460 forms: launches of the G4460 bench block and the wing
-    # subtraction tasks; K1's time is the G4460 block's PSF sampling, K2's
+    # subtraction task; K1's time is the G4460 block's PSF sampling, K2's
     # its first group's
     summary.append(line("interp_g4460_dense", src, "pyimcom_tpu/ops/interp.py:357",
                         g4460_launches["interp_g4460_dense"]
-                        + task_launches["interp_g4460_dense"]
-                        + wing["launches"]["interp_g4460_dense"],
+                        + task_launches["interp_g4460_dense"],
                         max(r["max_abs_err"] for r in g_k1.values()),
                         g_k1["g4460/psf_sampling"], no_lib))
     k2g = {one["mode"]: one for one in g_k2["launches"]}

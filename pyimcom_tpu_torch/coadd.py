@@ -104,9 +104,17 @@ def check_slice(cfg: Config) -> None:
     if cfg.linear_algebra not in SOLVERS:
         raise ValueError(f"unknown LAKERNEL {cfg.linear_algebra!r}")
     check_kern(cfg.psf_interp)
-    if cfg.solver_prec == "mixed":
-        raise NotImplementedError("SOLVERPREC 'mixed' is not ported; the port "
-                                  "solves in float64")
+
+
+def solver_name(cfg: Config) -> str:
+    """The solver of ops.assemble.solve_finalize for `cfg`: SOLVERS's, and
+    "mixed" (float32 factorization, float64 refinement) for Cholesky at
+    SOLVERPREC "mixed", as in the JAX package.  "auto" and "f64" keep the
+    float64 solve: the JAX package's "auto" picks "mixed" on an accelerator
+    because a TPU emulates float64, which the card runs natively."""
+    if cfg.linear_algebra == "Cholesky" and cfg.solver_prec == "mixed":
+        return "mixed"
+    return SOLVERS[cfg.linear_algebra]
 
 
 class InImage:
@@ -1039,7 +1047,7 @@ class Block:
             A, Bflat = self._build_system(infos, n_pad)
 
         with self._phase("stamp.solve"):
-            solver = SOLVERS[cfg.linear_algebra]
+            solver = solver_name(cfg)
             data = np.zeros((S, cfg.n_inframe, n_pad), dtype=np.float32)
             onehot = np.zeros((S, n_pad, self.n_inimage), dtype=np.float32)
             # input coordinates, padded slots at the 1e6 sentinel (outside

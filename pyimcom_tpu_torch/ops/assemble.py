@@ -29,7 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..solvers import cholesky_solve, eigen_solve, empirical_weights, iterative_solve
+from ..solvers import (cholesky_solve, cholesky_solve_mixed, eigen_solve, empirical_weights,
+                       iterative_solve)
 from . import interp_cuda
 
 
@@ -184,7 +185,8 @@ def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
     A (n_pad, n_pad); mBhalf (n_out, m, n_pad); C (n_out,); kappaC (nv,);
     data (n_inframe, n_pad), zero in padding; img_onehot (n_pad, n_img);
     fade (m,) trapezoid factors; n2sq the n2**2 stamp-weight normalization.
-    solver: "monolithic" (Cholesky, any number of kappa nodes), "eigen"
+    solver: "monolithic" (Cholesky, any number of kappa nodes), "mixed"
+    (the same with a float32 factorization and float64 refinement), "eigen"
     (eigendecomposition + per-pixel bisection), "iterative" (masked CG over
     `relevant` (m, n_pad) bool, at `rtol` / `maxiter`; `exact_UC` selects
     the exact quality contraction) or "empirical" (distance weights from
@@ -201,6 +203,8 @@ def solve_finalize(A, mBhalf, C, kappaC, data, img_onehot, fade, relevant,
     sys_ = tuple(None if t is None else t.to(f64) for t in (A, mBhalf, C, kappaC))
     if solver == "monolithic":
         T, kappa, Sigma, UC = cholesky_solve(*sys_, ucmin, smax)
+    elif solver == "mixed":
+        T, kappa, Sigma, UC = cholesky_solve_mixed(*sys_, ucmin, smax)
     elif solver == "eigen":
         T, kappa, Sigma, UC = eigen_solve(*sys_, ucmin, smax)
     elif solver == "iterative":

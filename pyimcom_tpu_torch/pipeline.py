@@ -10,23 +10,27 @@ the padding-stamp halo exchange has real work, injects row stripes
 (default_rng(99), scale 0.01) into the exposures, and runs the stages
 
     build -> destripe -> layers -> coadd (every block) -> halo_exchange
-    -> compress
+    -> compress -> report
 
 each a plain function of this module.  It prints one JSON line: the
 seconds of every stage, the science star's SL1 and VAR on block _00_01,
 the U/C median of every block (decoded as :func:`bench.quality_check`
 decodes it), the launches of kernels K1-K4 in every stage, the destriping
-and compression checks, and the card's name and power limit.
+and compression checks, the report's PDF and datablock names, and the
+card's name and power limit.
 
     python -m pyimcom_tpu_torch.pipeline [--workdir DIR] [--n-obs 8]
         [--maxiter 5] [--n1 8] [--npixpsf 48] [--inpad 1.055]
-        [--artifact FILE] [--device cuda|cpu]
+        [--artifact FILE] [--device cuda|cpu] [--no-report]
 
 The run is written under ``--workdir`` (default ``.pipe_work_torch/`` in
 the repository, git-ignored); a directory of an earlier run (it holds
 ``cfg_pipe.json``) is removed first.  The line goes to ``--artifact`` too
 when given.  The destripe stage has no host route: a failure there ends the
-run.  The report stage of the script (``diagnostics``) is not ported.
+run.  The report (diagnostics.run.run_report on block _00_01, with the row
+stability of the destriped exposures) needs matplotlib, which ``run``
+imports before its first stage; ``--no-report`` (``report=False``) leaves
+the stage out.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ MARKER = "cfg_pipe.json"
 STRIPE_SEED, STRIPE_SCALE = 99, 0.01
 STAMP_PX, STAMP_SCALE = 32, 0.0390625          # production output stamps
 _L2 = re.compile(r"(\w\d+)_(\d+)_(\d+)")
+DS_PATTERN = r"ds_\w+?_(\d+)_(\d+)\.fits$"      # the destriped files' names
 
 
 def _fixture():
@@ -189,6 +194,25 @@ def compress(cfg):
     return outs
 
 
+def make_report(cfg, stem, ds_dir=None):
+    """Stage 6: the validation report of block _00_01 (diagnostics.run.
+    run_report) into ``stem_report.pdf`` and ``stem_data.txt``, with the
+    row stability of the destriped exposures in `ds_dir` (default the
+    run's DSOUT directory); returns (the PDF's path, the datablocks' names)."""
+    from .diagnostics.report import pull_from_file
+    from .diagnostics.run import run_report
+
+    ds_dir = cfg["DSOUT"][0] if ds_dir is None else ds_dir
+    pdf = run_report(cfg["OUT"] + "_00_01.fits", str(stem), ds_dir=str(ds_dir),
+                     ds_pattern=DS_PATTERN)
+    if not Path(pdf).exists():
+        raise RuntimeError(f"the report wrote no PDF {pdf}")
+    blocks = pull_from_file(str(stem) + "_data.txt")
+    if not blocks:
+        raise RuntimeError("the report wrote no datablocks")
+    return pdf, sorted(blocks)
+
+
 def compression_check(block, packed):
     """A compressed block read back through compress.ReadFile against the
     block file: for every layer it compressed (1 and up), the largest error
@@ -248,14 +272,18 @@ def star_quality(path, cfg):
     return SL1, VAR
 
 
-def run(work, n_obs=8, maxiter=5, n1=8, npixpsf=48, inpad=1.055, device="cuda"):
-    """Every stage in order; returns the result line as a dict."""
+def run(work, n_obs=8, maxiter=5, n1=8, npixpsf=48, inpad=1.055, device="cuda",
+        report=True):
+    """Every stage in order (the report only with `report`); returns the
+    result line as a dict."""
     import torch
 
     from .bench import card_label, uc_median
     from .device import resolve_device
 
     resolve_device(device)          # no card raises here, before the host work
+    if report:
+        import matplotlib  # noqa: F401 - the report needs it; fail before the stages
     work = Path(work)
     if (work / MARKER).exists():
         shutil.rmtree(work)
@@ -283,6 +311,9 @@ def run(work, n_obs=8, maxiter=5, n1=8, npixpsf=48, inpad=1.055, device="cuda"):
     blocks = stage("coadd", coadd, cfg, device)
     stage("halo_exchange", halo_exchange, cfg)
     stage("compress", compress, cfg)
+    pdf = datablocks = None
+    if report:
+        pdf, datablocks = stage("report", make_report, cfg, work / "rep")
 
     out01 = cfg["OUT"] + "_00_01.fits"
     SL1, VAR = star_quality(out01, cfg)
@@ -299,6 +330,7 @@ def run(work, n_obs=8, maxiter=5, n1=8, npixpsf=48, inpad=1.055, device="cuda"):
         "UC_median_blocks": {Path(p).name: uc_median(p) for p in blocks},
         "compression": {Path(p).name: compression_check(p, p[:-5] + ".cpr.fits.gz")
                         for p in blocks},
+        "report_pdf": pdf, "report_datablocks": datablocks,
         "card": card_label(device),
     }
 
@@ -314,9 +346,11 @@ def main(argv=None):
     ap.add_argument("--inpad", type=float, default=1.055)
     ap.add_argument("--artifact", default=None, help="also write the JSON line here")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--no-report", action="store_true",
+                    help="leave out the report stage (it needs matplotlib)")
     args = ap.parse_args(argv)
     result = run(args.workdir, args.n_obs, args.maxiter, args.n1, args.npixpsf,
-                 args.inpad, args.device)
+                 args.inpad, args.device, report=not args.no_report)
     text = json.dumps(result)
     if args.artifact:
         Path(args.artifact).write_text(text + "\n")

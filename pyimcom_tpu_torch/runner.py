@@ -11,12 +11,15 @@ partial run is an unbiased spatial sample of the mosaic.  A finished block
 
     python -m pyimcom_tpu_torch.runner cfg.json --block N | --all
         [--workers K] [--checkpoint-sec S] [--device cuda|cpu] [--share-pads]
+        [--report]
 
 ``--all`` runs this rank's share of the blocks (host_blocks): every block
 in a single-process run.  ``--share-pads`` then runs the padding-stamp halo
 exchange over the mosaic's block files (analysis.Mosaic) and saves every
-block.  The report (``--report``) needs the diagnostics modules, which are
-not ported yet (ROADMAP.md): it raises NotImplementedError.
+block.  ``--report`` then builds the validation report
+(diagnostics.run.run_report) of the first block, ``_00_00`` or else the
+first block file found, into ``<OUT>_report.pdf`` and ``<OUT>_data.txt``;
+it needs matplotlib.
 """
 
 from __future__ import annotations
@@ -131,6 +134,18 @@ def share_pads(outstem) -> int:
     return len(mos.images)
 
 
+def first_block(outstem):
+    """The mosaic's block ``outstem_00_00.fits``, or else the first block
+    file ``outstem_XX_YY.fits`` in name order; None without one."""
+    import glob
+
+    first = outstem + "_00_00.fits"
+    if os.path.exists(first):
+        return first
+    found = sorted(glob.glob(outstem + "_[0-9][0-9]_[0-9][0-9].fits"))
+    return found[0] if found else None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="pyimcom_tpu_torch mosaic runner")
     ap.add_argument("config", help="JSON configuration file")
@@ -146,9 +161,6 @@ def main(argv=None):
     ap.add_argument("--share-pads", action="store_true",
                     help="run the padding-stamp halo exchange post-pass")
     args = ap.parse_args(argv)
-    if args.report:
-        raise NotImplementedError("--report (diagnostics) is not ported to "
-                                  "pyimcom_tpu_torch yet (see ROADMAP.md queue 1)")
 
     cfg = Config(args.config)
     kw = dict(device=args.device, checkpoint_sec=args.checkpoint_sec)
@@ -163,6 +175,13 @@ def main(argv=None):
     if args.share_pads:
         n = share_pads(cfg.outstem)
         print(f"halo exchange applied to {n} blocks", flush=True)
+
+    if args.report:
+        first = first_block(cfg.outstem)
+        if first:
+            from .diagnostics.run import run_report
+
+            run_report(first, cfg.outstem)
     return 0
 
 

@@ -12,14 +12,16 @@ Sigma and kappa.  Four strategies, as in the JAX package:
 
 * :func:`eigen_solve`       -- eigendecomposition; per-pixel kappa bisection;
 * :func:`cholesky_solve`    -- Cholesky at each kappa node + node-weight search;
+* :func:`cholesky_solve_mixed` -- the same with a float32 factorization and
+  float64 residual refinement (SOLVERPREC "mixed");
 * :func:`iterative_solve`   -- masked conjugate gradient for every output pixel;
 * :func:`empirical_weights` -- distance-weighted T without a solve.
 
-Everything is float64 (cuSOLVER / cuBLAS on the card, LAPACK on the CPU)
-and batched over output pixels, as the JAX package batches it.  What the
-JAX package added only for the TPU -- the blocked Cholesky, the
-mixed-precision factorization and the dense-kappa-grid emulation of the
-Eigen kernel -- is not ported: the card factors and diagonalizes in f64.
+Everything else is float64 (cuSOLVER / cuBLAS on the card, LAPACK on the
+CPU) and batched over output pixels, as the JAX package batches it.  What
+the JAX package added only for the TPU -- the blocked Cholesky and the
+dense-kappa-grid emulation of the Eigen kernel -- is not ported: the card
+factors and diagonalizes in f64.
 
 Padding convention (as in the JAX package): pad A with 1 on the diagonal
 and mBhalf with zero columns; padded coordinates get exactly zero weight.
@@ -165,6 +167,19 @@ def _blend_nodes(A, mb, Tpi, kappaC, Cj, ucmin, smax, exact_E: bool):
     return torch.einsum("pai,ap->ai", Tpi, w), kappamid * Cj, S, UC
 
 
+def _node_outputs(A, mb, Tpi, kappaC, Cj, ucmin, smax):
+    """(T, kappa, Sigma, UC) of target PSF j from its node solutions Tpi
+    (nv, m, n): at one node T itself with its f64 quality, at several the
+    per-pixel blend (:func:`_blend_nodes`, the cheap E form)."""
+    if kappaC.shape[0] > 1:
+        return _blend_nodes(A, mb, Tpi, kappaC, Cj, ucmin, smax, exact_E=False)
+    kap = kappaC[0] * Cj
+    Ti = Tpi[0]
+    D = (mb * Ti).sum(dim=-1)
+    N = (Ti * Ti).sum(dim=-1)
+    return Ti, kap.expand(D.shape), N, 1.0 - (kap * N + D) / Cj
+
+
 def _stack_outputs(per_output):
     return tuple(torch.stack(t) for t in zip(*per_output))
 
@@ -183,7 +198,6 @@ def cholesky_solve(A, mBhalf, C, kappaC, ucmin, smax):
     :func:`_safe_cholesky`): one synchronization per node and target PSF.
     """
     n = A.shape[0]
-    nv = kappaC.shape[0]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
     per_output = []
     for j in range(C.shape[0]):
@@ -191,15 +205,53 @@ def cholesky_solve(A, mBhalf, C, kappaC, ucmin, smax):
         Tpi = torch.stack([
             torch.cholesky_solve(mb.T, _safe_cholesky(A + kap * eye, A)).T
             for kap in kappaC * C[j]])                       # (nv, m, n)
-        if nv == 1:
-            kap = kappaC[0] * C[j]
-            Ti = Tpi[0]
-            D = (mb * Ti).sum(dim=-1)
-            N = (Ti * Ti).sum(dim=-1)
-            per_output.append((Ti, kap.expand(D.shape), N, 1.0 - (kap * N + D) / C[j]))
-        else:
-            per_output.append(_blend_nodes(A, mb, Tpi, kappaC, C[j], ucmin, smax,
-                                           exact_E=False))
+        per_output.append(_node_outputs(A, mb, Tpi, kappaC, C[j], ucmin, smax))
+    return _stack_outputs(per_output)
+
+
+def cholesky_solve_mixed(A, mBhalf, C, kappaC, ucmin, smax, refine: int = 2):
+    """
+    Mixed-precision Cholesky kernel (the JAX package's
+    ``cholesky_solve_mixed``): at each kappa node factor A + kappa I and
+    solve in float32, then take `refine` steps of iterative refinement with
+    the residual in float64,
+
+        r = mBhalf - T A - kappa T   [f64]
+        T <- T + (A + kappa I)^{-1} r  [f32 solve]
+
+    Each step contracts the error by ~eps_f32 * cond(A + kappa I), so a
+    well-regularized node reaches the f64 solve's roundoff.  The node
+    quality (nv == 1) and the node-weight search (nv > 1) run in f64 as in
+    :func:`cholesky_solve`, whose contract this is.
+
+    One difference from the JAX kernel, held on purpose: where A + kappa I
+    is not positive definite (A's PSF overlaps can have eigenvalues below
+    -kappa), the JAX kernel factors without repair and returns non-finite
+    T; this one repairs the float32 factor as :func:`_safe_cholesky`
+    repairs the float64 one (the diagonal shifted by |lambda_min(A)| +
+    1e-16, from A in float64) and refines against the same shifted system,
+    so that it converges to :func:`cholesky_solve`'s T.
+    """
+    n = A.shape[0]
+    f32 = torch.float32
+    A32 = A.to(f32)
+    eye32 = torch.eye(n, dtype=f32, device=A.device)
+    per_output = []
+    for j in range(C.shape[0]):
+        mb = mBhalf[j]                                       # (m, n)
+        mb32 = mb.to(f32)
+        Tp = []
+        for kap in kappaC * C[j]:
+            L, info = torch.linalg.cholesky_ex(A32 + kap.to(f32) * eye32)
+            if int(info) != 0:                               # _safe_cholesky's repair
+                kap = kap + torch.linalg.eigvalsh(A)[0].abs() + 1e-16
+                L = torch.linalg.cholesky(A32 + kap.to(f32) * eye32)
+            T = torch.cholesky_solve(mb32.T, L).T.to(A.dtype)
+            for _ in range(refine):
+                r = mb - T @ A - kap * T                     # f64 residual
+                T = T + torch.cholesky_solve(r.to(f32).T, L).T.to(A.dtype)
+            Tp.append(T)
+        per_output.append(_node_outputs(A, mb, torch.stack(Tp), kappaC, C[j], ucmin, smax))
     return _stack_outputs(per_output)
 
 

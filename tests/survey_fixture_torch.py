@@ -262,3 +262,31 @@ def write_piff_files(cube_dir, piff_dir, ov, order=0, grad=0.0, seed=0):
         write_piff_file(str(Path(piff_dir) / f"ffov_{obsid:d}.piff"), grids, sm.shape[0],
                         order=order, scale=1.0 / ov)
     return len(files)
+
+
+def field_chips(cfg):
+    """{obsid: [the SCAs of it with an input image]} of a survey's
+    configuration: the chips each observation places on the field."""
+    import glob
+    import re
+
+    chips = {}
+    for path in sorted(glob.glob(cfg["INDATA"][0] + "/*.fits")):
+        m = re.search(r"_(\d+)_(\d+)\.fits$", path)
+        if m and "_mask" not in path:
+            chips.setdefault(int(m.group(1)), []).append(int(m.group(2)))
+    return chips
+
+
+def pixel_twice_sl1(cfg):
+    """The science star's SL1 expected where the input PSF holds the pixel
+    response once more than the coadd assumes (a Legendre file converted
+    from Piff files, whose model includes the pixel, read as L2_2506, which
+    the split and the coadd convolve with the pixel tophat again): for
+    Gaussians, a star of variance b - s fit with the target of variance b
+    gives SL1 = 2 b / (2 b - s); b is the target's variance and s the
+    native pixel tophat's (1/12 of a pixel squared), in output pixels."""
+    scale = cfg["OUTSIZE"][2] / 0.11                 # output / native pixel side
+    b = (cfg["EXTRASMOOTH"] / scale) ** 2
+    s = 1.0 / 12.0 / scale ** 2
+    return 2.0 * b / (2.0 * b - s)

@@ -181,16 +181,34 @@ def same_oldcfg(out_a, out_b):
                                   {"PSFINTERP": "G4460"}],
                          ids=["empirnqc", "mixed", "psfsplit", "G4460"])
 def test_configs_outside_the_slice_raise(small_survey, monkeypatch, over):
-    """The configurations the port does not cover raise: SOLVERPREC
-    "mixed".  The others are covered now, and their cases hold the port's
-    block to the reference's at STOP 2 (compare_outputs_f32): Empirical
-    without quality control (EMPIRNQC) against the reference's host solve
-    path, its only path; PSFINTERP G4460 (K1 and K2 in their 8-tap forms,
-    plain on the CPU) and an iteration-0 PSFSPLIT block (the short-range
-    PSFs of the port's split files, the doubled overlap window, OLDCFG with
-    IMSBITER 0) against its device group engine."""
+    """Every configuration that the port once refused is covered now.  Three
+    cases hold the port's block to the reference's at STOP 2
+    (compare_outputs_f32): Empirical without quality control (EMPIRNQC)
+    against the reference's host solve path, its only path; PSFINTERP
+    G4460 (K1 and K2 in their 8-tap forms, plain on the CPU) and an
+    iteration-0 PSFSPLIT block (the short-range PSFs of the port's split
+    files, the doubled overlap window, OLDCFG with IMSBITER 0) against its
+    device group engine.  SOLVERPREC "mixed" (the float32 factorization with
+    float64 refinement) holds the port's STOP-2 block to its float64 block
+    at the bounds of tests/test_solvers.py::test_mixed_precision_matches_f64
+    for a production-like node (U/C 1e-6, Sigma 1e-4; the survey's KAPPAC
+    is 5e-4), on the decoded FIDELITY and SIGMA maps, and its science cube
+    to compare_outputs_f32's bounds."""
+    from pyimcom_tpu_torch.analysis import OutImage
     from pyimcom_tpu_torch.coadd import Block
 
+    if "SOLVERPREC" in over:
+        outs = {}
+        for name, extra in (("mixed", over), ("f64", {})):
+            cfg, outs[name] = _cfg(small_survey, "_prec_" + name, stop=2, **extra)
+            Block(cfg=cfg, this_sub=1, device="cpu")
+        compare_outputs_f32(outs["f64"], outs["mixed"])
+        a, b = OutImage(outs["f64"]), OutImage(outs["mixed"])
+        for name, bound in (("FIDELITY", 1e-6), ("SIGMA", 1e-4)):
+            x, y = (np.asarray(o.get_output_map(name), np.float64) for o in (a, b))
+            assert np.any(x > 0) and np.array_equal(x > 0, y > 0), name
+            assert float(np.abs(x - y).max()) < bound, name
+        return
     if over.get("EMPIRNQC"):
         port_vs_reference(small_survey, monkeypatch, "_empirnqc", "0", **over)
         return
@@ -202,9 +220,7 @@ def test_configs_outside_the_slice_raise(small_survey, monkeypatch, over):
         out_port = port_vs_reference(small_survey, monkeypatch, "_psfsplit", "1", **over)
         assert same_oldcfg(out_port.replace("_port", "_ref"), out_port) == 0
         return
-    cfg, _ = _cfg(small_survey, "_never", **over)
-    with pytest.raises(NotImplementedError):
-        Block(cfg=cfg, this_sub=1, device="cpu")
+    raise AssertionError(f"no case for {over}")
 
 
 def test_cuda_block_without_gpu_raises(small_survey):

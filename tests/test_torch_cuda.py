@@ -664,3 +664,34 @@ def test_multiinterp_card_matches_cpu(cuda):
         np.abs(want[0]).max())
     assert np.array_equal(got[1], want[1]) and not got[1].all()
     assert got[2:] == want[2:]
+
+
+@pytest.mark.parametrize("indefinite", [False, True], ids=["spd", "indefinite"])
+def test_mixed_solve_card_matches_cpu(cuda, indefinite):
+    """cholesky_solve_mixed on CUDA tensors (cuSOLVER's float32 factor,
+    float64 refinement) against the same solve on the CPU and against the
+    card's float64 solve, on a seeded Gaussian-overlap system (n 300, one
+    node at kappa/C 5e-4; shifted down by 1e-3 C, A is indefinite and
+    takes the repair): U/C within 1e-6 and Sigma within 1e-4, the bounds
+    of tests/test_solvers.py::test_mixed_precision_matches_f64."""
+    from pyimcom_tpu_torch.solvers import cholesky_solve, cholesky_solve_mixed
+
+    rng = np.random.default_rng(11)
+    xin = rng.uniform(0, 12, (300, 2))
+    xout = np.stack(np.meshgrid(np.linspace(4, 8, 5), np.linspace(4, 8, 5)), -1).reshape(-1, 2)
+    sig = 1.2
+
+    def ovl(p, q):
+        d2 = ((p[:, None, :] - q[None, :, :]) ** 2).sum(-1)
+        return np.exp(-d2 / (4 * sig ** 2)) / (4 * np.pi * sig ** 2)
+
+    C = np.array([1.0 / (4 * np.pi * sig ** 2)])
+    A = ovl(xin, xin) - (1e-3 * C[0] if indefinite else 0.0) * np.eye(len(xin))
+    args = [np.ascontiguousarray(a) for a in (A, ovl(xout, xin)[None], C, np.array([5e-4]))]
+    on = {dev: [torch.as_tensor(a, device=dev) for a in args] for dev in ("cpu", cuda)}
+    got = cholesky_solve_mixed(*on[cuda], 1e-3, 1.0)
+    for want in (cholesky_solve_mixed(*on["cpu"], 1e-3, 1.0),
+                 cholesky_solve(*on[cuda], 1e-3, 1.0)):
+        assert float((got[3].cpu() - want[3].cpu()).abs().max()) < 1e-6
+        assert float((got[2].cpu() - want[2].cpu()).abs().max()) < 1e-4
+    assert bool(torch.isfinite(got[0]).all())

@@ -6,11 +6,17 @@ utils/moments, utils/compareutils, layer's helpers in layer_host,
 imdestripe's host helpers, compress, truthcats, analysis, splitpsf,
 update_cube and imsubtract's host helpers, piffutils's reader, writer and
 Legendre quadrature, meta's InterpMatrix and MetaMosaic's reader, masks and
-writer; analysis's cases on block files are in test_torch_pipeline.py).  Each case runs the copy
+writer, the report's diagnostics/ and pictures/; analysis's cases on block files
+are in test_torch_pipeline.py).  Each case runs the copy
 and the original on the same seeded inputs: configurations, FITS files,
 WCS transforms and every helper must agree exactly (bit for bit, or equal
-objects), since the copies are the same code.
+objects), since the copies are the same code.  The report's modules are
+also held to their originals' source (test_report_copies_are_the_source):
+their behaviour on block files is in test_torch_pipeline.py and
+test_torch_runner.py.
 """
+
+import ast
 
 import json
 from pathlib import Path
@@ -735,3 +741,51 @@ def test_metamosaic_reader_masks_and_writer_are_the_same(tmp_path):
         a.to_file(oa, str(tmp_path / "a.fits"))
         b.to_file(ob, str(tmp_path / "b.fits"))
         assert (tmp_path / "a.fits").read_bytes() == (tmp_path / "b.fits").read_bytes()
+
+
+# --------------------------------------------------------------------------
+# the report: diagnostics/ and pictures/
+# --------------------------------------------------------------------------
+
+REPORT_COPIES = ["diagnostics/__init__.py", "diagnostics/report.py", "diagnostics/run.py",
+                 "diagnostics/sections.py", "diagnostics/stability.py",
+                 "diagnostics/starsdata.py", "pictures/__init__.py", "pictures/genpic.py"]
+
+
+def _code(path, rename=False):
+    """The module's syntax tree without its docstring, dumped; with
+    `rename`, the JAX package's name in its strings reads as the port's."""
+    text = Path(path).read_text()
+    if rename:
+        text = text.replace("pyimcom_tpu.", "pyimcom_tpu_torch.")
+    tree = ast.parse(text)
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", REPORT_COPIES)
+def test_report_copies_are_the_source(rel):
+    """Each copy is its original's code: the same syntax tree, the module
+    docstring aside (the copy's names its original) and the usage line's
+    package name."""
+    assert _code(REPO / "pyimcom_tpu_torch" / rel) == _code(REPO / "pyimcom_tpu" / rel,
+                                                             rename=True)
+
+
+def test_row_stability_stats_match():
+    """Twin of tests/test_analysis.py::test_row_stability_stats: the port's
+    row_stability_stats on the same seeded profiles (one unstable row)
+    meets its criteria and equals the JAX package's."""
+    from pyimcom_tpu.diagnostics.stability import row_stability_stats as ref_stats
+    from pyimcom_tpu_torch.diagnostics.stability import row_stability_stats
+
+    rng = np.random.default_rng(3)
+    base = rng.normal(size=128)
+    profiles = np.stack([base + rng.normal(scale=0.01, size=128) for _ in range(6)])
+    profiles[:, 40] += np.linspace(-1, 1, 6)
+    stats = row_stability_stats(profiles)
+    assert stats["worst_rows"][0] == 40
+    assert stats["max_drift"] > 10 * stats["rms_drift"]
+    assert stats["mean_profile"].shape == (128,)
+    assert _same(stats, ref_stats(profiles))

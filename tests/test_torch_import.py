@@ -33,7 +33,11 @@ MODULES = ("pyimcom_tpu_torch", "pyimcom_tpu_torch.coadd",
            "pyimcom_tpu_torch.splitpsf", "pyimcom_tpu_torch.splitpsf.splitpsf",
            "pyimcom_tpu_torch.splitpsf.imsubtract", "pyimcom_tpu_torch.splitpsf.update_cube",
            "pyimcom_tpu_torch.utils.piffutils", "pyimcom_tpu_torch.meta",
-           "pyimcom_tpu_torch.meta.ginterp", "pyimcom_tpu_torch.meta.distortimage")
+           "pyimcom_tpu_torch.meta.ginterp", "pyimcom_tpu_torch.meta.distortimage",
+           "pyimcom_tpu_torch.diagnostics", "pyimcom_tpu_torch.diagnostics.run",
+           "pyimcom_tpu_torch.diagnostics.sections", "pyimcom_tpu_torch.diagnostics.stability",
+           "pyimcom_tpu_torch.diagnostics.starsdata", "pyimcom_tpu_torch.pictures",
+           "pyimcom_tpu_torch.pictures.genpic")
 
 CASES = {
     # jax made unimportable: every import must still succeed

@@ -28,12 +28,17 @@ pad stamps and one interior stamp).  The stages:
   write what the stages wrote, bit for bit, with no torch import;
 * OutImage's accessors, NoiseAnal and the Mosaic's coverage, consumption,
   noise-spectrum and star-catalog products on the reference's block files:
-  equal bit for bit.
+  equal bit for bit;
+* the report stage (pipeline.make_report) against the JAX run_report on
+  copies of the reference's exchanged blocks: the same datablocks, and a
+  PDF from each; make_picture_1band of both packages on one of those
+  blocks: the same PNG pixels.
 """
 
 import json
 import os
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -76,7 +81,7 @@ def chain(tmp_path_factory):
     present = sorted((int(m.group(1)), int(m.group(2))) for m in (
         re.search(r"_(\d+)_(\d+)\.fits$", p) for p in pipeline.raw_images(root / "w")))
     assert len(present) == 4 and ABSENT not in present
-    out = {"cfg": cfg, "ref": ref, "port": port, "jax_cache": jax_cache,
+    out = {"root": root / "w", "cfg": cfg, "ref": ref, "port": port, "jax_cache": jax_cache,
            "paths": {"in-process": (present[0], ABSENT), "pool": (present[2],)}}
 
     out["in-process"] = build_all_layers(Config(dict(port)), idscas=present[:2] + [ABSENT],
@@ -227,6 +232,89 @@ def test_analysis_of_reference_blocks_matches_jax(chain, tmp_path):
                  "star_cat"):
         assert _same(getattr(ma, attr), getattr(mb, attr)), attr
     assert _same(ma.mean_coverage_map(), mb.mean_coverage_map())
+
+
+def test_report_stage_matches_reference(chain, tmp_path):
+    """pipeline.make_report (the port's run_report of block _00_01 with the
+    row stability of the destriped exposures) against the JAX run_report
+    with the chain script's arguments, each on its own copy of the
+    reference's exchanged blocks under the same file names.  The chain's
+    CPU cut runs no destripe, so the row-stability directory holds the
+    striped exposures under the destriped files' names.  The datablocks
+    are equal under pull_from_file: no field is masked (they name files
+    by base name only and hold no time; the time is on the PDF's title
+    page), and both PDFs exist."""
+    from pyimcom_tpu.diagnostics.report import pull_from_file as ref_pull
+    from pyimcom_tpu.diagnostics.run import run_report as ref_run_report
+    from pyimcom_tpu_torch import pipeline
+    from pyimcom_tpu_torch.diagnostics.report import pull_from_file
+
+    ds_dir = tmp_path / "ds"
+    ds_dir.mkdir()
+    for raw in pipeline.raw_images(chain["root"]):
+        name = pipeline._L2.search(Path(raw).name).group(0)
+        (ds_dir / f"ds_{name}.fits").symlink_to(raw)
+    stems = {}
+    for name in ("jax", "port"):
+        (tmp_path / name).mkdir()
+        stems[name] = tmp_path / name / "rep"
+    out = copy_blocks(chain["ref"]["OUT"], str(tmp_path / "port" / "m"))
+    pdf, names = pipeline.make_report(dict(chain["ref"], OUT=out), stems["port"], ds_dir=ds_dir)
+    ref_out = copy_blocks(chain["ref"]["OUT"], str(tmp_path / "jax" / "m"))
+    ref_pdf = ref_run_report(ref_out + "_00_01.fits", str(stems["jax"]), ds_dir=str(ds_dir),
+                             ds_pattern=pipeline.DS_PATTERN)
+    assert os.path.getsize(pdf) > 0 and os.path.getsize(ref_pdf) > 0
+    want = ref_pull(str(stems["jax"]) + "_data.txt")
+    assert names == sorted(want)
+    assert {"MOSAICSTATS", "NOISEPOWER", "ROWSTABILITY"} <= set(want)
+    assert pull_from_file(str(stems["port"]) + "_data.txt") == want
+
+
+@pytest.mark.parametrize("kw", [{}, {"cmap": "viridis", "binning": 2, "stretch": "linear"}],
+                         ids=["gray", "viridis"])
+def test_make_picture_matches_reference(chain, tmp_path, kw):
+    """Twin of scripts/make_picture.py's library call: pictures.genpic.
+    make_picture_1band of both packages on one of the reference's exchanged
+    blocks (bounds [0, 1, 0, 1], its padding cut; the stretch over the 1st
+    to 99.9th percentile of its science layer), grayscale with the asinh
+    stretch and a binned matplotlib colormap with the linear one: the same
+    PNG pixels."""
+    from PIL import Image
+
+    from pyimcom_tpu.pictures.genpic import make_picture_1band as ref_picture
+    from pyimcom_tpu_torch.fitsio import fits_read
+    from pyimcom_tpu_torch.pictures.genpic import make_picture_1band
+
+    sci = np.asarray(fits_read(block_path(chain["ref"]["OUT"], 0))[0].data[0, 0], np.float64)
+    kw = dict(kw, srange=tuple(float(v) for v in np.percentile(sci, [1, 99.9])))
+    png = {}
+    for name, fn in (("jax", ref_picture), ("port", make_picture_1band)):
+        png[name] = fn(chain["ref"]["OUT"], str(tmp_path / f"{name}.png"), bounds=[0, 1, 0, 1],
+                       **kw)
+    got, want = (np.asarray(Image.open(png[k])) for k in ("port", "jax"))
+    assert got.shape == want.shape and got.shape[:2] == (32 // kw.get("binning", 1),) * 2
+    assert np.ptp(want) > 0 and np.array_equal(got, want)
+
+
+def test_report_needs_matplotlib_before_the_first_stage(tmp_path, monkeypatch):
+    """With the report on, run imports matplotlib before its first stage:
+    where it is missing, ImportError, and no stage ran (no work directory);
+    --no-report does not ask for it."""
+    import sys
+
+    from pyimcom_tpu_torch import pipeline
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+        pipeline.run(tmp_path / "w", device="cpu")
+    assert not (tmp_path / "w").exists()
+
+    def stop(*a, **k):
+        raise RuntimeError("build reached")
+
+    monkeypatch.setattr(pipeline, "build", stop)
+    with pytest.raises(RuntimeError, match="build reached"):
+        pipeline.run(tmp_path / "w", device="cpu", report=False)
 
 
 def test_pipeline_without_gpu_raises(tmp_path):

@@ -4,8 +4,8 @@ of a rank equal the reference's; the rank comes from RANK / WORLD_SIZE when
 torch.distributed is not initialized; the CLI coadds a block into the same
 images Block writes, and a rerun skips the finished block; run_mosaic's
 worker pool writes the images run_block writes; --share-pads runs the JAX
-runner's halo-exchange post-pass; --report, which needs the unported
-diagnostics, raises."""
+runner's halo-exchange post-pass; --report writes the report the JAX
+runner's --report writes."""
 
 import json
 import os
@@ -44,15 +44,14 @@ def test_host_blocks_from_environment(monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--share-pads", "--report"])
 def test_unported_flags_raise(flag, request, tmp_path):
-    """--report raises.  --share-pads is ported: the port's runner with
-    --all --share-pads on copies of the seam mosaic's four padded block
-    files (tests/test_torch_mosaic.py; every block is done, so both runners
-    skip the coadd) writes the files the JAX runner's post-pass writes, bit
-    for bit."""
-    if flag == "--report":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            runner.main(["cfg.json", "--block", "1", flag])
-        return
+    """Both post-pass flags are ported.  The port's runner with --all and
+    the flag, on copies of the seam mosaic's four padded block files
+    (tests/test_torch_mosaic.py; every block is done, so both runners skip
+    the coadd), against the JAX runner on other copies: --share-pads writes
+    the files the JAX runner's post-pass writes, bit for bit; --report
+    writes the report of block _00_00, a PDF and datablocks equal under
+    pull_from_file (each package's stem has the same name in its own
+    directory, so the file names the blocks carry are the same)."""
     from test_torch_mosaic import assert_same_files, block_path, copy_blocks
 
     from pyimcom_tpu import runner as ref
@@ -60,10 +59,22 @@ def test_unported_flags_raise(flag, request, tmp_path):
     mosaic = request.getfixturevalue("port_mosaic")
     stems = {}
     for name, main, extra in (("jax", ref.main, []), ("port", runner.main, ["--device", "cpu"])):
-        stems[name] = copy_blocks(mosaic["port"], str(tmp_path / name))
+        (tmp_path / name).mkdir()
+        stems[name] = copy_blocks(mosaic["port"], str(tmp_path / name / "m"))
         path = tmp_path / f"cfg_{name}.json"
         path.write_text(json.dumps(dict(mosaic["cfg"], OUT=stems[name])))
         assert main([str(path), "--all", flag, *extra]) == 0
+    if flag == "--report":
+        from pyimcom_tpu.diagnostics.report import pull_from_file as ref_pull
+        from pyimcom_tpu_torch.diagnostics.report import pull_from_file
+
+        for stem in stems.values():
+            assert os.path.getsize(stem + "_report.pdf") > 0
+        got, want = pull_from_file(stems["port"] + "_data.txt"), ref_pull(
+            stems["jax"] + "_data.txt")
+        assert "NOISEPOWER" in want and "MOSAICSTATS" in want
+        assert got == want
+        return
     for sub in range(4):
         assert_same_files(block_path(stems["jax"], sub), block_path(stems["port"], sub))
 

@@ -8,6 +8,11 @@ of its scale: the per-pixel node-weight systems are nearly singular
 (near-duplicate node solutions), and the reference's own T moves by 2.2e-10
 of its scale when A is perturbed by one ulp, so 1e-10 is below the floor
 that any second LAPACK build can meet.
+
+SOLVERPREC "mixed" (cholesky_solve_mixed: a float32 factorization, float64
+residual refinement) is held to the bounds of the JAX package's own test
+(tests/test_solvers.py::test_mixed_precision_matches_f64), against the
+port's float64 solve and against the JAX mixed kernel.
 """
 
 import jax.numpy as jnp
@@ -16,11 +21,12 @@ import pytest
 import torch
 
 from pyimcom_tpu.solvers import cholesky_solve as ref_cholesky_solve
+from pyimcom_tpu.solvers import cholesky_solve_mixed as ref_cholesky_solve_mixed
 from pyimcom_tpu.solvers import kernels as ref_kernels
 from test_solvers import SMAX, UCMIN, system  # noqa: F401  (shared fixture)
 from test_torch_block import port_vs_reference, small_survey  # noqa: F401
 from pyimcom_tpu_torch.convert import from_numpy
-from pyimcom_tpu_torch.solvers import cholesky_solve
+from pyimcom_tpu_torch.solvers import cholesky_solve, cholesky_solve_mixed
 from pyimcom_tpu_torch.solvers import kernels
 from pyimcom_tpu_torch.solvers.kernels import _safe_cholesky
 
@@ -151,3 +157,54 @@ def test_multi_kappa_block_matches_reference(small_survey, monkeypatch):
     from pyimcom_tpu.fitsio import fits_read
 
     assert "KAPPA" in {h.header.get("EXTNAME") for h in fits_read(out)}
+
+
+# the bounds of tests/test_solvers.py::test_mixed_precision_matches_f64: a
+# well-conditioned node (T, U/C), and production-like small nodes (U/C, Sigma)
+MIXED_BOUNDS = {"well": {"T": 1e-10, "UC": 1e-11}, "small": {"UC": 1e-6, "Sigma": 1e-4}}
+
+
+@pytest.mark.parametrize("kappaC, bounds", [([5e-2], "well"), ([5e-4], "small"),
+                                            (MULTI, "small")],
+                         ids=["well_conditioned", "production_node", "three_nodes"])
+def test_mixed_precision_matches_f64(system, kappaC, bounds):
+    """Twin of tests/test_solvers.py::test_mixed_precision_matches_f64
+    (refine=3, as there): the port's cholesky_solve_mixed against its
+    float64 cholesky_solve and against the JAX cholesky_solve_mixed, at one
+    well-conditioned node, one production-like node and the three nodes of
+    MULTI (the node-weight search on the refined node solutions), each
+    within the JAX test's bounds for its kind of node."""
+    A, B, C = _numpy(system)
+    kC = np.array(kappaC)
+    got = cholesky_solve_mixed(*from_numpy([A, B, C, kC], CPU), UCMIN, SMAX, refine=3)
+    f64 = cholesky_solve(*from_numpy([A, B, C, kC], CPU), UCMIN, SMAX)
+    jax_mixed = ref_cholesky_solve_mixed(*(jnp.asarray(a) for a in (A, B, C, kC)),
+                                         UCMIN, SMAX, refine=3)
+    assert got[0].dtype == torch.float64 and got[0].shape == f64[0].shape
+    for want in (f64, jax_mixed):
+        err = {name: float(np.abs(g.numpy() - np.asarray(w)).max()) for name, g, w in
+               zip(("T", "kappa", "Sigma", "UC"), got, want)}
+        for name, bound in MIXED_BOUNDS[bounds].items():
+            assert err[name] < bound, (name, err)
+
+
+def test_mixed_repairs_an_indefinite_system(system):
+    """The one difference from the JAX mixed kernel, held on purpose: A
+    with an eigenvalue below -kappa (the analytic A shifted down by 1e-3 C;
+    the reduced survey's blocks have lambda_min(A) = -5.1e-5 against kappa
+    = 1.3e-6).  The JAX kernel's float32 factor fails and its T is not
+    finite; the port's is repaired as the float64 solve's is
+    (_safe_cholesky) and lands on the port's float64 solve, and on the JAX
+    float64 solve, within the bounds of a production-like node."""
+    A, B, C = _numpy(system)
+    A = A - 1e-3 * C[0] * np.eye(len(A))
+    kC = np.array([5e-4])
+    jax_mixed = ref_cholesky_solve_mixed(*(jnp.asarray(a) for a in (A, B, C, kC)),
+                                         UCMIN, SMAX, refine=3)
+    assert not np.all(np.isfinite(np.asarray(jax_mixed[0])))
+    got = cholesky_solve_mixed(*from_numpy([A, B, C, kC], CPU), UCMIN, SMAX, refine=3)
+    for want in (cholesky_solve(*from_numpy([A, B, C, kC], CPU), UCMIN, SMAX),
+                 ref_cholesky_solve(*(jnp.asarray(a) for a in (A, B, C, kC)), UCMIN, SMAX)):
+        assert np.all(np.isfinite(got[0].numpy()))
+        for name, i, bound in (("UC", 3, 1e-6), ("Sigma", 2, 1e-4)):
+            assert float(np.abs(got[i].numpy() - np.asarray(want[i])).max()) < bound, name

@@ -287,11 +287,13 @@ def wing_kernel():
     return sp.K_Legendre.astype(np.float32).astype(np.float64)
 
 
-@pytest.mark.parametrize("bin2x2", [False, True], ids=["ov6", "bin2x2"])
-def test_subtract_wings_blockwise_matches_reference(wing_kernel, bin2x2):
-    """A 48x48 two-layer cube under a 2x2 mosaic of smooth random blocks
-    (four-dimensional block data, layers read by index), the port on the
-    CPU against the JAX driver: within 2 float32 spacings at max|cube|."""
+def blockwise_against_reference(K, ov):
+    """subtract_wings_blockwise of both packages with the wing kernels `K`
+    at oversampling `ov` on a 48x48 two-layer cube under a 2x2 mosaic of
+    smooth random blocks (four-dimensional block data, layers read by
+    index), the port on the CPU: asserts that the wings were removed and
+    that the port is within 2 float32 spacings at max|cube| of the JAX
+    driver."""
     cfg, bwcs, ewcs = _mosaic(48, 80, 5, 1)
     rng = np.random.default_rng(31)
     N = cfg.NsideP
@@ -309,9 +311,6 @@ def test_subtract_wings_blockwise_matches_reference(wing_kernel, bin2x2):
     def reader(ix, iy):
         return blocks[(ix, iy)], bwcs[(ix, iy)]
 
-    K, ov = wing_kernel, 6
-    if bin2x2:
-        K, ov = imsubtract.bin_kernel_2x2(K, ov)
     cube = rng.normal(scale=20.0, size=(2, 48, 48)).astype(np.float32)
     overlap = cfg.n2 * cfg.postage_pad
     want = ref_imsub.subtract_wings_blockwise(cube, ewcs, K, ov, 2, overlap, reader)
@@ -319,6 +318,16 @@ def test_subtract_wings_blockwise_matches_reference(wing_kernel, bin2x2):
                                               device="cpu")
     assert np.abs(want - cube).max() > 1e-3 * np.abs(cube).max()   # wings removed
     _within_2_spacings(got, want)
+
+
+@pytest.mark.parametrize("bin2x2", [False, True], ids=["ov6", "bin2x2"])
+def test_subtract_wings_blockwise_matches_reference(wing_kernel, bin2x2):
+    """blockwise_against_reference with the survey PSF's wing kernels at
+    oversampling 6, and 2x2-binned to 3."""
+    K, ov = wing_kernel, 6
+    if bin2x2:
+        K, ov = imsubtract.bin_kernel_2x2(K, ov)
+    blockwise_against_reference(K, ov)
 
 
 def test_subtract_wings_from_exposure_matches_reference(wing_kernel):
