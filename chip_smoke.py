@@ -44,6 +44,12 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    after its 2nd snapshot, resumed in a fresh process: the groups it
    skipped, its seconds, the science within 1e-12 of scale of the
    uninterrupted warm block and the maps within 1 LSB, the snapshot removed;
+   then multi_device: the bench block with its groups over every card
+   present, or over ``["cuda:0"] * 2`` (two bands on the one card) where
+   there is one -- Block(devices=...), the banded rounds of
+   parallel/mesh.py -- held to the warm one-device block (1e-12 of scale,
+   maps 1 LSB) with no cross-device pool reuse: its seconds, the devices,
+   the round statistics, the seams recomputed and the launches;
 5. eigen_block: configs[1], LAKERNEL Eigen at KAPPAC [5e-4, 1e-3, 2e-3],
    all 16 stamps, warm: blocks/hour, phase times, SL1 (|SL1-1| < 1e-3), the
    U/C median and the launch counts;
@@ -176,6 +182,24 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    with its own input directory and layer cache): 16 stamps, finite maps,
    U/C medians equal to 1e-6, the destriped science nearer the clean one
    than the striped, by RMS, and the SL1 of all three;
+12b. destripe_storage: the same 6 pair maps (no new map build) in three
+   DestripeCosts -- float64 maps on the card, float32 maps on the card, and
+   float32 maps in memory-mapped files streamed pair by pair from their
+   pageable pages (map_store="host", the maps as
+   DestripeProblem(map_dtype="f32", memmap=True) hands them over, written
+   with imdestripe.to_memmap) -- each with its build seconds, peak and resident
+   device memory, one cost-and-gradient's host seconds and device time
+   and its launches by form (the f32 routes launch K3 / K4's float32
+   forms), the two float32 routes held to the float64 one on the same
+   positions (the float32 maps widened, exactly: cost to rtol 1e-12,
+   gradient to rtol 1e-9 and atol 1e-12), the streamed route's peak at
+   least four pairs of float32 maps under the on-card one's, what rounding
+   the maps to float32 changes (positions, cost, gradient), and how many
+   4088^2 SCAs and pairs each route fits on the card, reckoned from those
+   peaks; then K3 and K4's float32 forms alone on the first pair against
+   their plain versions (1e-12 of scale), their float64 forms on the
+   widened positions and grid_sample, with their bounds (8 bytes of
+   positions a query, not 16);
 13. mosaic_chain (in .smoke_work/mosaic_chain/): ``pyimcom_tpu_torch.pipeline``
    as scripts/run_chained_pipeline.py's defaults run it, except --n-obs 6
    (4 F184 SCAs, 12 ordered pairs): a 2x2 mosaic of 8 x 8 stamps of 32
@@ -219,6 +243,11 @@ TFLOP/s (the H100 SXM data sheet; the f64 rate is that of the tensor cores,
 twice the vector units') -- `roofline_ms`, the kernel line's bound -- and,
 in `bound_ms`, the launch floor besides: a kernel whose bound is the floor
 is at its bound.
+
+``python3 chip_smoke.py --multi-device`` runs only the bench block over
+every card (multi_device) and multi_device_production_row: a production
+row of 8 groups (STOP 32) on one card and over every card's band, for a
+machine with several cards.
 
 ``python3 chip_smoke.py --legendre-order N`` runs only legendre_cost: what
 config 3's conversion and split cost at Legendre order N (the conversion
@@ -1034,8 +1063,10 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     """imdestripe.main on 3 striped F184 SCAs at 4088^2 (6 ordered pairs)
     with 5 CG iterations, object mask and WCS gain on; K3 and K4 at the
     phase's shapes; the kernel route of the cost against the plain route;
-    then the bench block coadded from the clean, striped and destriped
-    inputs.  Returns (K3, K4 records, the main path's launches)."""
+    the same maps in other storages (phase_destripe_storage); then the
+    bench block coadded from the clean, striped and destriped inputs.
+    Returns (K3, K4 records, the main path's launches, the storage phase's
+    (K3 f32, K4 f32 records, their launches))."""
     from pyimcom_tpu_torch import imdestripe
     from pyimcom_tpu_torch.bench import quality_check
     from pyimcom_tpu_torch.config import Config
@@ -1063,7 +1094,9 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     launches = dict(bilinear_cuda.launches)
     global_tiles = bilinear_cuda.global_tiles(dev)
     peak = torch.cuda.max_memory_allocated(dev)
-    assert all(k > 0 for k in launches.values()), launches
+    # imdestripe.main stores its maps at float64 on the card: the f64 forms
+    assert launches["bilinear_gather"] > 0 and launches["bilinear_scatter_adjoint"] > 0, launches
+    assert launches["bilinear_gather.f32"] == launches["bilinear_scatter_adjoint.f32"] == 0
     prob = cap.problem
     dc = prob.device_cost
     assert len(dc.pairs) == 6 and dc.imgs.shape == (3, 4088, 4088), (dc.pairs, dc.imgs.shape)
@@ -1107,6 +1140,9 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     # ---- K3 and K4 alone at the phase's shapes ----
     k3, k4 = bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build)
     emit({"phase": "bilinear_kernels", "criterion": TOL, "K3": k3, "K4": k4})
+
+    # ---- the same maps at float32, on the card and streamed ----
+    storage = phase_destripe_storage(torch, dev, prob, p_rand, floor_ms)
     del cap.problem, prob, dc
     torch.cuda.empty_cache()
 
@@ -1134,7 +1170,217 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     assert all(r["stamps"] == 16 and r["finite"] for r in runs.values()), runs
     assert max(uc) - min(uc) <= 1e-6 * min(uc), uc
     assert rms["destriped"] < rms["striped"], rms
-    return k3, k4, launches
+    return k3, k4, launches, storage
+
+
+def destripe_cost_like(prob, xf, yf, dev, **kw):
+    """A DestripeCost of DestripeProblem `prob`'s images, gains and masks
+    (as the problem builds its own) on the maps xf, yf, with the storage
+    keywords `kw`."""
+    from pyimcom_tpu_torch.ops.destripe_device import DestripeCost
+
+    mask = prob.mask
+    return DestripeCost(np.stack([s.image for s in prob.scas]),
+                        np.stack([s.g_eff for s in prob.scas]),
+                        None if mask is None else np.stack(mask), prob.device_cost.pairs, xf, yf,
+                        amp_cols=prob.amp_cols, cost_model=prob.cost_model, hub=prob.hub,
+                        col_boundary_const=prob.col_boundary_const,
+                        bmasks=[mask[i] if mask is not None else s.mask
+                                for i, s in enumerate(prob.scas)], device=dev, **kw)
+
+
+def phase_destripe_storage(torch, dev, prob, p_rand, floor_ms):
+    """The destripe phase's 6 pair maps in three storages (f64 / device,
+    f32 / device, f32 / host): each route's memory, time and launches by
+    form, the f32 routes held to the f64 route on the same (widened)
+    positions, what the rounding to float32 changes, what each route fits
+    on the card; then K3 / K4's float32 forms alone.  Returns (the K3 and
+    K4 f32 records, the launches of the f32 routes' cost-and-gradients)."""
+    from pyimcom_tpu_torch.imdestripe import to_memmap
+    from pyimcom_tpu_torch.ops import bilinear_cuda
+
+    dc = prob.device_cost
+    P, S, ny, nx = len(dc.pairs), dc.S, dc.ny, dc.nx
+    t0 = time.perf_counter()
+    x64 = [t.cpu().numpy() for t in dc.xf]
+    y64 = [t.cpu().numpy() for t in dc.yf]
+    x32 = [a.astype(np.float32) for a in x64]
+    y32 = [a.astype(np.float32) for a in y64]
+    wide = ([a.astype(np.float64) for a in x32], [a.astype(np.float64) for a in y32])
+    # the streamed route's maps as DestripeProblem(map_dtype="f32",
+    # memmap=True) hands them over: float32 memory-mapped files, which the
+    # cost views in place and uploads from their pageable pages
+    mdir = WORK / "destripe" / "maps_f32"
+    mdir.mkdir()
+    mm = ([to_memmap(a, str(mdir), f"xf_{p}") for p, a in enumerate(x32)],
+          [to_memmap(a, str(mdir), f"yf_{p}") for p, a in enumerate(y32)])
+    host_maps_s = time.perf_counter() - t0
+    rounding = {"max_position_change_px": float(max(
+        np.nanmax(np.abs(w - a)) for w, a in zip(wide[0] + wide[1], x64 + y64)))}
+    p_np = p_rand.cpu().numpy()
+    cost64, grad64 = prob.cost_and_grad(p_np)
+    routes, costs = {}, {}
+    f32_launches = {"bilinear_gather.f32": 0, "bilinear_scatter_adjoint.f32": 0}
+    for name, xs, ys, kw in (("f64/device", *wide, {}),
+                             ("f32/device", x32, y32, dict(map_dtype="f32")),
+                             ("f32/host", *mm, dict(map_dtype="f32", map_store="host"))):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        c = costs[name] = destripe_cost_like(prob, xs, ys, dev, **kw)
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        resident = torch.cuda.memory_allocated(dev) - before
+        build_peak = torch.cuda.max_memory_allocated(dev) - before
+        torch.cuda.reset_peak_memory_stats(dev)
+        bilinear_cuda.reset_launch_counts()
+        host_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cost, grad = c.cost_and_grad(p_np)
+            host_s.append(time.perf_counter() - t0)
+        if name != "f64/device":
+            for k in f32_launches:
+                f32_launches[k] += bilinear_cuda.launches[k]
+        launches = {k: v // 3 for k, v in bilinear_cuda.launches.items()}
+        cost_peak = torch.cuda.max_memory_allocated(dev) - before
+        peak = max(build_peak, cost_peak)
+        form = ".f32" if "f32" in name else ""
+        assert launches[f"bilinear_gather{form}"] == P, (name, launches)
+        assert launches[f"bilinear_scatter_adjoint{form}"] == P, (name, launches)
+        rec = dict(build_s=build_s, resident_GiB=resident / 2 ** 30, peak_GiB=peak / 2 ** 30,
+                   peak_bytes=peak, resident_bytes=resident, build_peak_bytes=build_peak,
+                   cost_peak_bytes=cost_peak, cost_and_grad_host_s=statistics.median(host_s),
+                   cost_and_grad_device_ms=statistics.median(device_times(
+                       torch, lambda c=c: c.value_and_grad(p_rand), 5,
+                       sleep=20 * SLEEP_CYCLES)),
+                   launches_per_cost_and_grad=launches, cost=cost)
+        if c.maps is not None:
+            # each map a view of its file, in pageable memory
+            assert all(t.data_ptr() == a.ctypes.data and not t.is_pinned()
+                       for t, a in zip(c.xf + c.yf, mm[0] + mm[1])), name
+            rec["uploads"] = c.maps.uploads
+            rec["host_storage"] = "memory-mapped files (pageable)"
+        if name == "f64/device":
+            base_cost, base_grad = cost, grad
+            rounding.update(cost_rel_change=abs(cost - cost64) / abs(cost64),
+                            grad_rel_change=float(np.abs(grad - grad64).max()
+                                                  / np.abs(grad64).max()))
+        else:
+            rec["vs_f64_device"] = {
+                "cost_rel": abs(cost - base_cost) / abs(base_cost),
+                "grad_max_excess": float((np.abs(grad - base_grad)
+                                          - 1e-9 * np.abs(base_grad)).max())}
+        routes[name] = rec
+    pair_bytes = {"f64": 2 * 8 * ny * nx, "f32": 2 * 4 * ny * nx}
+    gap = routes["f32/device"]["peak_bytes"] - routes["f32/host"]["peak_bytes"]
+    # what each route fits on this card, reckoned from the peaks: a device
+    # route's peak holds every pair's maps, the rest taken as a share of
+    # each SCA; the streamed route's peak (at the end of the forward, outside
+    # any walk) holds no map, and its two slots are counted on top
+    total = torch.cuda.mem_get_info(dev)[1]
+    fits = {}
+    for name, rec in routes.items():
+        pb = pair_bytes[name[:3]]
+        if name == "f32/host":
+            per_sca = rec["peak_bytes"] / S
+            fits[name] = dict(per_sca_bytes=per_sca, per_pair_bytes=0,
+                              scas_at_2_pairs_each=int((total - 2 * pb) // per_sca),
+                              pairs_beside_3_scas="not bound by the card")
+        else:
+            per_sca = (rec["peak_bytes"] - P * pb) / S
+            fits[name] = dict(per_sca_bytes=per_sca, per_pair_bytes=pb,
+                              scas_at_2_pairs_each=int(total // (per_sca + 2 * pb)),
+                              pairs_beside_3_scas=int((total - 3 * per_sca) // pb))
+    k3, k4 = bilinear_f32_records(torch, dev, costs["f32/device"], floor_ms)
+    emit({"phase": "destripe_storage", "pairs": P, "scas": S, "image": [ny, nx],
+          "host_maps_s": host_maps_s, "routes": routes,
+          "pair_map_bytes": pair_bytes, "f32_device_minus_host_peak_bytes": gap,
+          "fits_on_card": fits, "card_bytes": total, "f32_rounding": rounding,
+          "kernels": {"K3_f32": k3, "K4_f32": k4}})
+    for name, rec in routes.items():
+        if name != "f64/device":
+            assert rec["vs_f64_device"]["cost_rel"] < 1e-12, (name, rec)
+            assert rec["vs_f64_device"]["grad_max_excess"] <= 1e-12, (name, rec)
+    # the card holds the streamed route's maps for two pairs at a time
+    assert gap >= 4 * pair_bytes["f32"], (gap, pair_bytes)
+    del costs, mm
+    shutil.rmtree(mdir)
+    return k3, k4, f32_launches
+
+
+def bilinear_f32_records(torch, dev, dc, floor_ms, reps=20):
+    """K3 and K4's float32 forms on the first pair of a float32 on-card
+    DestripeCost `dc`: device times against their plain versions (1e-12 of
+    scale), their float64 forms on the widened positions, and grid_sample
+    (bilinear, zeros, align_corners=True) and its input gradient on the
+    points inside its region, at the widened positions (it takes no float32
+    grid for a float64 image).  Bytes: K3 reads x and y (8 a query) and the
+    accumulator and writes it (16), the image and the gain once; K4 reads
+    the values (8) and x and y (8), the gain once and writes the output
+    once; operations as the float64 forms'."""
+    import torch.nn.functional as F
+
+    from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
+
+    _i, j = dc.pairs[0]
+    img, gain, x, y = dc.imgs[j], dc.ge[j], dc.xf[0], dc.yf[0]
+    assert x.dtype == torch.float32, x.dtype
+    x64, y64 = x.double(), y.double()
+    ny, nx = img.shape
+    n, npix = x.numel(), ny * nx
+    inb = bilinear.in_bounds(x, y, (ny, nx))
+    n_in = int(inb.sum())
+    v = torch.as_tensor(np.random.default_rng(20261018).normal(size=x.shape), device=dev)
+    acc = torch.zeros(x.shape, dtype=torch.float64, device=dev)
+    got3 = bc.bilinear_gather(img, x, y, gain, out=acc.clone())
+    want3 = bilinear.bilinear_gather_plain(img, x, y, gain)
+    same3 = bool(torch.equal(got3, bc.bilinear_gather(img, x64, y64, gain, out=acc.clone())))
+    bc.reset_global_tiles()
+    got4 = bc.bilinear_scatter_adjoint(v, x, y, (ny, nx), gain)
+    global_tiles = bc.global_tiles(dev)
+    want4 = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (ny, nx), gain)
+    xs, ys, vs = x64[inb], y64[inb], v[inb].reshape(1, 1, 1, -1)
+    grid = torch.stack([2 * xs / (nx - 1) - 1, 2 * ys / (ny - 1) - 1], -1).reshape(1, 1, -1, 2)
+    inp = img.reshape(1, 1, ny, nx).clone().requires_grad_(True)
+    out_gs = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    def lib_gather():
+        with torch.no_grad():
+            F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    common = dict(pair=list(dc.pairs[0]), image=[ny, nx], queries=n, in_bounds=n_in,
+                  position_dtype="float32", launch_floor_ms=floor_ms)
+    k3 = dict(common, mode="accumulate, gain", max_abs_err=rel_err(torch, got3, want3),
+              equals_f64_form_on_widened_positions=same3,
+              ms=median_ms(torch, lambda: bc.bilinear_gather(img, x, y, gain, out=acc), reps,
+                           setup=acc.zero_),
+              f64_form_ms=median_ms(torch, lambda: bc.bilinear_gather(img, x64, y64, gain,
+                                                                      out=acc), reps,
+                                    setup=acc.zero_),
+              plain_ms=median_ms(torch, lambda: bilinear.bilinear_gather_plain(
+                  img, x, y, gain), 3),
+              library_ms=median_ms(torch, lib_gather, reps),
+              **bounds(24 * n + 16 * npix, GATHER_FLOP * n_in, floor_ms))
+    k4 = dict(common, mode="gain, (ny, nx) query grid", max_abs_err=rel_err(torch, got4, want4),
+              global_tiles=global_tiles,
+              predicted_global_tiles=bc.predict_global_tiles(x, y, (ny, nx)),
+              ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(v, x, y, (ny, nx), gain),
+                           reps),
+              f64_form_ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(
+                  v, x64, y64, (ny, nx), gain), reps),
+              plain_ms=median_ms(torch, lambda: bilinear.bilinear_scatter_adjoint_plain(
+                  v, x, y, (ny, nx), gain), 3),
+              library_ms=median_ms(torch, lambda: torch.autograd.grad(
+                  out_gs, inp, vs, retain_graph=True), reps),
+              **bounds(16 * n + 16 * npix, ADJOINT_FLOP * n_in, floor_ms))
+    for rec in (k3, k4):
+        rec["share_of_roofline"] = rec["roofline_ms"] / rec["ms"]
+        assert rec["max_abs_err"] < TOL, rec
+    assert same3 and k4["global_tiles"] == k4["predicted_global_tiles"], (k3, k4)
+    return k3, k4
 
 
 def phase_mosaic_chain():
@@ -1224,6 +1470,70 @@ def compare_blocks(path_a, path_b):
             maps[name] = int(np.abs(np.asarray(h.data, np.int64)
                                     - np.asarray(fb[name].data, np.int64)).max())
     return dict(science_rel=float(np.abs(b - a).max() / np.abs(a).max()), maps_lsb=maps)
+
+
+def phase_multi_device(torch, cfg_dict, single_out):
+    """The bench block with its groups in column bands over every card, or
+    over two bands of the one card: held to the warm one-device block
+    `single_out`; returns the launches."""
+    n = torch.cuda.device_count()
+    devices = ([torch.device("cuda", k) for k in range(n)] if n > 1
+               else [torch.device("cuda", 0)] * 2)
+    blk, out, t, launches = run_block(cfg_dict, "_mesh", block_kw=dict(devices=devices))
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    cmp = compare_blocks(single_out, out)
+    emit({"phase": "multi_device", "devices": [str(d) for d in devices],
+          "cards": n, "stamps": len(blk.stamp_stats), "block_s": t,
+          "round_stats": blk._round_stats, "cross_device_puts": blk._cross_device_puts,
+          "seams_recomputed": blk.pool_stats["recomputed"], "vs_one_device": cmp,
+          "launches": launches, "phases": phase_times(blk)})
+    assert len(blk.stamp_stats) == 16 and blk._cross_device_puts == 0, blk.stamp_stats
+    assert blk._round_stats is not None and blk.pool_stats["recomputed"] > 0
+    assert cmp["science_rel"] <= TOL and max(cmp["maps_lsb"].values()) <= 1, cmp
+    return launches
+
+
+def phase_multi_device_row(torch, cfg_dict):
+    """A production row of 8 groups (STOP 32) on one card and with its
+    groups in bands over every card (two groups a band on four): seconds,
+    the comparison, seams, round statistics and each card's peak memory."""
+    devs = [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+    prod = dict(PROD, STOP=32)
+    blk1, out1, t1, _l = run_block(cfg_dict, "_prodrow1", **prod)
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    blkn, outn, tn, launches = run_block(cfg_dict, "_prodrowN", block_kw=dict(devices=devs),
+                                         **prod)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    cmp = compare_blocks(out1, outn)
+    emit({"phase": "multi_device_production_row", "stamps": len(blkn.stamp_stats),
+          "devices": [str(d) for d in devs], "one_device_s": t1, "banded_s": tn,
+          "round_stats": blkn._round_stats, "cross_device_puts": blkn._cross_device_puts,
+          "seams_recomputed": blkn.pool_stats["recomputed"], "vs_one_device": cmp,
+          "launches": launches,
+          "peak_GiB": [torch.cuda.max_memory_allocated(d) / 2 ** 30 for d in devs],
+          "phases_banded": phase_times(blkn), "phases_one_device": phase_times(blk1)})
+    assert len(blkn.stamp_stats) == 32 and blkn._cross_device_puts == 0
+    assert cmp["science_rel"] <= TOL and max(cmp["maps_lsb"].values()) <= 1, cmp
+
+
+def multi_device_only(torch):
+    """``--multi-device``: the bench survey's cold and warm one-device block,
+    then multi_device and multi_device_production_row on every card."""
+    from survey_fixture_torch import build_survey
+
+    from pyimcom_tpu_torch import _build
+
+    _build.build("interp_d5512")
+    shutil.rmtree(WORK, ignore_errors=True)
+    cfg_dict = build_survey(WORK, n_obs=8, extrainput=["cstar14"])
+    run_block(cfg_dict, "_cold")
+    _blk, out, t, _l = run_block(cfg_dict, "_bench")
+    emit({"phase": "bench_block", "block_s": t})
+    phase_multi_device(torch, cfg_dict, out)
+    phase_multi_device_row(torch, cfg_dict)
 
 
 def checkpoint_child(cfg_json, die_after):
@@ -2218,6 +2528,9 @@ def main(argv=None):
     ap.add_argument("--legendre-order", type=int, default=None,
                     help="only measure config 3's Legendre conversion and split at this "
                          "order (legendre_cost)")
+    ap.add_argument("--multi-device", action="store_true",
+                    help="only the bench block over every card (multi_device) and a "
+                         "production row over them")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2228,6 +2541,10 @@ def main(argv=None):
     if args.legendre_order is not None:
         shutil.rmtree(WORK / "legendre_cost", ignore_errors=True)
         legendre_cost(torch, dev, args.legendre_order)
+        print(smi, flush=True)
+        return 0
+    if args.multi_device:
+        multi_device_only(torch)
         print(smi, flush=True)
         return 0
 
@@ -2315,6 +2632,9 @@ def main(argv=None):
 
     # ---- checkpoint: killed after 2 snapshots, resumed in a fresh process -----
     phase_checkpoint(cfg_dict, out)
+
+    # ---- the bench block over several devices (bands) ------------------------
+    phase_multi_device(torch, cfg_dict, out)
 
     # ---- 5. configs[1]: Eigen with a kappa sweep, warm --------------------------
     eig, out_e, t_eig, eig_launches = run_block(cfg_dict, "_eigen", LAKERNEL="Eigen",
@@ -2436,7 +2756,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # ---- 12. destriping, from imdestripe.main to the coadd ------------------------
-    k3, k4, ds_launches = phase_destripe(torch, dev, floor_ms, parent_k4, k4_build)
+    k3, k4, ds_launches, (k3_32, k4_32, f32_launches) = phase_destripe(
+        torch, dev, floor_ms, parent_k4, k4_build)
     torch.cuda.empty_cache()
 
     # ---- 13. the chained 2x2 mosaic, from destripe to compression -----------
@@ -2497,6 +2818,14 @@ def main(argv=None):
     summary.append(line("bilinear_scatter_adjoint", bil, "pyimcom_tpu/ops/bilinear.py:61",
                         ds_launches["bilinear_scatter_adjoint"], k4["max_abs_err"], k4,
                         k4["library_ms"]))
+    # the float32-position forms: launches of the destripe_storage phase's
+    # float32 routes, times on the first pair of its on-card float32 maps
+    summary.append(line("bilinear_gather.f32", bil, "pyimcom_tpu/ops/bilinear.py:45",
+                        f32_launches["bilinear_gather.f32"], k3_32["max_abs_err"], k3_32,
+                        k3_32["library_ms"]))
+    summary.append(line("bilinear_scatter_adjoint.f32", bil, "pyimcom_tpu/ops/bilinear.py:61",
+                        f32_launches["bilinear_scatter_adjoint.f32"], k4_32["max_abs_err"],
+                        k4_32, k4_32["library_ms"]))
     summary.append(line("probe_add_one", "pyimcom_tpu_torch/csrc/probe.cu",
                         "scripts/probe_pallas.py:33", probe_launches,
                         kern["probe"]["max_abs_err"], kern["probe"],

@@ -21,6 +21,17 @@
 //     with a gain) into the four taps of the output grid.  It is the exact
 //     adjoint of K3 with respect to the image.
 //
+// Both are templated on the type of the positions: double, or float for
+// pair maps stored at half the width (the JAX package's
+// PYIMCOM_DESTRIPE_MAP_DTYPE=f32, pyimcom_tpu/imdestripe.py:477-520, whose
+// device route casts the maps back to float64,
+// pyimcom_tpu/ops/destripe_device.py:100-103).  A position is read at its
+// stored width and widened to double at once, which is exact: the tap
+// floor, the weights, the image and gain loads and the sums are float64 in
+// both forms, so a float form gives the numbers of the double form on the
+// widened positions.  The float form reads 8 bytes of positions a query
+// instead of 16.
+//
 // What bounds them on this card: bytes.  A query does ~30 f64 operations
 // against 24-48 bytes of its own streams (xf, yf, the value, the
 // accumulator) plus its taps; at 4088^2 queries a launch moves ~0.5-0.8 GB
@@ -86,16 +97,17 @@ __device__ __forceinline__ bool query_taps(double x, double y, int nx, int ny, i
   return true;
 }
 
+template <typename Pos>
 __global__ void gather_kernel(const double* __restrict__ image, const double* __restrict__ gain,
-                              int ny, int nx, const double* __restrict__ xf,
-                              const double* __restrict__ yf, long long n, double* out,
+                              int ny, int nx, const Pos* __restrict__ xf,
+                              const Pos* __restrict__ yf, long long n, double* out,
                               int accumulate) {
   for (long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; q < n;
        q += static_cast<long long>(gridDim.x) * blockDim.x) {
     int i;
     double w[4];
     double val = 0.0;
-    if (query_taps(xf[q], yf[q], nx, ny, &i, w)) {
+    if (query_taps(static_cast<double>(xf[q]), static_cast<double>(yf[q]), nx, ny, &i, w)) {
       const double v0 = __ldg(image + i), v1 = __ldg(image + i + 1);
       const double v2 = __ldg(image + i + nx), v3 = __ldg(image + i + nx + 1);
       if (gain != nullptr) {
@@ -162,11 +174,11 @@ __device__ __forceinline__ int warp_max(int a) {
 // nonzero pixels with global atomics, row by row) or, where the box
 // outgrows kBoxCap, the global route (each query's four adds straight into
 // device memory, and one count in global_tiles).
-template <int TILE_W>
+template <int TILE_W, typename Pos>
 __global__ void __launch_bounds__(kAdjThreads, 4)
     adjoint_tile_kernel(const double* __restrict__ values, const double* __restrict__ gain,
-                        int ny, int nx, const double* __restrict__ xf,
-                        const double* __restrict__ yf, int qny, int qnx, double* out,
+                        int ny, int nx, const Pos* __restrict__ xf,
+                        const Pos* __restrict__ yf, int qny, int qnx, double* out,
                         unsigned long long* __restrict__ global_tiles) {
   constexpr int TILE_H = kTileQueries / TILE_W;
   extern __shared__ double acc[];
@@ -187,8 +199,8 @@ __global__ void __launch_bounds__(kAdjThreads, 4)
     y[k] = v[k] = 0.0;
     if (qr < qny && qc < qnx) {
       const long long q = static_cast<long long>(qr) * qnx + qc;
-      x[k] = xf[q];
-      y[k] = yf[q];
+      x[k] = static_cast<double>(xf[q]);
+      y[k] = static_cast<double>(yf[q]);
       v[k] = values[q];
     }
   }
@@ -277,21 +289,46 @@ __global__ void __launch_bounds__(kAdjThreads, 4)
   }
 }
 
-template <int TILE_W>
-void launch_adjoint(const double* values, const double* gain, int ny, int nx, const double* xf,
-                    const double* yf, int qny, int qnx, double* out,
+template <int TILE_W, typename Pos>
+void launch_adjoint(const double* values, const double* gain, int ny, int nx, const Pos* xf,
+                    const Pos* yf, int qny, int qnx, double* out,
                     unsigned long long* global_tiles, cudaStream_t stream) {
   constexpr int TILE_H = kTileQueries / TILE_W;
   constexpr int smem = kBoxCap * static_cast<int>(sizeof(double));
   const long long tiles =
       static_cast<long long>((qny + TILE_H - 1) / TILE_H) * ((qnx + TILE_W - 1) / TILE_W);
-  adjoint_tile_kernel<TILE_W><<<static_cast<unsigned>(tiles), kAdjThreads, smem, stream>>>(
+  adjoint_tile_kernel<TILE_W, Pos><<<static_cast<unsigned>(tiles), kAdjThreads, smem, stream>>>(
       values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles);
 }
 
 int blocks_for(long long n) {
   const long long b = (n + kThreads - 1) / kThreads;
   return static_cast<int>(b < (1LL << 20) ? b : (1LL << 20));
+}
+
+template <typename Pos>
+int gather(const double* image, const double* gain, int ny, int nx, const Pos* xf, const Pos* yf,
+           long long n, double* out, int accumulate, void* stream) {
+  if (n > 0) {
+    gather_kernel<Pos><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        image, gain, ny, nx, xf, yf, n, out, accumulate);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Pos>
+int scatter_adjoint(const double* values, const double* gain, int ny, int nx, const Pos* xf,
+                    const Pos* yf, int qny, int qnx, double* out,
+                    unsigned long long* global_tiles, void* stream) {
+  if (qny > 0 && qnx > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (qny == 1)
+      launch_adjoint<kTileQueries, Pos>(values, gain, ny, nx, xf, yf, qny, qnx, out,
+                                        global_tiles, s);
+    else
+      launch_adjoint<32, Pos>(values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -304,11 +341,14 @@ extern "C" {
 // cudaGetLastError() after the launch.
 int bilinear_gather(const double* image, const double* gain, int ny, int nx, const double* xf,
                     const double* yf, long long n, double* out, int accumulate, void* stream) {
-  if (n > 0) {
-    gather_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        image, gain, ny, nx, xf, yf, n, out, accumulate);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return gather<double>(image, gain, ny, nx, xf, yf, n, out, accumulate, stream);
+}
+
+// K3 on float32 positions xf, yf; everything else as bilinear_gather.
+int bilinear_gather_f32(const double* image, const double* gain, int ny, int nx, const float* xf,
+                        const float* yf, long long n, double* out, int accumulate,
+                        void* stream) {
+  return gather<float>(image, gain, ny, nx, xf, yf, n, out, accumulate, stream);
 }
 
 // K4.  values, xf, yf f64 on a (qny, qnx) query grid, row-major (a 1-D
@@ -320,14 +360,16 @@ int bilinear_gather(const double* image, const double* gain, int ny, int nx, con
 int bilinear_scatter_adjoint(const double* values, const double* gain, int ny, int nx,
                              const double* xf, const double* yf, int qny, int qnx, double* out,
                              unsigned long long* global_tiles, void* stream) {
-  if (qny > 0 && qnx > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (qny == 1)
-      launch_adjoint<kTileQueries>(values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles, s);
-    else
-      launch_adjoint<32>(values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return scatter_adjoint<double>(values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles,
+                                 stream);
+}
+
+// K4 on float32 positions xf, yf; everything else as bilinear_scatter_adjoint.
+int bilinear_scatter_adjoint_f32(const double* values, const double* gain, int ny, int nx,
+                                 const float* xf, const float* yf, int qny, int qnx,
+                                 double* out, unsigned long long* global_tiles, void* stream) {
+  return scatter_adjoint<float>(values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles,
+                                stream);
 }
 
 }  // extern "C"

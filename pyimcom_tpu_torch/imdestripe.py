@@ -22,6 +22,14 @@ package's second, host-only route (per-target NumPy cost and gradient, its
 fork pool, PYIMCOM_DESTRIPE_WORKERS) is not ported: it is a CPU-backend form
 whose gradient only approximates the gain term.
 
+The pair maps' storage is chosen by keywords of :class:`DestripeProblem`
+and :func:`main`, the counterparts of the JAX package's environment
+switches: ``map_dtype="f32"`` (PYIMCOM_DESTRIPE_MAP_DTYPE) builds them at
+half the width, and ``memmap=True`` (PYIMCOM_DESTRIPE_MEMMAP) spills them to
+memory-mapped files in a temporary directory and keeps them off the card:
+they are streamed up pair by pair from the files' pages
+(``DestripeCost(map_store="host")``).
+
     python -m pyimcom_tpu_torch.imdestripe cfg.json     # on the card
 """
 
@@ -31,6 +39,7 @@ import glob
 import os
 import pickle
 import re
+import tempfile
 import time
 
 import numpy as np
@@ -345,6 +354,16 @@ class Sca_img:
 # the problem: cost and gradient over the exposure set
 # ---------------------------------------------------------------------------
 
+def to_memmap(arr, directory, tag):
+    """`arr` copied into the memory-mapped file `directory`/`tag`.dat, which
+    is returned (the JAX package's DestripeProblem._to_memmap)."""
+    path = os.path.join(directory, tag + ".dat")
+    mm = np.memmap(path, dtype=arr.dtype, mode="w+", shape=arr.shape)
+    mm[...] = arr
+    mm.flush()
+    return mm
+
+
 class DestripeProblem:
     """
     The destriping optimization problem over a set of overlapping SCAs.
@@ -356,18 +375,26 @@ class DestripeProblem:
     cost_model : 'quadratic' | 'absolute' | 'huber_loss'
     device : where the cost and gradient run ("cuda" by default; "cpu" runs
         the plain versions of the kernels).
+    map_dtype : "f64" (default) or "f32": the width at which the pair maps
+        are built and stored (the JAX package's PYIMCOM_DESTRIPE_MAP_DTYPE).
+    memmap : spill the maps to memory-mapped files in a temporary directory
+        (:attr:`map_dir`, removed with the problem; the JAX package's
+        PYIMCOM_DESTRIPE_MEMMAP) and keep them off the device: the cost
+        streams them up pair by pair (``map_store="host"``).
 
     The pixel mappings of every (target, reference) pair are built on the
-    host (compareutils.map_sca2sca, f64) and uploaded with the images, gains
-    and masks into :attr:`device_cost`, a
+    host (compareutils.map_sca2sca, at `map_dtype`) and go with the images,
+    gains and masks into :attr:`device_cost`, a
     :class:`~pyimcom_tpu_torch.ops.destripe_device.DestripeCost`.
     :attr:`times` holds the host seconds of the map build (``maps_s``) and of
     the upload (``upload_s``).
     """
 
     def __init__(self, scas, neighbors, cost_model="quadratic", hub_thresh=1.0,
-                 amp_cols=None, mask=None, col_boundary_const=0.0, device="cuda"):
+                 amp_cols=None, mask=None, col_boundary_const=0.0, device="cuda",
+                 map_dtype="f64", memmap=False):
         dev = resolve_device(device)
+        map_dt = {"f32": np.float32, "f64": np.float64}[map_dtype]
         self.scas = scas
         self.neighbors = neighbors
         self.cost_model = cost_model
@@ -378,10 +405,18 @@ class DestripeProblem:
         self.offsets = np.concatenate([[0], np.cumsum(self.npar_each)])
         self.mask = mask  # optional list of bool arrays (True = use pixel)
         pairs = [(i, j) for i, js in sorted(neighbors.items()) for j in js]
+        self.map_dir = (tempfile.TemporaryDirectory(prefix="pyimcom_destripe_maps_")
+                        if memmap else None)
         t0 = time.perf_counter()
-        maps = [compareutils.map_sca2sca(scas[i].w, scas[j].w, pad=0,
-                                         nside=scas[i].image.shape[-1])
-                for i, j in pairs]
+        maps = []
+        for i, j in pairs:
+            xf, yf, _inb = compareutils.map_sca2sca(scas[i].w, scas[j].w, pad=0,
+                                                    dtype=map_dt,
+                                                    nside=scas[i].image.shape[-1])
+            if memmap:
+                xf = to_memmap(xf, self.map_dir.name, f"xf_{i}_{j}")
+                yf = to_memmap(yf, self.map_dir.name, f"yf_{i}_{j}")
+            maps.append((xf, yf))
         t1 = time.perf_counter()
         self.device_cost = DestripeCost(
             np.stack([s.image for s in scas]), np.stack([s.g_eff for s in scas]),
@@ -391,7 +426,7 @@ class DestripeProblem:
             col_boundary_const=self.col_boundary_const,
             bmasks=[mask[i] if mask is not None else scas[i].mask
                     for i in range(len(scas))],
-            device=dev)
+            device=dev, map_dtype=map_dtype, map_store="host" if memmap else "device")
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.times = {"maps_s": t1 - t0, "upload_s": time.perf_counter() - t1}
@@ -621,13 +656,14 @@ def get_scas(cfg, indata_type=None, add_objmask=True, use_wcs_gain=True):
 
 
 def main(cfg: Config, maxiter=None, out_path=None, indata_type=None,
-         add_objmask=True, use_wcs_gain=True, device="cuda"):
+         add_objmask=True, use_wcs_gain=True, device="cuda", map_dtype="f64", memmap=False):
     """
     Full destriping run from a configuration (reference main,
     imdestripe.py:2295-2438): find overlaps (cached ovmat.npy), fit stripe
     parameters with nonlinear CG + per-iteration cg_log.csv, write destriped
     FITS triplets (DS image, original, params).  The cost and gradient run
-    on `device` (the card unless the caller asks for the CPU).
+    on `device` (the card unless the caller asks for the CPU); `map_dtype`
+    and `memmap` choose the pair maps' storage (DestripeProblem).
     """
     device = resolve_device(device)   # before the host work: no card raises here
     scas, names = get_scas(cfg, indata_type=indata_type,
@@ -657,7 +693,8 @@ def main(cfg: Config, maxiter=None, out_path=None, indata_type=None,
         scas, neighbors, cost_model=cfg.cost_model or "quadratic",
         hub_thresh=cfg.hub_thresh or 1.0, amp_cols=cfg.amp_cols,
         mask=[s.mask for s in scas] if add_objmask else None,
-        col_boundary_const=getattr(cfg, "col_boundary_const", 0.0), device=device)
+        col_boundary_const=getattr(cfg, "col_boundary_const", 0.0), device=device,
+        map_dtype=map_dtype, memmap=memmap)
     params, history = conjugate_gradient(
         problem, maxiter=maxiter or (cfg.cg_maxiter or 10),
         tol=cfg.cg_tol or 1e-8,

@@ -10,7 +10,9 @@ floor(yf)) with bilinear weights w_k; with a gain map g the taps are
 weighted and normalised, sum_k w_k g_k v_k / norm with norm = sum_k w_k g_k
 (norm <= 0 taken as 1).  Out of bounds the value is 0.  A NaN position is
 out of bounds: it gives 0 and adds nothing to the adjoint (the JAX package
-gives NaN there).
+gives NaN there).  The positions are float64, or float32 (pair maps stored
+at half the width): float32 positions are widened to float64 first, which
+is exact, so both compute in float64 on the same numbers.
 
 :func:`bilinear_gather` and :func:`bilinear_scatter_adjoint` launch the
 hand-written CUDA kernels K3 and K4 on a CUDA tensor (ops/bilinear_cuda.py)
@@ -49,6 +51,11 @@ def _taps(xf: torch.Tensor, yf: torch.Tensor, nx: int, ny: int):
     return idx, w, inb
 
 
+def _wide(pos: torch.Tensor) -> torch.Tensor:
+    """Positions as float64 (float32 widened, exactly)."""
+    return pos if pos.dtype == torch.float64 else pos.to(torch.float64)
+
+
 def _gain_weights(w, idx, g_eff):
     """The gain-weighted weights w_k g_k (4, N) and their norm (N,)."""
     wg = w * g_eff.reshape(-1)[idx]
@@ -60,9 +67,9 @@ def bilinear_gather_plain(image: torch.Tensor, xf: torch.Tensor, yf: torch.Tenso
                           g_eff: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K3 (same function, any device, differentiable with
     respect to the image): image (ny, nx), xf, yf (any shape) -> xf's
-    shape."""
+    shape; float32 positions are widened to float64 first)."""
     ny, nx = image.shape
-    idx, w, inb = _taps(xf.reshape(-1), yf.reshape(-1), nx, ny)
+    idx, w, inb = _taps(_wide(xf).reshape(-1), _wide(yf).reshape(-1), nx, ny)
     v = image.reshape(-1)[idx]
     if g_eff is None:
         out = w[0] * v[0] + w[1] * v[1] + w[2] * v[2] + w[3] * v[3]
@@ -76,9 +83,9 @@ def bilinear_scatter_adjoint_plain(values: torch.Tensor, xf: torch.Tensor, yf: t
                                    shape, g_eff: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K4 (same function, any device): each in-bounds value
     added into its four taps of a (ny, nx) = `shape` grid with
-    ``index_add_``."""
+    ``index_add_``; float32 positions are widened to float64 first)."""
     ny, nx = shape
-    idx, w, inb = _taps(xf.reshape(-1), yf.reshape(-1), nx, ny)
+    idx, w, inb = _taps(_wide(xf).reshape(-1), _wide(yf).reshape(-1), nx, ny)
     idx, w, v = idx[:, inb], w[:, inb], values.reshape(-1)[inb]
     if g_eff is not None:
         w, norm = _gain_weights(w, idx, g_eff)
@@ -112,24 +119,27 @@ def bilinear_gather(image: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
 
 
 def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
-                             shape, g_eff: torch.Tensor | None = None) -> torch.Tensor:
+                             shape, g_eff: torch.Tensor | None = None, *,
+                             out: torch.Tensor | None = None) -> torch.Tensor:
     """The exact adjoint of :func:`bilinear_gather` with respect to the
-    image.  K4 on a CUDA tensor, the plain version on a CPU tensor."""
+    image; with `out`, added into it in place.  K4 on a CUDA tensor, the
+    plain version on a CPU tensor."""
     from . import bilinear_cuda
 
     if _device_route(values, "bilinear_scatter_adjoint"):
-        return bilinear_cuda.bilinear_scatter_adjoint(values, xf, yf, shape, g_eff)
-    return bilinear_scatter_adjoint_plain(values, xf, yf, shape, g_eff)
+        return bilinear_cuda.bilinear_scatter_adjoint(values, xf, yf, shape, g_eff, out=out)
+    val = bilinear_scatter_adjoint_plain(values, xf, yf, shape, g_eff)
+    return val if out is None else out.add_(val)
 
 
 class BilinearGather(torch.autograd.Function):
     """
     ``BilinearGather.apply(image, xf, yf, g_eff=None, acc=None)``: the
     gather of `image` (ny, nx) at (xf, yf) (K3), added in place into `acc`
-    where one is given (and returned).  The backward is K4 with respect to
-    the image, and the identity with respect to `acc`; the positions and the
-    gain take no gradient.  It saves only its inputs xf, yf and g_eff, no
-    output.
+    where one is given (and returned).  The positions are float64 or both
+    float32.  The backward is K4 with respect to the image, and the identity
+    with respect to `acc`; the positions and the gain take no gradient.  It
+    saves only its inputs xf, yf and g_eff, no output.
     """
 
     @staticmethod

@@ -10,9 +10,13 @@ that ``jax.value_and_grad`` takes through the destripe cost's weighted
 gather.  Both live in ``csrc/bilinear.cu`` (its header says what bounds them
 on the card and what the design does about it), built by ``nvcc`` at first
 use (``_build.py``).  A wrapper takes contiguous f64 CUDA tensors on one
-device only and raises on anything else; it launches on the current stream,
-allocates its output with torch, checks the launch and counts it in
-``launches``.  The plain versions are in ``ops/bilinear.py``.
+device only, the positions xf, yf f64 or both f32, and raises on anything
+else; it launches on the current stream, allocates its output with torch,
+checks the launch and counts it in ``launches``, the float32-position forms
+under their own names (``bilinear_gather.f32``,
+``bilinear_scatter_adjoint.f32``).  Those forms widen each position to
+float64 as they read it, so they compute what the f64 forms compute on the
+widened positions.  The plain versions are in ``ops/bilinear.py``.
 
 K4 takes its queries in tiles of their grid: a 2-D `xf` is the (qny, qnx)
 query grid (a destripe pair passes the target's pixel grid), any other
@@ -32,14 +36,19 @@ from .. import _build
 from .interp_cuda import _check
 
 # launches of each kernel since the last reset_launch_counts(); incremented
-# by the wrappers where they launch, and nowhere else
-launches = {"bilinear_gather": 0, "bilinear_scatter_adjoint": 0}
+# by the wrappers where they launch, and nowhere else; a form on float32
+# positions counts under its kernel's name + ".f32"
+launches = {"bilinear_gather": 0, "bilinear_scatter_adjoint": 0,
+            "bilinear_gather.f32": 0, "bilinear_scatter_adjoint.f32": 0}
+# the position dtypes a kernel takes, and the suffix of their form's C entry
+POSITION_FORMS = {torch.float64: "", torch.float32: "_f32"}
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "bilinear_gather": (_p, _p, _i, _i, _p, _p, _ll, _p, _i, _p),
-    "bilinear_scatter_adjoint": (_p, _p, _i, _i, _p, _p, _i, _i, _p, _p, _p),
-}
+_GATHER_ARGS = (_p, _p, _i, _i, _p, _p, _ll, _p, _i, _p)
+_ADJOINT_ARGS = (_p, _p, _i, _i, _p, _p, _i, _i, _p, _p, _p)
+_SIGNATURES = {"bilinear_gather": _GATHER_ARGS, "bilinear_gather_f32": _GATHER_ARGS,
+               "bilinear_scatter_adjoint": _ADJOINT_ARGS,
+               "bilinear_scatter_adjoint_f32": _ADJOINT_ARGS}
 # K4's tiling, as csrc/bilinear.cu has it: (rows, columns) of queries a tile
 # of a 2-D query grid and of one row, and the f64 slots of a tile's
 # accumulator box in shared memory
@@ -51,22 +60,26 @@ def reset_launch_counts() -> None:
         launches[k] = 0
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    fn = getattr(_build.library("bilinear"), name)
+def _launch(name: str, pos_dtype, device: torch.device, *args) -> None:
+    """Launch kernel `name` in its form for positions of `pos_dtype`."""
+    suffix = POSITION_FORMS[pos_dtype]
+    entry = name + suffix
+    fn = getattr(_build.library("bilinear"), entry)
     if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
+        fn.argtypes = _SIGNATURES[entry]
         fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    launches[name] += 1
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {err}")
+    launches[name + suffix.replace("_", ".")] += 1
 
 
 def _check_pair(shape, xf, yf, g_eff, dev):
-    """Check the positions and the gain; returns (ny, nx)."""
-    _check(xf, "xf", torch.float64, dev, xf.dim())
-    _check(yf, "yf", torch.float64, dev, yf.dim())
+    """Check the positions (f64, or both f32) and the gain; returns (ny, nx)."""
+    pos = xf.dtype if xf.dtype in POSITION_FORMS else torch.float64
+    _check(xf, "xf", pos, dev, xf.dim())
+    _check(yf, "yf", pos, dev, yf.dim())
     if yf.shape != xf.shape:
         raise ValueError(f"xf and yf must have one shape, got {tuple(xf.shape)} and "
                          f"{tuple(yf.shape)}")
@@ -116,8 +129,8 @@ def predict_global_tiles(xf: torch.Tensor, yf: torch.Tensor, shape) -> int:
         full[:qny, :qnx] = a
         return full.reshape(ty, th, tx, tw).transpose(1, 2).reshape(ty, tx, th * tw)
 
-    fx = torch.floor(xf).reshape(qny, qnx)
-    fy = torch.floor(yf).reshape(qny, qnx)
+    fx = torch.floor(xf.double()).reshape(qny, qnx)
+    fy = torch.floor(yf.double()).reshape(qny, qnx)
     x_lo = per_tile(torch.where(inb, fx, big), big).amin(-1)
     x_hi = per_tile(torch.where(inb, fx, -big), -big).amax(-1)
     y_lo = per_tile(torch.where(inb, fy, big), big).amin(-1)
@@ -152,8 +165,9 @@ def bilinear_gather(image: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
                     g_eff: torch.Tensor | None = None, *,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """
-    K3: image (ny, nx), xf, yf (any shape, one shape) f64 CUDA -> the
-    bilinear values at (xf, yf), 0 out of bounds or at a NaN position; with
+    K3: image (ny, nx) f64, xf, yf (any shape, one shape; f64, or both
+    f32) CUDA -> the f64 bilinear values at (xf, yf), 0 out of bounds or at
+    a NaN position; with
     `g_eff` (ny, nx), gain-weighted and normalised.  With `out` (xf's shape)
     the values are added into it in place, and it is returned.
     """
@@ -170,19 +184,21 @@ def bilinear_gather(image: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
         result = out
     if xf.numel() == 0:
         return result
-    _launch("bilinear_gather", dev, image.data_ptr(), _ptr(g_eff), ny, nx, xf.data_ptr(),
-            yf.data_ptr(), xf.numel(), result.data_ptr(), int(out is not None))
+    _launch("bilinear_gather", xf.dtype, dev, image.data_ptr(), _ptr(g_eff), ny, nx,
+            xf.data_ptr(), yf.data_ptr(), xf.numel(), result.data_ptr(), int(out is not None))
     return result
 
 
 def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
-                             shape, g_eff: torch.Tensor | None = None) -> torch.Tensor:
+                             shape, g_eff: torch.Tensor | None = None, *,
+                             out: torch.Tensor | None = None) -> torch.Tensor:
     """
-    K4: the exact adjoint of K3 with respect to the image: values, xf, yf
-    (one shape) f64 CUDA -> (ny, nx) = `shape`, each in-bounds value added
-    into its four taps with K3's weights (and gain).  The queries are tiled
-    on their grid (:func:`query_grid`); the sums are taken with atomics, in
-    no fixed order.
+    K4: the exact adjoint of K3 with respect to the image: values f64 and
+    xf, yf (f64, or both f32), one shape, CUDA -> (ny, nx) = `shape` f64,
+    each in-bounds value added into its four taps with K3's weights (and
+    gain).  The queries are tiled on their grid (:func:`query_grid`); the
+    sums are taken with atomics, in no fixed order.  With `out` ((ny, nx)
+    f64) the contributions are added into it in place, and it is returned.
     """
     dev = values.device
     _check(values, "values", torch.float64, dev, values.dim())
@@ -190,13 +206,19 @@ def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.T
     if values.shape != xf.shape:
         raise ValueError(f"values must have xf's shape {tuple(xf.shape)}, got "
                          f"{tuple(values.shape)}")
-    out = torch.zeros((ny, nx), dtype=torch.float64, device=dev)
+    if out is None:
+        out = torch.zeros((ny, nx), dtype=torch.float64, device=dev)
+    else:
+        _check(out, "out", torch.float64, dev, 2)
+        if tuple(out.shape) != (ny, nx):
+            raise ValueError(f"out must have the image's shape {(ny, nx)}, got "
+                             f"{tuple(out.shape)}")
     if xf.numel() == 0:
         return out
     qny, qnx = query_grid(xf)
     if qny >= 2 ** 31 or qnx >= 2 ** 31:
         raise ValueError("K4 indexes the query grid's rows and columns with int32")
-    _launch("bilinear_scatter_adjoint", dev, values.data_ptr(), _ptr(g_eff), ny, nx,
+    _launch("bilinear_scatter_adjoint", xf.dtype, dev, values.data_ptr(), _ptr(g_eff), ny, nx,
             xf.data_ptr(), yf.data_ptr(), qny, qnx, out.data_ptr(),
             _global_counter(dev).data_ptr())
     return out

@@ -2,19 +2,34 @@
 Device-resident destriping cost and gradient on PyTorch.
 
 Counterpart of pyimcom_tpu/ops/destripe_device.py.  :class:`DestripeCost`
-keeps every SCA image, gain map, mask and pair mapping on the device and
-writes the whole cost -- stripe model, gain-weighted bilinear resampling of
-each neighbour onto its target's grid, penalty model, amplifier
-boundary-continuity term -- as one differentiable PyTorch function;
-``torch.autograd.grad`` gives its exact gradient, through the gain
-weighting too.  The pair gather is :class:`~.bilinear.BilinearGather`
-(kernel K3 on the card, its adjoint K4 in the backward), added in place
-into the target's accumulator; its positions and the accumulator keep the
-target's (ny, nx) pixel grid, which K4 tiles.  It saves no per-pair output
-for the backward: the JAX package rematerialises its scan for the same
-reason (P saved planes of 4088^2 would add P x 134 MB).  The hit counts and the valid
-pixels depend on the maps alone, so they are computed once, when the module
-is built.
+keeps every SCA image, gain map and mask on the device and writes the whole
+cost -- stripe model, gain-weighted bilinear resampling of each neighbour
+onto its target's grid, penalty model, amplifier boundary-continuity term --
+as one differentiable PyTorch function; ``torch.autograd.grad`` gives its
+exact gradient, through the gain weighting too.  The pair gather is
+:class:`~.bilinear.BilinearGather` (kernel K3 on the card, its adjoint K4 in
+the backward), added in place into the target's accumulator; its positions
+and the accumulator keep the target's (ny, nx) pixel grid, which K4 tiles.
+It saves no per-pair output for the backward: the JAX package
+rematerialises its scan for the same reason (P saved planes of 4088^2 would
+add P x 134 MB).  The hit counts and the valid pixels depend on the maps
+alone, so they are computed once, when the module is built.
+
+The pair maps (each pair's positions, two (ny, nx) planes) are stored at
+``map_dtype`` "f64" or "f32" (the JAX package's PYIMCOM_DESTRIPE_MAP_DTYPE:
+the kernels widen float32 positions to float64 as they read them, so the
+cost is that of the float64 route on the widened maps), and in
+``map_store`` "device" (every pair on the card, 16 or 8 bytes a pixel a
+pair) or "host": the maps stay in pageable host memory (the memory-mapped
+files of ``imdestripe.DestripeProblem(memmap=True)``, viewed in place, or
+one host copy at the stored dtype) and go up pair by pair through two
+staging slots on the device, the next pair's upload on a side stream while
+the current pair computes (:class:`PairMaps`).  The card
+then holds maps for two pairs while a pass walks them, and none between
+passes, whatever the number of pairs.  The host route runs its pair loop in
+one autograd function (:class:`_StreamedPairs`) whose backward walks the
+pairs in reverse and uploads each again; saving the positions for the
+backward, as BilinearGather does, would keep every pair on the card.
 """
 
 from __future__ import annotations
@@ -24,7 +39,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DTYPE, resolve_device
-from .bilinear import BilinearGather, bilinear_gather_plain, in_bounds
+from .bilinear import (
+    BilinearGather,
+    bilinear_gather,
+    bilinear_gather_plain,
+    bilinear_scatter_adjoint,
+    in_bounds,
+)
+
+# the storage of the pair maps: their dtype, and where they live
+MAP_DTYPES = {"f64": torch.float64, "f32": torch.float32}
+MAP_STORES = ("device", "host")
+_NUMPY = {torch.float64: np.dtype(np.float64), torch.float32: np.dtype(np.float32)}
 
 
 def _stripe_forward(p, ny: int, nx: int, amp_cols):
@@ -73,6 +99,127 @@ def boundary_chunks(bmasks, targets, ny: int, nx: int, amp_cols, chunk_width: in
     return out
 
 
+def _host_map(a, ny: int, nx: int, dtype=None) -> torch.Tensor:
+    """One pair map as a (ny, nx) host tensor: a view of `a` where it can be
+    one (a memory-mapped array stays a view of its file), else a copy at
+    `dtype` (default: `a`'s own)."""
+    return torch.from_numpy(np.asarray(a, dtype=None if dtype is None else _NUMPY[dtype])
+                            .reshape(ny, nx))
+
+
+class PairMaps:
+    """
+    Pair maps kept in host memory, uploaded to the device pair by pair.
+
+    xf, yf : P host tensors (ny, nx) of one dtype (pageable, such as views
+        of memory-mapped files, or pinned).
+    device : where the positions are used.
+
+    :meth:`walk` allocates two staging slots on the device, which hold two
+    pairs' positions, and frees them when it ends: between walks the device
+    holds no map.  On a CUDA device each upload runs on a side stream, after
+    the last work that used its slot's memory (the work the current stream
+    had queued when the walk began, then the last read of the slot), and
+    the current stream waits for it before the slot is read; :meth:`walk`
+    starts the next pair's upload as soon as the caller has enqueued its
+    work on the current one.  An upload from pageable memory returns once
+    the CUDA runtime has staged it, so the host copies the next pair while the
+    device runs the current one.  `uploads` counts the pairs uploaded.
+    """
+
+    def __init__(self, xf, yf, device):
+        self.xf, self.yf = xf, yf
+        self.device = torch.device(device)
+        self.slots = None
+        self.uploads = 0
+        self.cuda = self.device.type == "cuda"
+        if self.cuda:
+            self.side = torch.cuda.Stream(self.device)
+            self.ready = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def _stage(self, p: int, slot: int) -> None:
+        dst = self.slots[slot]
+        if self.cuda:
+            with torch.cuda.stream(self.side):
+                if self.free[slot] is not None:
+                    self.side.wait_event(self.free[slot])
+                dst[0].copy_(self.xf[p], non_blocking=True)
+                dst[1].copy_(self.yf[p], non_blocking=True)
+                self.ready[slot].record(self.side)
+        else:
+            dst[0].copy_(self.xf[p])
+            dst[1].copy_(self.yf[p])
+        self.uploads += 1
+
+    def walk(self, order):
+        """Yield (p, x, y) for each pair p of `order`, its positions in a
+        staging slot on the device.  The caller enqueues all its work on
+        (x, y) before it asks for the next pair, whose slot is then
+        refilled.  The slots are freed when the walk ends, after the
+        current stream has waited for every upload (a walk left early may
+        still have one in flight), so they are its to reuse."""
+        order = list(order)
+        if not order:
+            return
+        ny, nx = self.xf[0].shape
+        self.slots = torch.empty((2, 2, ny, nx), dtype=self.xf[0].dtype, device=self.device)
+        # the allocator hands out memory whose last use on the current stream
+        # may still be queued: the side stream's first uploads wait for it
+        start = (torch.cuda.current_stream(self.device).record_event() if self.cuda
+                 else None)
+        self.free = [start, start]
+        try:
+            slot = 0
+            self._stage(order[0], slot)
+            for k, p in enumerate(order):
+                if self.cuda:
+                    torch.cuda.current_stream(self.device).wait_event(self.ready[slot])
+                yield p, self.slots[slot, 0], self.slots[slot, 1]
+                if self.cuda:
+                    self.free[slot] = torch.cuda.current_stream(self.device).record_event()
+                slot = 1 - slot
+                if k + 1 < len(order):
+                    self._stage(order[k + 1], slot)
+        finally:
+            if self.cuda:
+                torch.cuda.current_stream(self.device).wait_stream(self.side)
+            self.slots = None
+
+
+class _StreamedPairs(torch.autograd.Function):
+    """
+    ``_StreamedPairs.apply(cost, *imgs)``: every pair gather of a cost whose
+    maps live in host memory, added into one accumulator a target (returned
+    in ``cost.targets`` order), the pairs in order as the device route adds
+    them.  The backward walks the pairs in reverse, uploading each again,
+    and K4 adds each pair's adjoint straight into its source image's
+    gradient (no plane a pair).  It saves nothing: the gathers are linear in
+    the images.
+    """
+
+    @staticmethod
+    def forward(ctx, cost, *imgs):
+        ctx.cost = cost
+        acc = {i: imgs[0].new_zeros((cost.ny, cost.nx)) for i in cost.targets}
+        for p, x, y in cost.maps.walk(range(len(cost.pairs))):
+            i, j = cost.pairs[p]
+            bilinear_gather(imgs[j], x, y, cost.ge[j], out=acc[i])
+        return tuple(acc[i] for i in cost.targets)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        cost = ctx.cost
+        g_acc = dict(zip(cost.targets, grads))
+        g_img = [None] * cost.S
+        for p, x, y in cost.maps.walk(reversed(range(len(cost.pairs)))):
+            i, j = cost.pairs[p]
+            if g_img[j] is None:
+                g_img[j] = g_acc[i].new_zeros((cost.ny, cost.nx))
+            bilinear_scatter_adjoint(g_acc[i].contiguous(), x, y, (cost.ny, cost.nx),
+                                     cost.ge[j], out=g_img[j])
+        return (None, *g_img)
+
+
 class DestripeCost(torch.nn.Module):
     """
     The destriping cost of :class:`~pyimcom_tpu_torch.imdestripe.
@@ -90,6 +237,12 @@ class DestripeCost(torch.nn.Module):
     amp_cols, cost_model, hub, col_boundary_const : as in DestripeProblem.
     bmasks : the S masks of the boundary penalty (default `masks`).
     device : where the buffers live and the cost runs ("cuda" by default).
+    map_dtype : "f64" (default) or "f32": the maps' stored width (given
+        maps of another dtype are converted, rounding to nearest).
+    map_store : "device" (default: every pair on the device) or "host"
+        (:class:`PairMaps`, from pageable host memory: a given map of the
+        stored dtype, a memory-mapped array too, is viewed in place, any
+        other is copied to the host at that dtype).
 
     ``forward(params)`` is the cost eps, a 0-d tensor, differentiable in
     params (S * n_params,); ``value_and_grad`` gives both on the device,
@@ -99,9 +252,15 @@ class DestripeCost(torch.nn.Module):
 
     def __init__(self, imgs, g_eff, masks, pairs, xf, yf, amp_cols=None,
                  cost_model="quadratic", hub=1.0, col_boundary_const=0.0, chunk_width=50,
-                 chunk_height=100, bmasks=None, device="cuda"):
+                 chunk_height=100, bmasks=None, device="cuda", map_dtype="f64",
+                 map_store="device"):
         super().__init__()
         dev = resolve_device(device)
+        if map_dtype not in MAP_DTYPES:
+            raise ValueError(f"map_dtype must be one of {sorted(MAP_DTYPES)}, got {map_dtype!r}")
+        if map_store not in MAP_STORES:
+            raise ValueError(f"map_store must be one of {MAP_STORES}, got {map_store!r}")
+        self.map_dtype, self.map_store = map_dtype, map_store
         S, ny, nx = np.shape(imgs)
         self.S, self.ny, self.nx = S, ny, nx
         self.amp_cols = amp_cols
@@ -117,16 +276,26 @@ class DestripeCost(torch.nn.Module):
 
         self.register_buffer("imgs", put(imgs))
         self.register_buffer("ge", put(g_eff))
-        # the maps go up pair by pair, never stacked on the host
-        for name, arrs in (("xf", xf), ("yf", yf)):
-            t = torch.empty((len(self.pairs), ny, nx), dtype=DTYPE, device=dev)
-            for p in range(len(self.pairs)):
-                t[p].copy_(torch.as_tensor(np.asarray(arrs[p], np.float64).reshape(ny, nx)))
-            self.register_buffer(name, t)
-        # hit counts of each target pixel: where none, J is 0 and r is 0
+        # the maps go up (or are stored) pair by pair, never stacked on the host
+        mdt = MAP_DTYPES[map_dtype]
         cnt = torch.zeros((S, ny, nx), dtype=DTYPE, device=dev)
-        for p, (i, _j) in enumerate(self.pairs):
-            cnt[i] += in_bounds(self.xf[p], self.yf[p], (ny, nx))
+        if map_store == "device":
+            for name, arrs in (("xf", xf), ("yf", yf)):
+                t = torch.empty((len(self.pairs), ny, nx), dtype=mdt, device=dev)
+                for p in range(len(self.pairs)):
+                    t[p].copy_(_host_map(arrs[p], ny, nx))
+                self.register_buffer(name, t)
+            self.maps = None
+            walk = ((p, self.xf[p], self.yf[p]) for p in range(len(self.pairs)))
+        else:
+            self.xf = [_host_map(a, ny, nx, mdt) for a in xf]
+            self.yf = [_host_map(a, ny, nx, mdt) for a in yf]
+            self.maps = PairMaps(self.xf, self.yf, dev) if self.pairs else None
+            walk = self.maps.walk(range(len(self.pairs))) if self.pairs else ()
+        # hit counts of each target pixel (built while the maps stream up):
+        # where none, J is 0 and r is 0
+        for p, x, y in walk:
+            cnt[self.pairs[p][0]] += in_bounds(x, y, (ny, nx))
         valid = cnt > 0
         mask = put(masks, torch.bool) if masks is not None else torch.ones_like(valid)
         self.register_buffer("cnt", torch.where(valid, cnt, 1.0))
@@ -143,21 +312,33 @@ class DestripeCost(torch.nn.Module):
                  else put(m, torch.bool) for m in bm]))
 
     # ---- the differentiable cost ---------------------------------------
+    def _plain_pair(self, img, p: int):
+        """The plain gather of pair p's source image `img`; the positions
+        are the stored planes or, with host storage, uploaded afresh."""
+        _i, j = self.pairs[p]
+        x, y = self.xf[p], self.yf[p]
+        if self.map_store == "host":
+            x, y = x.to(img.device), y.to(img.device)
+        return bilinear_gather_plain(img, x, y, self.ge[j])
+
     def forward(self, params: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """The cost at `params`.  `plain` runs the pair gather as its plain
-        PyTorch version differentiated by autograd, each pair recomputed in
-        the backward (torch.utils.checkpoint), instead of K3 and K4: the
-        route the kernels are held against."""
+        PyTorch version differentiated by autograd, each pair (and, with host
+        storage, its upload) recomputed in the backward
+        (torch.utils.checkpoint), instead of K3 and K4: the route the
+        kernels are held against."""
         S, ny, nx = self.S, self.ny, self.nx
         ps = params.reshape(S, self.np_each)
         imgs = [self.imgs[s] - _stripe_forward(ps[s], ny, nx, self.amp_cols) for s in range(S)]
-        acc = {i: torch.zeros((ny, nx), dtype=params.dtype, device=params.device)
-               for i in self.targets}
+        if self.map_store == "host" and not plain and self.pairs:
+            acc = dict(zip(self.targets, _StreamedPairs.apply(self, *imgs)))
+        else:
+            acc = {i: torch.zeros((ny, nx), dtype=params.dtype, device=params.device)
+                   for i in self.targets}
         for p, (i, j) in enumerate(self.pairs):
             if plain:
-                acc[i] = acc[i] + checkpoint(bilinear_gather_plain, imgs[j], self.xf[p],
-                                             self.yf[p], self.ge[j], use_reentrant=False)
-            else:
+                acc[i] = acc[i] + checkpoint(self._plain_pair, imgs[j], p, use_reentrant=False)
+            elif self.map_store == "device":
                 acc[i] = BilinearGather.apply(imgs[j], self.xf[p], self.yf[p], self.ge[j],
                                               acc[i])
         eps = params.new_zeros(())

@@ -129,17 +129,18 @@ def destripe_quality(root, raw, dsdir):
     return out
 
 
-def destripe(cfg, maxiter=5, device="cuda"):
+def destripe(cfg, maxiter=5, device="cuda", map_dtype="f64", memmap=False):
     """Stage 1: imdestripe.main (no object mask, no WCS gain, as the script
-    runs it), then each destriped exposure written back under its L2 name;
-    returns destripe_quality of every exposure."""
+    runs it; `map_dtype` and `memmap` choose the pair maps' storage), then
+    each destriped exposure written back under its L2 name; returns
+    destripe_quality of every exposure."""
     from . import imdestripe
     from .config import Config
     from .fitsio import HDUList, Header, ImageHDU, fits_read, fits_write
 
     work = Path(cfg["DSOUT"][0]).parent
     imdestripe.main(Config(dict(cfg)), maxiter=maxiter, add_objmask=False,
-                    use_wcs_gain=False, device=device)
+                    use_wcs_gain=False, device=device, map_dtype=map_dtype, memmap=memmap)
     raw = raw_images(work)
     dsdir = cfg["DSOUT"][0]
     quality = destripe_quality(work, raw, dsdir)

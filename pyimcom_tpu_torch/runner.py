@@ -10,13 +10,16 @@ partial run is an unbiased spatial sample of the mosaic.  A finished block
 ``checkpoint_sec`` an interrupted block resumes from its snapshot.
 
     python -m pyimcom_tpu_torch.runner cfg.json --block N | --all
-        [--workers K] [--checkpoint-sec S] [--device cuda|cpu] [--share-pads]
-        [--report]
+        [--workers K] [--checkpoint-sec S] [--device cuda|cpu] [--devices N]
+        [--share-pads] [--report]
 
 ``--all`` runs this rank's share of the blocks (host_blocks): every block
-in a single-process run.  ``--share-pads`` then runs the padding-stamp halo
-exchange over the mosaic's block files (analysis.Mosaic) and saves every
-block.  ``--report`` then builds the validation report
+in a single-process run.  ``--devices N`` (the JAX package's
+PYIMCOM_NDEVICES) spreads each block's groups over N local devices
+(parallel.mesh.make_mesh: the first N cards, or the CPU N times with
+``--device cpu``); by default a block runs on one.  ``--share-pads`` then
+runs the padding-stamp halo exchange over the mosaic's block files
+(analysis.Mosaic) and saves every block.  ``--report`` then builds the validation report
 (diagnostics.run.run_report) of the first block, ``_00_00`` or else the
 first block file found, into ``<OUT>_report.pdf`` and ``<OUT>_data.txt``;
 it needs matplotlib.
@@ -44,7 +47,7 @@ def run_block(cfg, this_sub: int, skip_existing: bool = True, device="cuda",
               **block_kw) -> str:
     """Coadd one block; returns the output path.  A block whose output
     exists is skipped (the reference's idempotent re-run).  `block_kw` goes
-    to Block (checkpoint_sec, pool_budget_bytes)."""
+    to Block (checkpoint_sec, pool_budget_bytes, devices)."""
     if isinstance(cfg, dict):
         cfg = Config(dict(cfg))
     cfg()
@@ -157,6 +160,8 @@ def main(argv=None):
                     help="snapshot each block every S seconds (0: every group) and "
                          "resume an interrupted block from its snapshot")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="spread each block's groups over N local devices (default: one)")
     ap.add_argument("--report", action="store_true", help="build the report after")
     ap.add_argument("--share-pads", action="store_true",
                     help="run the padding-stamp halo exchange post-pass")
@@ -164,6 +169,10 @@ def main(argv=None):
 
     cfg = Config(args.config)
     kw = dict(device=args.device, checkpoint_sec=args.checkpoint_sec)
+    if args.devices is not None:
+        from .parallel.mesh import make_mesh
+
+        kw["devices"] = make_mesh(args.devices, args.device)
     if args.block is not None:
         run_block(cfg, args.block, **kw)
     elif args.all:

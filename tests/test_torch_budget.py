@@ -40,10 +40,11 @@ def test_eviction_order():
 
     blk = Block.__new__(Block)
     pools = {r: torch.zeros(100 * r, dtype=torch.float64) for r in (1, 2, 3)}
-    blk._dev_submat = {("a", 1): dict(pool=pools[1], round=1),
-                       ("b", 1): dict(pool=pools[1], round=1),
-                       ("a", 2): dict(pool=pools[2], round=2),
-                       ("a", 3): dict(pool=pools[3], round=3)}
+    # key -> {band: pooled submatrix}: one band here
+    blk._dev_submat = {("a", 1): {0: dict(pool=pools[1], round=1)},
+                       ("b", 1): {0: dict(pool=pools[1], round=1)},
+                       ("a", 2): {0: dict(pool=pools[2], round=2)},
+                       ("a", 3): {0: dict(pool=pools[3], round=3)}}
     blk.pool_stats = dict(retained=[], peak_bytes=0, evictions=0, evicted_bytes=0)
     blk._pool_budget = 8 * (300 + 200)          # fits rounds 2 and 3, not 1
     blk._maybe_evict_pools()
@@ -55,4 +56,4 @@ def test_eviction_order():
     assert blk.pool_stats["retained"][-1] == 8 * 300
     assert blk.pool_stats["evicted_bytes"] == 8 * 300
     assert blk.pool_stats["peak_bytes"] == 8 * 500
-    np.testing.assert_array_equal(blk._dev_submat[("a", 3)]["pool"].numpy(), 0.0)
+    np.testing.assert_array_equal(blk._dev_submat[("a", 3)][0]["pool"].numpy(), 0.0)

@@ -347,7 +347,7 @@ def test_k3_k4_no_queries_launch_nothing(cuda):
     bilinear_cuda.reset_launch_counts()
     assert bilinear_cuda.bilinear_gather(img, q, q).shape == (0,)
     assert bilinear_cuda.bilinear_scatter_adjoint(q, q, q, img.shape).shape == (30, 30)
-    assert bilinear_cuda.launches == {"bilinear_gather": 0, "bilinear_scatter_adjoint": 0}
+    assert not any(bilinear_cuda.launches.values()), bilinear_cuda.launches
 
 
 def test_bilinear_wrappers_raise_on_bad_inputs(cuda):
@@ -375,7 +375,9 @@ def test_bilinear_gather_backward_launches_k4(cuda):
     bilinear_cuda.reset_launch_counts()
     out = bilinear.BilinearGather.apply(image, x, y, gain, torch.zeros_like(v))
     (grad,) = torch.autograd.grad(out, image, v)
-    assert bilinear_cuda.launches == {"bilinear_gather": 1, "bilinear_scatter_adjoint": 1}
+    assert bilinear_cuda.launches == {"bilinear_gather": 1, "bilinear_scatter_adjoint": 1,
+                                      "bilinear_gather.f32": 0,
+                                      "bilinear_scatter_adjoint.f32": 0}
     assert _rel(grad, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, gain)) < TOL
 
 
@@ -489,13 +491,247 @@ def test_destripe_cost_cuda_matches_cpu(cuda):
     bilinear_cuda.reset_launch_counts()
     cost, grad = gpu.cost_and_grad(p)
     assert bilinear_cuda.launches == {"bilinear_gather": len(pairs),
-                                      "bilinear_scatter_adjoint": len(pairs)}
+                                      "bilinear_scatter_adjoint": len(pairs),
+                                      "bilinear_gather.f32": 0,
+                                      "bilinear_scatter_adjoint.f32": 0}
     want_cost, want_grad = cpu.cost_and_grad(p)
     np.testing.assert_allclose(cost, want_cost, rtol=1e-12)
     np.testing.assert_allclose(grad, want_grad, rtol=1e-9, atol=1e-12)
     e, g = gpu.value_and_grad(torch.as_tensor(p, device=cuda), plain=True)
     np.testing.assert_allclose(float(e), want_cost, rtol=1e-12)
     np.testing.assert_allclose(g.cpu().numpy(), want_grad, rtol=1e-9, atol=1e-12)
+
+
+# the float32-position forms of K3 and K4: a stream (1-D, tiles of one row
+# in K4), grids rolled by 0-90 degrees (ragged against K4's 32 x 32 tiles),
+# and a grid scaled by 2.5 (K4's global route); NaN, +-inf and off-grid
+# positions, the last row and column among them, in every case
+F32_CASES = ("stream", "roll0", "roll15", "roll45", "roll90", "global")
+
+
+def _f32_case(cuda, kind):
+    if kind == "stream":
+        img, gain, x, y, v = _bil_case(cuda, 60)
+    elif kind == "global":
+        img, gain, x, y, v = _grid_case(cuda, 61, 30, ny=400, nx=420, scale=2.5)
+    else:
+        roll = int(kind[4:])
+        img, gain, x, y, v = _grid_case(cuda, 62 + roll, roll)
+    return img, gain, x.float(), y.float(), v
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+@pytest.mark.parametrize("kind", F32_CASES)
+def test_k3_k4_f32_forms_match_plain(cuda, kind, weighted):
+    """K3 and K4 on float32 positions: one launch of each .f32 form, held to
+    the plain versions (which widen the positions to float64); K3's f32
+    form equals its f64 form on the widened positions bit for bit (the same
+    float64 arithmetic, no atomics); K4's global-route tiles are those
+    predicted."""
+    img, gain, x, y, v = _f32_case(cuda, kind)
+    g = gain if weighted else None
+    inb = bilinear.in_bounds(x, y, img.shape)
+    assert int(inb.sum()) > 10_000 and int((~inb).sum()) > 100
+    assert bool(torch.any(torch.isnan(x))) and bool(torch.any(torch.isinf(x)))
+    bilinear_cuda.reset_launch_counts()
+    bilinear_cuda.reset_global_tiles()
+    got3 = bilinear_cuda.bilinear_gather(img, x, y, g, out=v.clone())
+    got4 = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)
+    n_global = bilinear_cuda.global_tiles(cuda)
+    assert bilinear_cuda.launches == {"bilinear_gather": 0, "bilinear_scatter_adjoint": 0,
+                                      "bilinear_gather.f32": 1,
+                                      "bilinear_scatter_adjoint.f32": 1}
+    assert _rel(got3, bilinear.bilinear_gather_plain(img, x, y, g) + v) < TOL
+    assert _rel(got4, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)) < TOL
+    assert torch.equal(got3, bilinear_cuda.bilinear_gather(img, x.double(), y.double(), g,
+                                                           out=v.clone()))
+    assert n_global == bilinear_cuda.predict_global_tiles(x, y, img.shape)
+    assert (n_global > 0) == (kind in ("stream", "global"))
+    off = ~inb
+    assert torch.all(bilinear_cuda.bilinear_gather(img, x, y, g)[off] == 0)
+
+
+def test_f32_forms_raise_on_mixed_positions(cuda):
+    img, _gain, x, y, v = _bil_case(cuda, 63, n=1000)
+    with pytest.raises(TypeError):
+        bilinear_cuda.bilinear_gather(img, x.float(), y)
+    with pytest.raises(TypeError):
+        bilinear_cuda.bilinear_scatter_adjoint(v, x, y.float(), img.shape)
+    with pytest.raises(TypeError):
+        bilinear_cuda.bilinear_gather(img, x.half(), y.half())
+
+
+def _destripe_case(S=3, n=96, seed=26):
+    rng = np.random.default_rng(seed)
+    imgs = rng.normal(size=(S, n, n))
+    gains = rng.uniform(0.5, 2.0, (S, n, n))
+    masks = rng.random((S, n, n)) > 0.1
+    yy, xx = np.mgrid[0:n, 0:n].astype(float)
+    pairs, xf, yf = [], [], []
+    for i in range(S):
+        for j in range(S):
+            if i != j:
+                th = 0.02 * (i - j)
+                pairs.append((i, j))
+                xf.append(np.cos(th) * xx - np.sin(th) * yy + 3.3 * (i - j))
+                yf.append(np.sin(th) * xx + np.cos(th) * yy - 2.1 * (i - j))
+    return rng, imgs, gains, masks, pairs, xf, yf
+
+
+@pytest.mark.parametrize("map_dtype, map_store", [("f64", "host"), ("f32", "device"),
+                                                  ("f32", "host")])
+def test_destripe_cost_storage_routes_on_the_card(cuda, map_dtype, map_store):
+    """DestripeCost with its maps stored at float32 and / or streamed from
+    pageable host memory, against the on-card float64 route on the same
+    positions (float32 maps widened): cost to rtol 1e-12, gradient to rtol
+    1e-9, atol 1e-12 (K4's atomics add in no fixed order); the launches are
+    the storage's form, one a pair a pass; the host route holds no map on
+    the card between passes, and its peak memory is under the float64
+    device route's by at least the maps of all but two pairs."""
+    rng, imgs, gains, masks, pairs, xf, yf = _destripe_case()
+    if map_dtype == "f32":
+        xf = [a.astype(np.float32) for a in xf]
+        yf = [a.astype(np.float32) for a in yf]
+    kw = dict(amp_cols=32, col_boundary_const=2.0)
+    peaks = {}
+    costs = {}
+    for name, args in (("base", dict(xf=[a.astype(np.float64) for a in xf],
+                                     yf=[a.astype(np.float64) for a in yf])),
+                       ("route", dict(xf=xf, yf=yf, map_dtype=map_dtype,
+                                      map_store=map_store))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        before = torch.cuda.memory_allocated(cuda)
+        costs[name] = dc = DestripeCost(imgs, gains, masks, pairs, device=cuda, **kw, **args)
+        p = torch.as_tensor(rng.normal(scale=0.01, size=len(imgs) * dc.np_each), device=cuda)
+        dc.value_and_grad(p)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated(cuda) - before
+    base, route = costs["base"], costs["route"]
+    p = rng.normal(scale=0.01, size=len(imgs) * base.np_each)
+    bilinear_cuda.reset_launch_counts()
+    cost, grad = route.cost_and_grad(p)
+    suffix = ".f32" if map_dtype == "f32" else ""
+    assert bilinear_cuda.launches["bilinear_gather" + suffix] == len(pairs)
+    assert bilinear_cuda.launches["bilinear_scatter_adjoint" + suffix] == len(pairs)
+    want_cost, want_grad = base.cost_and_grad(p)
+    np.testing.assert_allclose(cost, want_cost, rtol=1e-12)
+    np.testing.assert_allclose(grad, want_grad, rtol=1e-9, atol=1e-12)
+    e, g = route.value_and_grad(torch.as_tensor(p, device=cuda), plain=True)
+    np.testing.assert_allclose(float(e), want_cost, rtol=1e-12)
+    np.testing.assert_allclose(g.cpu().numpy(), want_grad, rtol=1e-9, atol=1e-12)
+    pair_bytes = 2 * imgs[0].size * (4 if map_dtype == "f32" else 8)
+    if map_store == "host":
+        # the hit counts, then two passes of a cost and gradient each
+        assert route.maps.slots is None and route.maps.uploads == 5 * len(pairs)
+        assert not any(t.is_pinned() for t in route.xf + route.yf)
+    # within one f64 image plane of working memory
+    assert peaks["route"] <= peaks["base"] - (len(pairs) - 2) * pair_bytes * (
+        1 if map_store == "host" else 0.5) + 8 * imgs[0].size
+
+
+def test_destripe_problem_memmap_on_the_card(cuda):
+    """The user's route to the streamed maps, DestripeProblem(map_dtype=
+    "f32", memmap=True) on the card: float32 maps in memory-mapped files,
+    viewed in place (a write to a file shows in the cost's map) and
+    uploaded pair by pair from those pageable pages, with K3 / K4's float32
+    forms; against the on-card float64 route on the same positions (the
+    maps widened): cost to rtol 1e-12, gradient to rtol 1e-9, atol 1e-12."""
+    from pyimcom_tpu_torch import imdestripe
+    from pyimcom_tpu_torch.wcsutil import WCS
+
+    n = 128
+    rng = np.random.default_rng(27)
+    wcs = dict(ctype=("RA---TAN", "DEC--TAN"), crval=(150.0, 2.0),
+               cd=np.array([[-4e-5, 0], [0, 4e-5]]), lonpole=180.0)
+    scas = [imdestripe.Sca_img(rng.normal(size=(n, n)),
+                               WCS(crpix=((n - 1) / 2 + dx, (n - 1) / 2 + dy), **wcs),
+                               g_eff=rng.uniform(0.5, 2.0, (n, n)), name=f"sca{k}")
+            for k, (dx, dy) in enumerate([(0, 0), (11, 4), (5, 13)])]
+    prob = imdestripe.DestripeProblem(scas, {0: [1, 2], 1: [0, 2], 2: [0, 1]}, amp_cols=32,
+                                      col_boundary_const=2.0, device=cuda, map_dtype="f32",
+                                      memmap=True)
+    dc = prob.device_cost
+    P = len(dc.pairs)
+    assert dc.map_store == "host" and dc.maps.uploads == P
+    assert all(t.dtype == torch.float32 and not t.is_pinned() for t in dc.xf + dc.yf)
+    i, j = dc.pairs[0]
+    path = f"{prob.map_dir.name}/xf_{i}_{j}.dat"
+    on_disk = np.memmap(path, dtype=np.float32, mode="r+")
+    was = float(on_disk[5])
+    on_disk[5] = -7.5
+    assert float(dc.xf[0].reshape(-1)[5]) == -7.5
+    on_disk[5] = was
+    base = DestripeCost(np.stack([s.image for s in scas]), np.stack([s.g_eff for s in scas]),
+                        None, dc.pairs, [t.double().numpy() for t in dc.xf],
+                        [t.double().numpy() for t in dc.yf], amp_cols=32,
+                        col_boundary_const=2.0, bmasks=[s.mask for s in scas], device=cuda)
+    p = rng.normal(scale=0.01, size=prob.offsets[-1])
+    bilinear_cuda.reset_launch_counts()
+    cost, grad = prob.cost_and_grad(p)
+    assert bilinear_cuda.launches["bilinear_gather.f32"] == P
+    assert bilinear_cuda.launches["bilinear_scatter_adjoint.f32"] == P
+    assert dc.maps.uploads == 3 * P and dc.maps.slots is None
+    want_cost, want_grad = base.cost_and_grad(p)
+    np.testing.assert_allclose(cost, want_cost, rtol=1e-12)
+    np.testing.assert_allclose(grad, want_grad, rtol=1e-9, atol=1e-12)
+
+
+def test_pair_maps_uploads_wait_for_queued_work(cuda):
+    """A walk's staging slots may reuse memory that work still queued on
+    the current stream writes: here a NaN fill queued behind a device sleep
+    into a tensor of the slots' size, freed before the walk.  The uploads
+    on the side stream must wait for it, so every pair arrives intact."""
+    from pyimcom_tpu_torch.ops.destripe_device import PairMaps
+
+    rng = np.random.default_rng(64)
+    P, ny, nx = 4, 512, 512
+    xf = [torch.as_tensor(rng.uniform(0, nx, (ny, nx)), dtype=torch.float32).pin_memory()
+          for _ in range(P)]
+    yf = [torch.as_tensor(rng.uniform(0, ny, (ny, nx)), dtype=torch.float32).pin_memory()
+          for _ in range(P)]
+    maps = PairMaps(xf, yf, cuda)
+    for _ in range(3):
+        junk = torch.empty((2, 2, ny, nx), dtype=torch.float32, device=cuda)
+        torch.cuda._sleep(20_000_000)
+        junk.fill_(float("nan"))
+        del junk
+        seen = [(p, x.clone(), y.clone()) for p, x, y in maps.walk(range(P))]
+        torch.cuda.synchronize()
+        assert [p for p, _x, _y in seen] == list(range(P)) and maps.slots is None
+        for p, x, y in seen:
+            assert torch.equal(x.cpu(), xf[p]) and torch.equal(y.cpu(), yf[p]), p
+
+
+def test_banded_block_on_one_card_matches_one_device(cuda, tmp_path):
+    """The bench survey's block 1 at STOP 8 on ["cuda:0"] * 2 (two bands
+    on one card: the banded path with its seam recompute and its round
+    statistics) against the one-device block: science within 1e-12 of its
+    scale, the maps to 1 LSB, no cross-device pool reuse."""
+    from survey_fixture_torch import build_survey
+
+    from pyimcom_tpu_torch.coadd import Block
+    from pyimcom_tpu_torch.config import Config
+    from pyimcom_tpu_torch.fitsio import fits_read
+
+    cfg = build_survey(tmp_path, n_obs=8, extrainput=[],
+                       config_overrides={"NPIXPSF": 16, "INPAD": 0.3, "STOP": 8})
+    outs, blks = {}, {}
+    for n in (1, 2):
+        d = dict(cfg, OUT=cfg["OUT"] + f"_band{n}")
+        blks[n] = Block(Config(d), this_sub=1, devices=[cuda] * n)
+        outs[n] = fits_read(d["OUT"] + "_00_01.fits")
+    assert blks[2]._cross_device_puts == 0 and blks[2]._round_stats is not None
+    assert blks[2].pool_stats["recomputed"] > 0
+    a = np.asarray(outs[1][0].data, np.float64)
+    b = np.asarray(outs[2][0].data, np.float64)
+    assert np.abs(b - a).max() <= 1e-12 * np.abs(a).max()
+    for name in ("FIDELITY", "SIGMA", "INWTSUM", "EFFCOVER"):
+        ha = [h for h in outs[1] if h.header.get("EXTNAME") == name]
+        hb = [h for h in outs[2] if h.header.get("EXTNAME") == name]
+        for x, y in zip(ha, hb):
+            lsb = np.abs(np.asarray(x.data, np.float64) - np.asarray(y.data, np.float64))
+            assert lsb.max() <= 1, name
 
 
 def test_empirical_no_qlt_block_launches_no_kernel(cuda, tmp_path):

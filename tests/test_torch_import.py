@@ -37,7 +37,8 @@ MODULES = ("pyimcom_tpu_torch", "pyimcom_tpu_torch.coadd",
            "pyimcom_tpu_torch.diagnostics", "pyimcom_tpu_torch.diagnostics.run",
            "pyimcom_tpu_torch.diagnostics.sections", "pyimcom_tpu_torch.diagnostics.stability",
            "pyimcom_tpu_torch.diagnostics.starsdata", "pyimcom_tpu_torch.pictures",
-           "pyimcom_tpu_torch.pictures.genpic")
+           "pyimcom_tpu_torch.pictures.genpic", "pyimcom_tpu_torch.parallel",
+           "pyimcom_tpu_torch.parallel.mesh")
 
 CASES = {
     # jax made unimportable: every import must still succeed
