@@ -20,8 +20,10 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    G4460 and bilinear kernels (and of the earlier revisions in PARENTS, each
    where pyimcom_tpu_torch/_build/parent/ holds its source, pinned by its
    SHA-256: interp_d5512.cu of commit 7671040, the one-thread-a-query K1
-   with a 9-argument C entry, and bilinear.cu of commit c560e0f, the
-   one-thread-a-query K4 with a 9-argument C entry), started together, with
+   with a 9-argument C entry, bilinear.cu of commit c560e0f, the
+   one-thread-a-query K4 with a 9-argument C entry, and, as
+   interp_d5512_pr12.cu, interp_d5512.cu of commit 910c170, whose K2 entries
+   take today's arguments), started together, with
    their ptxas register and spill lines and the atomic instructions in K4's
    SASS (cuobjdump);
 2. probe: the probe entry point builds csrc/probe.cu and launches its
@@ -31,8 +33,8 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    torch.cuda._sleep(0)); each kernel against its plain PyTorch version on
    the card, on seeded random inputs at its path's shapes (criterion: 1e-12
    of scale in f64, exact for the probe), with the device times of both
-   and the kernel's bounds; the sleep check of the timing on K1 and the
-   probe (below);
+   and the kernel's bounds, K2 also beside K2 of commit 910c170 where
+   built; the sleep check of the timing on K1 and the probe (below);
 4. bench_block: BASELINE.json configs[0] (8 exposures, cstar14, all 16
    stamps of block 1) -- a cold run that builds the input layers, then the
    measured warm run: blocks/hour, phase times, SL1, the U/C median, and the
@@ -83,9 +85,13 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    1e-12 of scale of the first;
 8. k2_main_path: K2 on the sweep rows, overlap stack and coordinate tables
    of the first group of the warm bench block and of the Cholesky
-   production group (captured while those blocks ran): every launch of each
-   group timed alone and summed, against its plain version (1e-12 of
-   scale), with its bounds and the tiles it took from L2;
+   production group (captured while those blocks ran), and K2<8> on the
+   production group's rows launched as G4460 (its production shape; no
+   G4460 production block runs): every launch of each group timed alone and
+   summed, against its plain version (1e-12 of scale), with its bounds and
+   the tiles it took from L2, and, where built, K2 of commit 910c170 on the
+   same launches (held to the same criterion, timed in turns with the
+   kernel);
 9. galaxy_block: a gsext14 galaxy layer (n=0.5, hlr=0.1, shape=0.2:0.1) at
    STOP 4, cold: adaptive moments against the analytic covariance (5e-4
    arcsec^2), the flux (0.97-1.03), the cold input time and the K1 launches
@@ -142,7 +148,8 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    launches (PSF sampling of the G4460 block, the first wing canvas of the
    loop's task, at most 2^22 queries of it) and K2<8> (pool, B) on the
    G4460 block's first group, against their plain versions (1e-12 of
-   scale), with their bounds;
+   scale), with their bounds, and K2 of commit 910c170 on the same launches
+   where built;
 11b. piff_block (in .smoke_work/piff/): the bench survey with each
    observation's PSF written as a Piff file as tests/test_piff.py:115-127
    writes them (survey_fixture_torch.write_piff_files: per SCA the cube's
@@ -159,7 +166,12 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    draw of that group against the CPU route's (1 float32 spacing of
    max|stamp|); K1 and K2 launched; the warm run's first K1 launch of PSF
    sampling (as k1_main_path) and its first group's K2 launches (as
-   k2_main_path) against their plain versions (1e-12 of scale);
+   k2_main_path) against their plain versions (1e-12 of scale); K2<8>
+   where the PSFs are oversampled 8x: that group's rows launched as G4460,
+   and the first group of a G4460 production group (PROD geometry, INPSF
+   [dir, "piff", 8]: SL1 not held, 4 finite stamps), captured, each held
+   to its plain version (run once, not timed); each K2 record beside K2 of
+   commit 910c170 where built;
 12. destripe (in .smoke_work/destripe/): build_survey(n_obs=6) less its
    fourth F184 exposure -- 3 F184 SCAs at 4088^2 overlapping in 6 ordered
    pairs (the host builds ~10 s of pair map a pair) -- with row stripes
@@ -317,12 +329,17 @@ META_SHEAR, META_PSFGROW, META_PROD, META_ROWS = (0.02, 0.0), 1.08, 2560, 153
 PARENT_DIR = REPO / "pyimcom_tpu_torch" / "_build" / "parent"
 # earlier revisions of csrc/<name>.cu timed beside the current kernels where
 # PARENT_DIR holds them: the commit and the SHA-256 of the only revision
-# whose entry parent_entry() binds
+# whose entries parent_entry() binds
 PARENTS = {
     "interp_d5512": ("7671040", "8aaf4ea17e3cd5b6b57ddceda891cd142db8ba5ba2f67bf43b7736a0bec0eeef",
-                     "interp_d5512_dense"),
+                     ("interp_d5512_dense",)),
     "bilinear": ("c560e0f", "aa9d46b1a6683c0509634b51bdac866b6d80cef0b8af2a27853d0ed8f6323330",
-                 "bilinear_scatter_adjoint"),
+                 ("bilinear_scatter_adjoint",)),
+    # K2 of commit 910c170: a block a pool tile or a B i1, with the C entry of
+    # today's K2 (a B tile must hold one i1: per_i1_tiles)
+    "interp_d5512_pr12": ("910c170",
+                          "25f3e11095a956b03d0a4d5981a1cf7be9b352b8bbb7152030364055459c3fa8",
+                          ("sweep_d5512_scatter", "sweep_g4460_scatter")),
 }
 PEAK_BYTES_S, PEAK_F64_S = 3.35e12, 67e12               # H100 SXM data sheet
 # one tap set of each family (Horner in fh^2: 19 operations a pair of taps,
@@ -489,7 +506,7 @@ def k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=0, reps=20
     return rec
 
 
-def phase_kernels(torch, dev, parent):
+def phase_kernels(torch, dev, parent, parent_k2=None):
     """The launch floor and the sleep check of the timing; K1 and K2 against
     their plain versions on seeded random inputs at main-path shapes (none
     of the main path's locality: K2's pool tiles read from L2;
@@ -553,7 +570,8 @@ def phase_kernels(torch, dev, parent):
         return torch.as_tensor(a, device=dev)
 
     plans = {0: (ks, im_p, pmeta, ic.sweep_tiles(im_p, 0)),
-             1: (ks, im_b, bmeta, ic.sweep_tiles(im_b, 1, xt_np, yt_np, n2f))}
+             1: (ks, im_b, bmeta, ic.sweep_tiles(im_b, 1, xt_np, yt_np, n2f,
+                                                 min_tiles=ic.b_min_tiles(dev)))}
     size = {0: P, 1: m * n_pad}
     for mode, name in ((0, "K2_pool"), (1, "K2_B")):
         dst_k = torch.zeros(size[mode], dtype=torch.float64, device=dev)
@@ -574,9 +592,13 @@ def phase_kernels(torch, dev, parent):
             plain_ms=median_ms(torch, lambda: ic.sweep_scatter_plain(dst_p, *args), 5,
                                setup=dst_p.zero_),
             **k2_bound(mode, combined, xt, *plans[mode], n2f, inv_scale, floor_ms))
+        if parent_k2 is not None:
+            out[name].update(beside_parent(torch, dev, parent_k2["D5512"], dst_k, dst_p, args,
+                                           "D5512"))
     for name, rec in out.items():
         if name != "launch_floor_ms":
             assert rec["max_abs_err"] < TOL, (name, rec)
+            assert rec.get("parent_max_abs_err", 0.0) < TOL, (name, rec)
 
     # the probe kernel at its entry point's shape; exact in f32; its
     # yardstick is the one PyTorch call x + 1.0, which is also its plain version
@@ -621,22 +643,28 @@ def build_parent(name):
     return proc.stdout + proc.stderr
 
 
-def parent_entry(name):
-    """The earlier revision's entry, loaded with ctypes (build_parent()
-    checked the source), or None where PARENT_DIR does not hold it: K1 of
-    commit 7671040 (one thread a query, each patch read from L1 / L2) and K4
-    of commit c560e0f (one thread a query, four f64 atomicAdds into device
-    memory), both with 9 arguments."""
+def parent_entry(name, entry):
+    """Entry `entry` of the earlier revision `name`, loaded with ctypes
+    (build_parent() checked the source), or None where PARENT_DIR does not
+    hold it: K1 of commit 7671040 (one thread a query, each patch read from
+    L1 / L2) and K4 of commit c560e0f (one thread a query, four f64
+    atomicAdds into device memory), both with 9 arguments, and K2 of commit
+    910c170 (both families), with today's 22 arguments."""
     import ctypes
+
+    from pyimcom_tpu_torch.ops import interp_cuda
 
     if not parent_src(name).exists():
         return None
-    fn = getattr(ctypes.CDLL(str(parent_src(name).with_name(f"lib{name}_parent.so"))),
-                 PARENTS[name][2])
+    if entry not in PARENTS[name][2]:
+        raise ValueError(f"{entry} is not an entry of {name}'s parent")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = {"interp_d5512": (p, i, i, i, p, p, ll, p, p),
-                   "bilinear": (p, p, i, i, p, p, ll, p, p)}[name]
-    fn.restype = ctypes.c_int
+    argtypes = {"interp_d5512_dense": (p, i, i, i, p, p, ll, p, p),
+                "bilinear_scatter_adjoint": (p, p, i, i, p, p, ll, p, p),
+                "sweep_d5512_scatter": interp_cuda._K2_ARGS,
+                "sweep_g4460_scatter": interp_cuda._K2_ARGS}
+    fn = getattr(ctypes.CDLL(str(parent_src(name).with_name(f"lib{name}_parent.so"))), entry)
+    fn.argtypes, fn.restype = argtypes[entry], ctypes.c_int
     return fn
 
 
@@ -785,17 +813,72 @@ class capture_first_plan:
             self.plan["stacks"] = [s.cpu() for s in self.plan["stacks"]]
 
 
-def k2_main_path(torch, dev, name, cap, floor_ms):
+def per_i1_tiles(tiles, m):
+    """B tiles of runs of i1 (sweep_tiles) as one tile an i1 over the whole
+    lattice, the tiles of K2's B mode before runs (commit 910c170)."""
+    nu = tiles[:, 3].astype(np.int64)
+    r = np.repeat(np.arange(len(tiles)), nu)
+    u = tiles[r, 1] + np.arange(len(r)) - np.repeat(np.cumsum(nu) - nu, nu)
+    return np.stack([tiles[r, 0], u, np.zeros_like(u), np.ones_like(u),
+                     np.full_like(u, m)], 1).astype(np.int32)
+
+
+def beside_parent(torch, dev, fn, dst_k, dst_p, args, kern):
+    """K2 of commit 910c170 (`fn`, its entry of family `kern`) on the
+    launch sweep_scatter(dst_k, *args, kern=kern), whose plain result is
+    `dst_p`: its error against that, and its time and the kernel's, timed
+    in turns (parent, kernel, kernel, parent: `parent_ms` and `ms` are the
+    medians of both turns).  Its B mode takes one i1 a tile (per_i1_tiles)."""
+    from pyimcom_tpu_torch.ops import interp_cuda as ic
+
+    combined, xt, yt, ks, imeta, dmeta, tiles, inv, off, mode, n_pad, n2f = args
+    K, ny, nx = combined.shape
+    if mode == 1:
+        tiles = torch.as_tensor(per_i1_tiles(tiles.cpu().numpy(), n2f * n2f), device=dev)
+    wmax = ic.b_window(n2f, inv, kern) if mode == 1 else 0
+    l2 = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def parent_call():
+        err = fn(dst_k.data_ptr(), dst_k.shape[0], combined.data_ptr(), K, ny, nx,
+                 xt.data_ptr(), yt.data_ptr(), xt.shape[0], ks.data_ptr(), imeta.data_ptr(),
+                 dmeta.data_ptr(), tiles.data_ptr(), tiles.shape[0], float(inv), float(off),
+                 mode, n_pad, n2f, wmax, l2.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        assert err == 0, err
+
+    def kernel_call():
+        ic.sweep_scatter(dst_k, *args, kern=kern)
+
+    dst_k.zero_()
+    parent_call()
+    torch.cuda.synchronize()
+    out = {"parent_max_abs_err": rel_err(torch, dst_k, dst_p),
+           "parent_tiles": int(tiles.shape[0])}
+    turns = [device_times(torch, f, 10, setup=dst_k.zero_)
+             for f in (parent_call, kernel_call, kernel_call, parent_call)]
+    out["parent_ms"] = statistics.median(turns[0] + turns[3])
+    out["ms"] = statistics.median(turns[1] + turns[2])
+    return out
+
+
+def k2_main_path(torch, dev, name, cap, floor_ms, parent_k2=None, kern=None, time_plain=True):
     """Every K2 launch of one captured group, timed alone (median device
     time of 10 calls after 2 warm-ups), against its plain version, with its
-    bounds and its L2-path tiles."""
+    bounds and its L2-path tiles; `kern` launches the group's rows with
+    another family than the block's (the pool tiles do not depend on it,
+    the B windows follow b_window).  Where `parent_k2` (K2 of commit
+    910c170) is built, it runs the same launches too, held to the same
+    criterion, and its time is timed beside the kernel's in turns (parent,
+    kernel, kernel, parent: `parent_ms` and `ms` are the medians of both
+    turns).  With `time_plain` false the plain version runs once, for the
+    check, and is not timed."""
     from pyimcom_tpu_torch.ops import interp_cuda as ic
 
     combined = torch.cat([s.to(dev) for s in cap["stacks"]])
     xt = torch.as_tensor(cap["xt"], device=dev)
     yt = torch.as_tensor(cap["yt"], device=dev)
     n2f, n_pad, inv, off = cap["n2f"], cap["n_pad"], cap["inv_scale"], cap["off_grid"]
-    kern = cap["kern"]
+    kern = kern or cap["kern"]
     m = n2f * n2f
     size = {0: cap["pool_size"], 1: cap["S"] * cap["n_out"] * m * n_pad}
     K, ny, nx = combined.shape
@@ -819,14 +902,18 @@ def k2_main_path(torch, dev, name, cap, floor_ms):
                    max_abs_err=rel_err(torch, dst_k, dst_p),
                    ms=median_ms(torch, lambda: ic.sweep_scatter(dst_k, *args), 10,
                                 setup=dst_k.zero_),
-                   plain_ms=median_ms(torch, lambda: ic.sweep_scatter_plain(
-                       dst_p, *args), 1, setup=dst_p.zero_),
                    **k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv,
                               floor_ms, kern))
         assert one["max_abs_err"] < TOL, (name, one)
+        if time_plain:
+            one["plain_ms"] = median_ms(torch, lambda: ic.sweep_scatter_plain(dst_p, *args), 1,
+                                        setup=dst_p.zero_)
+        if parent_k2 is not None:
+            one.update(beside_parent(torch, dev, parent_k2[kern], dst_k, dst_p, args[:-1], kern))
+            assert one["parent_max_abs_err"] < TOL, (name, one)
         rec["launches"].append(one)
         del dst_k, dst_p
-    for key in ("ms", "plain_ms", "bound_ms", "roofline_ms"):
+    for key in ("ms", "parent_ms", "plain_ms", "bound_ms", "roofline_ms"):
         if all(key in one for one in rec["launches"]):
             rec[key + "_sum"] = sum(one[key] for one in rec["launches"])
     return rec
@@ -1317,10 +1404,13 @@ def bilinear_f32_records(torch, dev, dc, floor_ms, reps=20):
     scale), their float64 forms on the widened positions, and grid_sample
     (bilinear, zeros, align_corners=True) and its input gradient on the
     points inside its region, at the widened positions (it takes no float32
-    grid for a float64 image).  Bytes: K3 reads x and y (8 a query) and the
-    accumulator and writes it (16), the image and the gain once; K4 reads
-    the values (8) and x and y (8), the gain once and writes the output
-    once; operations as the float64 forms'."""
+    grid for a float64 image), and K3's float32 form doing only the
+    library's work there (`library_work_ms`: the float32 positions inside
+    its region, no gain, its result written, as the float64 record's).
+    Bytes: K3 reads x and y (8 a query) and the accumulator and writes it
+    (16), the image and the gain once; K4 reads the values (8) and x and y
+    (8), the gain once and writes the output once; operations as the
+    float64 forms'."""
     import torch.nn.functional as F
 
     from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
@@ -1343,6 +1433,7 @@ def bilinear_f32_records(torch, dev, dc, floor_ms, reps=20):
     global_tiles = bc.global_tiles(dev)
     want4 = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (ny, nx), gain)
     xs, ys, vs = x64[inb], y64[inb], v[inb].reshape(1, 1, 1, -1)
+    xs32, ys32 = x[inb], y[inb]
     grid = torch.stack([2 * xs / (nx - 1) - 1, 2 * ys / (ny - 1) - 1], -1).reshape(1, 1, -1, 2)
     inp = img.reshape(1, 1, ny, nx).clone().requires_grad_(True)
     out_gs = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
@@ -1363,6 +1454,7 @@ def bilinear_f32_records(torch, dev, dc, floor_ms, reps=20):
               plain_ms=median_ms(torch, lambda: bilinear.bilinear_gather_plain(
                   img, x, y, gain), 3),
               library_ms=median_ms(torch, lib_gather, reps),
+              library_work_ms=median_ms(torch, lambda: bc.bilinear_gather(img, xs32, ys32), reps),
               **bounds(24 * n + 16 * npix, GATHER_FLOP * n_in, floor_ms))
     k4 = dict(common, mode="gain, (ny, nx) query grid", max_abs_err=rel_err(torch, got4, want4),
               global_tiles=global_tiles,
@@ -2250,15 +2342,16 @@ def phase_fftconv_full(torch, dev, loop):
     assert rec["crop_vs_cpu"] < TOL, rec
 
 
-def phase_g4460_kernels(torch, dev, k1_caps, plan, floor_ms):
+def phase_g4460_kernels(torch, dev, k1_caps, plan, floor_ms, parent_k2):
     """K1<8> alone on its captured main-path launches -- PSF sampling of
     the G4460 bench block and the first wing canvas of the split-PSF loop's
     wing-subtraction task (at oversampling 3, at most 2^22 of its queries)
     -- and K2<8> (pool, B) on the G4460 bench block's first group, against
-    their plain versions.  Returns (the K1 records, the K2 record)."""
+    their plain versions (and beside K2 of commit 910c170 where built).
+    Returns (the K1 records, the K2 record)."""
     k1 = {key: k1_main_path(torch, dev, key, k1_caps.pop(key), floor_ms, None)
           for key in ("g4460/psf_sampling", "psfsplit/wing_canvas")}
-    k2 = k2_main_path(torch, dev, "g4460_bench_group_1", plan, floor_ms)
+    k2 = k2_main_path(torch, dev, "g4460_bench_group_1", plan, floor_ms, parent_k2)
     emit({"phase": "g4460_kernels", "criterion": TOL, "K1": k1, "K2": k2})
     return k1, k2
 
@@ -2298,13 +2391,17 @@ def host_median_s(fn, reps=5):
     return statistics.median(times)
 
 
-def phase_piff_block(torch, dev, cfg_dict, bench, floor_ms, parent):
+def phase_piff_block(torch, dev, cfg_dict, bench, floor_ms, parent, parent_k2):
     """The bench block with Piff PSF files (module docstring, 11b): a first
     run, then the measured warm run, whose first K1 launch of PSF sampling
     and first group's K2 launches are held against their plain versions;
-    one PSF group's draws timed and held to the CPU route.  `bench` holds
-    the bench block's block_s, SL1 and uc_median.  Returns (the warm
-    block's launches, the K1 record, the K2 record)."""
+    one PSF group's draws timed and held to the CPU route.  K2<8> where its
+    PSFs are oversampled 8x: the first group's rows launched as G4460, and
+    the first group of a G4460 production group (PROD geometry, the Piff
+    files drawn at 8x) run and captured.  `bench` holds the bench block's
+    block_s, SL1 and uc_median.  Returns (the warm block's launches, the K1
+    record, the K2 record, the K2<8> records); each K2 record beside K2 of
+    commit 910c170 where built."""
     from survey_fixture_torch import write_piff_files
 
     from pyimcom_tpu_torch.bench import quality_check
@@ -2372,10 +2469,19 @@ def phase_piff_block(torch, dev, cfg_dict, bench, floor_ms, parent):
     k1 = k1_main_path(torch, dev, "piff/psf_sampling", k1_caps.pop("piff/psf_sampling"),
                       floor_ms, parent)
     emit({"phase": "k1_main_path", "criterion": TOL, **k1})
-    k2 = k2_main_path(torch, dev, "piff_group_1", plan_cap.plan, floor_ms)
+    k2 = k2_main_path(torch, dev, "piff_group_1", plan_cap.plan, floor_ms, parent_k2)
+    k2_8 = [k2_main_path(torch, dev, "piff_group_1", plan_cap.plan, floor_ms, parent_k2,
+                         kern="G4460", time_plain=False)]
     del plan_cap.plan
-    emit({"phase": "k2_main_path", "criterion": TOL, **k2})
-    return launches, k1, k2
+    with capture_first_plan() as prod_cap:
+        run_production(torch, dev, cfg_dict, "production_g4460_piff8", "_prodpiff",
+                       PSFINTERP="G4460", **over)
+    k2_8.append(k2_main_path(torch, dev, "production_g4460_piff8", prod_cap.plan, floor_ms,
+                             parent_k2, time_plain=False))
+    del prod_cap.plan
+    for rec in [k2] + k2_8:
+        emit({"phase": "k2_main_path", "criterion": TOL, **rec})
+    return launches, k1, k2, k2_8
 
 
 def phase_meta_shear(torch, dev, chain):
@@ -2564,7 +2670,13 @@ def main(argv=None):
                    {k: pool.submit(job) for k, job in jobs.items()}.items()}
     _build.library("interp_d5512")
     _build.library("bilinear")
-    parent, parent_k4 = parent_entry("interp_d5512"), parent_entry("bilinear")
+    parent = parent_entry("interp_d5512", "interp_d5512_dense")
+    parent_k4 = parent_entry("bilinear", "bilinear_scatter_adjoint")
+    parent_k2 = {kern: parent_entry("interp_d5512_pr12", entry)
+                 for kern, entry in (("D5512", "sweep_d5512_scatter"),
+                                     ("G4460", "sweep_g4460_scatter"))}
+    if None in parent_k2.values():
+        parent_k2 = None
     k4_build = {"ptxas": {k: v for k, v in ptxas_entries(reports["bilinear"]).items()
                           if "adjoint" in k},
                 "sass_atomics": sass_atomics(_build.library_path("bilinear"), "adjoint")}
@@ -2584,7 +2696,7 @@ def main(argv=None):
     assert verdict["ok"] and probe_launches > 0, verdict
 
     # ---- 3. kernels vs plain versions -----------------------------------------
-    kern = phase_kernels(torch, dev, parent)
+    kern = phase_kernels(torch, dev, parent, parent_k2)
     floor_ms = kern["launch_floor_ms"]
     emit({"phase": "kernels", "criterion": TOL, **kern})
 
@@ -2705,10 +2817,13 @@ def main(argv=None):
     phase_pool_budget(torch, dev, cfg_dict)
 
     # ---- 8. K2 at the main path's own shapes ----------------------------------
-    main_k2 = [k2_main_path(torch, dev, "bench_group_1", bench_cap.plan, floor_ms),
-               k2_main_path(torch, dev, "production_group", prod_cap.plan, floor_ms)]
+    main_k2 = [k2_main_path(torch, dev, "bench_group_1", bench_cap.plan, floor_ms, parent_k2),
+               k2_main_path(torch, dev, "production_group", prod_cap.plan, floor_ms, parent_k2)]
+    # K2<8> at production shape: the production group's rows launched as G4460
+    prod_k2_g4460 = k2_main_path(torch, dev, "production_group", prod_cap.plan, floor_ms,
+                                 parent_k2, kern="G4460")
     del bench_cap.plan, prod_cap.plan
-    for rec in main_k2:
+    for rec in main_k2 + [prod_k2_g4460]:
         emit({"phase": "k2_main_path", "criterion": TOL, **rec})
 
     # ---- 9. galaxy injection: gsext14 at STOP 4, cold then warm ----------------
@@ -2745,14 +2860,14 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_fftconv_full(torch, dev, loop)
     torch.cuda.empty_cache()
-    g_k1, g_k2 = phase_g4460_kernels(torch, dev, k1_caps, g4460_plan, floor_ms)
+    g_k1, g_k2 = phase_g4460_kernels(torch, dev, k1_caps, g4460_plan, floor_ms, parent_k2)
     del g4460_plan
     assert not k1_caps, sorted(k1_caps)
 
     # ---- 11b. Piff PSF files drawn on the card --------------------------------
-    piff_launches, piff_k1, piff_k2 = phase_piff_block(
+    piff_launches, piff_k1, piff_k2, piff_k2_8 = phase_piff_block(
         torch, dev, cfg_dict, {"block_s": t_block, "SL1": SL1, "uc_median": uc_med},
-        floor_ms, parent)
+        floor_ms, parent, parent_k2)
     torch.cuda.empty_cache()
 
     # ---- 12. destriping, from imdestripe.main to the coadd ------------------------
@@ -2805,12 +2920,16 @@ def main(argv=None):
                         + task_launches["interp_g4460_dense"],
                         max(r["max_abs_err"] for r in g_k1.values()),
                         g_k1["g4460/psf_sampling"], no_lib))
+    # (its errors those of the production group's rows launched as G4460 and
+    # of the launches at 8x of the Piff phase too)
     k2g = {one["mode"]: one for one in g_k2["launches"]}
     for mode in ("pool", "B"):
         summary.append(line(f"sweep_g4460_scatter.{mode}", src,
                             "pyimcom_tpu/ops/interp.py:386",
                             g4460_launches[f"sweep_g4460_scatter.{mode}"],
-                            max(one["max_abs_err"] for one in g_k2["launches"]
+                            max(one["max_abs_err"]
+                                for rec in [g_k2, prod_k2_g4460] + piff_k2_8
+                                for one in rec["launches"]
                                 if one["mode"] == mode), k2g[mode], no_lib))
     bil = "pyimcom_tpu_torch/csrc/bilinear.cu"
     summary.append(line("bilinear_gather", bil, "pyimcom_tpu/ops/bilinear.py:45",

@@ -914,7 +914,8 @@ class Block:
         metadata in the JAX package's layout.  The rows of one kind are one
         K2 launch, cut into its thread-block tiles by
         ``interp_cuda.sweep_tiles`` (which also checks that the output grids
-        are the lattices K2's B mode assumes).
+        are the lattices K2's B mode assumes; B runs are shortened where the
+        card would otherwise take too few tiles).
         """
         cfg = self.cfg
         n_out, m = cfg.n_out, cfg.n2f ** 2
@@ -1075,7 +1076,9 @@ class Block:
                 im = imeta[sel].astype(np.int32)
                 sweep_rows.append((mode, kg[rid][sel].astype(np.int32), im,
                                    dmeta[sel].astype(np.int32),
-                                   interp_cuda.sweep_tiles(im, mode, xt, yt, cfg.n2f)))
+                                   interp_cuda.sweep_tiles(
+                                       im, mode, xt, yt, cfg.n2f,
+                                       min_tiles=interp_cuda.b_min_tiles(self.device))))
         fp_plan = None
         if fp_rows:
             fp_plan = (np.asarray([c for _r, c in fp_rows], np.float64),

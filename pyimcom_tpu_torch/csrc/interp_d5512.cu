@@ -68,26 +68,91 @@
 // runs a warp (T = 256, 512) with their x and y loaded ahead; fewer
 // registers for more warps (spills).
 //
-// K2 is built around the locality of the sweep's queries, so that the
-// patches come from shared memory:
+// K2 (sweep_pool_kernel, sweep_b_kernel).  What bounds it on this card.  A
+// pool query reads an 8 x 8 (G4460) or 10 x 10 (D5512) patch -- 512 or 800
+// bytes -- and spends ~165 / ~220 f64 operations on it; its bytes bound is
+// its destination and the images once (G4460 bench group 1: 26.0M queries,
+// 0.184 ms).  Its patches come from shared memory, at 128 bytes a clock an
+// SM: 4 clocks a G4460 query at best, ~0.4 ms for that group, more than
+// twice the bytes bound, so the shared-memory load rate, not HBM or the FP64
+// units (~2.6 clocks a query), is what a patch-reading design is held to.
+// clock64 counters in a copy of the kernel this replaces (commit 910c170: a
+// block a tile of <= 1024 queries, two 110 KB windows an SM) put 23 % of a
+// block in a first pass over every query for its window, 17 % in staging
+// it (8-byte cp.async, then a barrier) and 60 % in the patch loads, whose
+// lanes fall on random banks: its 8-byte loads take 2.5x the wavefronts
+// they need (counted on the captured tiles).  B spent a block's life on one
+// i1 in four serial steps of similar length (taps and bounds 32 %, staging
+// 24 %, horizontal sums 23 %, vertical sums 21 %).  Both measured with
+// clock64 counters in a copy of that kernel on the G4460 bench group's
+// captured launches (H100 80GB HBM3, 700 W).
 //
-// * Pool mode (sweep_pool_kernel).  The host cuts every row's (i1, i2)
-//   rectangle into tiles of at most 1024 queries (interp_cuda.sweep_tiles).
-//   The queries of a tile are differences of two small pixel patches, so
-//   they fall in one window of the overlap image.  A block takes a tile,
-//   finds the window of its valid queries, copies it into shared memory with
-//   8-byte cp.async loads, and interpolates every query from there.  A tile
-//   whose window exceeds the shared-memory budget reads its patches from L2
-//   instead and adds one to a counter (l2_tiles).
-// * B mode (sweep_b_kernel).  A row pairs one input pixel i1 with the
-//   stamp's output grid, an exact integer lattice of n2f x n2f points (the
-//   planner raises if the tables do not hold one).  So qx depends only on
-//   the output column and qy
-//   only on the output row: a block takes one i1, computes n2f x-tap and
-//   n2f y-tap sets once, stages the window that the grid covers, forms the
-//   horizontal sums for each needed image row and output column once, then
-//   the vertical sum for each output pixel.  Both sums keep the summation
-//   order of K1's sum_a wy[a] (sum_b wx[b] img).
+// * Pool mode.  One persistent block an SM (512 threads) walks the tiles
+//   (block b: tiles b, b + grid, ...), each cut into pieces of at most 1024
+//   queries and 64 i1 whose window fits a slot (halving the i1 range; a
+//   single i1 whose window does not fit reads from L2 with the rest of its
+//   tile and counts in l2_tiles).  Warps are specialised: warp 0 finds the
+//   piece after next from the extremes of its table entries (pool_next: no
+//   pass over the queries; qpos is monotone) and keeps those entries in
+//   shared memory; warps 1-2 stage the next piece's window into the other
+//   of two 98 KB slots with Hopper's bulk copies (one per row, whole 16-byte
+//   pairs into rows padded a double on either side, completion on an
+//   mbarrier; a TMA tensor map cannot take the stack, whose rows are nx
+//   doubles, not a multiple of 16 bytes for odd nx); the other 13 warps
+//   compute the current piece -- decode each query once (position from the
+//   tables, destination, window offset, bank = offset mod 16, ranked among
+//   the piece's queries of its bank by ballots and one shared atomic a
+//   bank and warp), place it in (rank, bank) order so that 16 consecutive
+//   queries fall on 16 distinct banks, then compute in that order and add
+//   with atomicAdd.  A piece costs the workers two barriers of their own
+//   (a named barrier) and the block one.
+// * B mode.  A row pairs input pixel i1 with the stamp's output grid, an
+//   exact n2f x n2f integer lattice (the planner raises if the tables do
+//   not hold one), so qx depends only on the output column and qy only on
+//   the output row.  A block takes a run of up to 8 consecutive i1 of a row
+//   (interp_cuda.sweep_tiles; each i1 keeps its own queries of the row, so
+//   a run may start or end inside the lattice; where a launch has few i1,
+//   the planner shortens the runs until it has four tiles an SM) and cuts
+//   it into sub-runs
+//   whose union window fits (one warp scans the i1's extreme columns and
+//   rows): it stages that window once, computes all the sub-run's tap sets
+//   in one pass, then for each i1 forms the horizontal sums (a half-warp a
+//   column, lanes over window rows at an odd pitch: distinct banks) into one
+//   of two buffers and, after one barrier, the vertical sums, while the
+//   next i1 fills the other buffer.  Both sums keep the summation order of
+//   K1's sum_a wy[a] (sum_b wx[b] img).  Supported lattices: every one
+//   whose single i1 fits two buffers beside its window in a block's 227 KB
+//   takes a run layout (b_layout); the rest (n2f 54 at 2.13 samples an
+//   output pixel, n2f 44 at 2.84, ...) take the compact layout, whose
+//   bytes are those of commit 910c170's one-i1 body, so every lattice that
+//   body launched launches (tests/test_torch_assemble.py checks n2f <= 160,
+//   wmax <= 260).  What fits neither raises in the wrapper.
+// * No tensor cores: each query has its own patch and its own taps (pool),
+//   or each i1 its own tap sets (B), so no operand is shared that wgmma or
+//   DMMA could use.
+//
+// Measured and not kept (each a variant of this file timed on the captured
+// launches of the G4460 bench group and the production group, unless
+// said): computing the pool
+// queries in the order they were decoded, without the bank sort (as slow as
+// the kernel this replaces); one staging warp, not two; 448 or 576 threads
+// (fewer workers, or a register cap that spills); 80 KB slots (more
+// pieces); B runs of 1 or 16 i1; B blocks of 384 threads (faster on the
+// production group's G4460 rows, slower on the D5512 bench group); B
+// blocks of one an SM everywhere (kept only for large windows, b_layout).
+// In design: a producer warp that stages with 16-byte cp.async (its loads
+// could not keep up with the workers); the workers staging the next window
+// themselves (issuing the copies held them up); a flush of each piece's
+// results in query order for coalesced adds (slower than adding from the
+// compute loop); one block of 384 threads with one slot, two an SM;
+// a piece that continues a tile taking its metadata and i2 entries from
+// the piece before (slower on the G4460 groups).
+//
+// D5512 takes the same bodies: on the bench group and the production group,
+// pool and B, its 10-tap instance is faster than commit 910c170's too.
+// Slower than that body: the pool where the PSFs are oversampled 8x (the
+// windows of its tiles fill a slot and are cut into more pieces), held in
+// ROADMAP.md queue 3 (chip_smoke.py's piff_block times it).
 //
 // Index arithmetic inside a query is 32-bit.  Within one launch every
 // destination receives at most one query (the planner's rows partition the
@@ -97,12 +162,11 @@
 // SM issues and forgets, where a plain add must first wait for its load from
 // HBM (the pool and -B/2 outgrow L2).
 //
-// Launch shape: K2 runs 384 threads, at most 85 registers each, so that two
-// blocks share an SM together with two 110 KB pool windows.  K1 runs
-// blocks of kK1Threads threads (T = kK1Threads queries, one run a warp),
-// chosen by timing the main path's captured launches (chip_smoke.py,
-// k1_main_path).
+// Launch shape: K1 runs blocks of kK1Threads threads (T = kK1Threads
+// queries, one run a warp), chosen by timing the main path's captured
+// launches (chip_smoke.py, k1_main_path); K2's below.
 
+#include <algorithm>
 #include <climits>
 #include <cstddef>
 #include <cstdint>
@@ -178,12 +242,6 @@ template <>
 struct Family<8> {
   static constexpr int kLo = 3, kHi = 4, kPitch = 9;
 };
-
-constexpr int kThreads = 384;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 2;  // blocks an SM must hold: caps registers at 85
-// shared-memory window of a pool tile: two blocks fit on one SM
-constexpr int kPoolWindowBytes = 110 * 1024;
 
 // K1's block: T = kK1Threads queries, a run of 32 a warp
 constexpr int kK1Threads = 128;
@@ -265,52 +323,6 @@ struct LoadGlobal {
 struct LoadShared {
   __device__ double operator()(const double* p) const { return *p; }
 };
-
-__device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
-}
-
-// Copy rows [y0, y0 + wy) x columns [x0, x0 + wx) of img (row length nx)
-// into win (row length wx): one warp per row, neighbouring lanes on
-// neighbouring columns.
-__device__ void stage_window(double* win, const double* __restrict__ img, int nx, int x0,
-                             int y0, int wx, int wy) {
-  const int lane = threadIdx.x & 31;
-  for (int a = threadIdx.x >> 5; a < wy; a += kWarps) {
-    const double* src = img + (y0 + a) * nx + x0;
-    for (int b = lane; b < wx; b += 32) cp_async8(win + a * wx + b, src + b);
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-}
-
-// Block-wide [lo, hi] of ints; threads without a value pass INT_MAX / INT_MIN.
-// `box` is 4 ints of shared memory: x lo, x hi, y lo, y hi.
-__device__ void block_bounds(int* box, int xlo, int xhi, int ylo, int yhi) {
-  if (threadIdx.x == 0) {
-    box[0] = INT_MAX;
-    box[1] = INT_MIN;
-    box[2] = INT_MAX;
-    box[3] = INT_MIN;
-  }
-  __syncthreads();
-  xlo = __reduce_min_sync(0xffffffffu, xlo);
-  xhi = __reduce_max_sync(0xffffffffu, xhi);
-  ylo = __reduce_min_sync(0xffffffffu, ylo);
-  yhi = __reduce_max_sync(0xffffffffu, yhi);
-  if ((threadIdx.x & 31) == 0) {
-    if (xlo <= xhi) {
-      atomicMin(box + 0, xlo);
-      atomicMax(box + 1, xhi);
-    }
-    if (ylo <= yhi) {
-      atomicMin(box + 2, ylo);
-      atomicMax(box + 3, yhi);
-    }
-  }
-  __syncthreads();
-}
 
 // sum_a wy[a] (sum_b wx[b] img[fy - kLo + a][fx - kLo + b]) read through L1 /
 // L2 with 16-byte loads: the image rows must be 16-byte aligned (nx even,
@@ -399,6 +411,182 @@ interp_dense_warp_kernel(const double* __restrict__ images, int ny, int nx,
   out[i] = v;
 }
 
+// ---------------------------------------------------------------------------
+// K2
+// ---------------------------------------------------------------------------
+
+// Launch shape of K2, chosen by timing the main path's captured launches
+// (chip_smoke.py, k2_main_path).  Pool: one persistent block an SM of
+// kPoolThreads threads, of which kPoolProducers warps produce, with two
+// window slots of kPoolSlot doubles each (interp_cuda.POOL_SLOT_DOUBLES).
+// B: blocks of kBThreads threads taking runs of at most kBRun i1
+// (interp_cuda.B_RUN), in kBBlockSmem bytes of shared memory where the
+// lattice allows (two blocks an SM), else in up to kBBlockSmemOne.
+constexpr int kPoolThreads = 512;
+constexpr int kPoolSlot = 12544;                  // doubles of one window slot (even)
+constexpr int kPoolCap = 1024;                    // queries of a piece on the shared route
+constexpr int kPoolProducers = 3;                 // warp 0 finds pieces, the others stage
+constexpr int kPoolWork = kPoolThreads - 32 * kPoolProducers;   // threads that compute
+constexpr int kBThreads = 256;
+constexpr int kBMinBlocks = 2;
+constexpr int kBRun = 8;                          // most i1 a B block stages together
+constexpr size_t kBBlockSmem = 114688;            // two blocks an SM
+constexpr size_t kBBlockSmemOne = 232448;         // one block: all a block may have (sm_90)
+static_assert(kPoolSlot % 2 == 0, "a slot holds 16-byte pairs");
+static_assert(kPoolProducers >= 2, "a warp finds the pieces, at least one stages them");
+static_assert(kBRun >= 1 && kBRun <= 32, "a B run is scanned by one warp");
+
+__device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async16(double* smem, const double* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A query's position on the overlap image: (a - b) inv_scale + off_grid as
+// one fused multiply-add.  It is monotone in a and in b, so the positions of
+// a set of queries lie between those of its extreme table entries; the
+// windows below rest on that, and the queries use the same function.
+__device__ __forceinline__ double qpos(double a, double b, double s, double off) {
+  return __fma_rn(a - b, s, off);
+}
+
+// A window: samples [y0, y0 + wy) x [x0, x0 + wx) of image k at row pitch
+// `pitch` (of nx's parity), from double `shift` of its slot (2 pad + the
+// parity of the first sample's offset in the stack), so that every row
+// starts on the parity of its source and copies as 16-byte pairs.  With
+// pad 1 a row has a double to spare on either side (pitch >= wx + 1), so
+// that it copies as whole pairs from the even sample at or before its
+// first to the odd one at or after its last.
+struct Window {
+  int x0, y0, wx, wy, pitch, shift;
+};
+
+__device__ __forceinline__ Window make_window(int fxlo, int fxhi, int fylo, int fyhi, int lo,
+                                              int taps, long long k, int ny, int nx, int cpar,
+                                              int pad) {
+  Window w;
+  w.x0 = fxlo - lo;
+  w.y0 = fylo - lo;
+  w.wx = fxhi - fxlo + taps;
+  w.wy = fyhi - fylo + taps;
+  w.pitch = w.wx + pad + ((w.wx + pad ^ nx) & 1);
+  w.shift = 2 * pad +
+            static_cast<int>((k * ny * nx + static_cast<long long>(w.y0) * nx + w.x0 + cpar) & 1);
+  return w;
+}
+
+__device__ __forceinline__ int window_doubles(const Window& w) { return w.shift + w.wy * w.pitch; }
+
+// Issue the cp.async copies of window w of image k into `slot` (16-byte
+// aligned) by the block's `nthreads` threads: a warp a row, each row as
+// 16-byte pairs with an 8-byte head and tail where its ends are odd, or,
+// with `pairs` false (a window at the pitch of its own width), element by
+// element.  The caller commits and waits.
+__device__ void stage_window(double* slot, const double* __restrict__ combined, long long k,
+                             int ny, int nx, const Window& w, int nthreads, bool pairs) {
+  const int lane = threadIdx.x & 31;
+  for (int a = threadIdx.x >> 5; a < w.wy; a += nthreads >> 5) {
+    const long long g = (k * ny + w.y0 + a) * static_cast<long long>(nx) + w.x0;
+    const double* src = combined + g;
+    double* dstp = slot + w.shift + a * w.pitch;
+    if (!pairs) {
+      for (int i = lane; i < w.wx; i += 32) cp_async8(dstp + i, src + i);
+      continue;
+    }
+    const int e0 = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 3) & 1);
+    const int npair = (w.wx - e0) >> 1;
+    for (int i = lane; i < npair + 2; i += 32) {
+      if (i < npair) {
+        cp_async16(dstp + e0 + 2 * i, src + e0 + 2 * i);
+      } else if (i == npair) {
+        if (e0) cp_async8(dstp, src);
+      } else if ((w.wx - e0) & 1) {
+        cp_async8(dstp + w.wx - 1, src + w.wx - 1);
+      }
+    }
+  }
+}
+
+// Hopper's bulk copies (the TMA engine, without a tensor map: the stack's
+// rows are nx doubles, not a multiple of 16 bytes for odd nx) with their
+// completion counted on an mbarrier in shared memory.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy(double* dst, const double* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Part `part` of `parts` of window w (made with pad 1) of image k into
+// `slot` (16-byte aligned) by one warp: each of its rows as one bulk copy
+// of whole 16-byte pairs (lane a row),
+// from the even sample at or before its first (into the pad before it, or
+// the pad after the row above) to the odd one at or after its last; the
+// copies complete on `bar` (one arrival a part), whose expected bytes are
+// set first.  A row's
+// pairs lie inside the stack: an image row of the stack starts or ends on
+// an odd double only where a neighbouring row, or the stack's 16-byte
+// aligned allocation, holds the other half of the pair.
+__device__ void stage_window_bulk(double* slot, const double* __restrict__ combined,
+                                  long long k, int ny, int nx, const Window& w,
+                                  unsigned long long* bar, int part, int parts) {
+  const int lane = threadIdx.x & 31;
+  unsigned bytes = 0;
+  for (int a = lane + 32 * part; a < w.wy; a += 32 * parts) {
+    const double* src = combined + (k * ny + w.y0 + a) * static_cast<long long>(nx) + w.x0;
+    const int e0 = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 3) & 1);
+    bytes += 16u * static_cast<unsigned>((w.wx + e0 + 1) >> 1);
+  }
+  bytes = __reduce_add_sync(0xffffffffu, bytes);
+  // the generic reads of the slot's last window come before these writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (lane == 0) mbar_expect(bar, bytes);
+  __syncwarp();
+  for (int a = lane + 32 * part; a < w.wy; a += 32 * parts) {
+    const double* src = combined + (k * ny + w.y0 + a) * static_cast<long long>(nx) + w.x0;
+    const int e0 = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 3) & 1);
+    bulk_copy(slot + w.shift + a * w.pitch - e0, src - e0,
+              16u * static_cast<unsigned>((w.wx + e0 + 1) >> 1), bar);
+  }
+}
+
 // Row metadata of both modes (int32): imeta [i1_start, i2_start, w2, off,
 // nval]; pool dmeta [dst_base0, w2, stride, off, nval], B dmeta [dst_base,
 // col0, off, nval].  Query j < nval of a row sits at f = off + j and compares
@@ -411,91 +599,389 @@ struct Tile {
   int row, u0, v0, nu, nv;
 };
 
-__device__ __forceinline__ Tile load_tile(const int* __restrict__ tiles) {
-  const int* t = tiles + 5 * blockIdx.x;
+__device__ __forceinline__ Tile load_tile(const int* __restrict__ tiles, int i) {
+  const int* t = tiles + 5 * i;
   return Tile{t[0], t[1], t[2], t[3], t[4]};
+}
+
+// One piece of a pool tile -- its i1 entries u in [ua, ub) -- with its
+// row's metadata and its window.  k < 0: the piece adds nothing; tile < 0:
+// the block's walk is over.  route 1: read from L2 (the window outgrows a
+// slot even for one i1, or the tile is not the planner's: v outside w2 or
+// wider than kPoolV).
+struct PoolPiece {
+  int tile, ua, ub;
+  Tile t;
+  int k, i1s, i2s, w2, off, nval, pbase, pw2, pstride, poff;
+  int route;
+  Window w;
+};
+
+constexpr int kPoolU = 64;   // most i1 entries of a piece
+constexpr int kPoolV = 64;   // most i2 entries of a tile on the shared route
+
+// A piece's table entries: x, y of i1 entries i1_start + ua + a (a <
+// kPoolU) and of i2 entries i2_start + v0 + b (b < kPoolV); NaN outside the
+// tables (such queries are off the grid).
+struct PoolTables {
+  double x1[kPoolU], y1[kPoolU], x2[kPoolV], y2[kPoolV];
+};
+
+// Warp-wide extremes (min x, max x, min y, max y) of n table entries; NaN
+// entries are skipped, and none gives +inf, -inf.
+__device__ __forceinline__ void warp_extremes(const double* x, const double* y, int n,
+                                              double e[4]) {
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  e[0] = inf;
+  e[1] = -inf;
+  e[2] = inf;
+  e[3] = -inf;
+  for (int i = threadIdx.x & 31; i < n; i += 32) {
+    e[0] = fmin(e[0], x[i]);
+    e[1] = fmax(e[1], x[i]);
+    e[2] = fmin(e[2], y[i]);
+    e[3] = fmax(e[3], y[i]);
+  }
+  for (int o = 16; o; o >>= 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const double v = __shfl_xor_sync(0xffffffffu, e[j], o);
+      e[j] = (j & 1) ? fmax(e[j], v) : fmin(e[j], v);
+    }
+  }
+}
+
+// The next piece (tile `tile`, from u = ua; ua < 0: the tile's first) into
+// *out and its table entries into *tab, computed by one warp: the tile's
+// queries up to kPoolCap and kPoolU i1 entries, halved in u until their
+// window fits a slot.  The window comes from the extremes of the piece's
+// table entries, clipped to the family's valid range: by qpos's
+// monotonicity it holds every query on the grid.
+template <int TAPS>
+__device__ void pool_next(PoolPiece* out, PoolTables* tab, int tile, int ua, int ntiles,
+                          const int* __restrict__ tiles, const int* __restrict__ ks,
+                          const int* __restrict__ imeta, const int* __restrict__ dmeta, int K,
+                          int ny, int nx, const double* __restrict__ xt,
+                          const double* __restrict__ yt, int L, double s, double off,
+                          int cpar) {
+  constexpr int lo = Family<TAPS>::kLo, hi = Family<TAPS>::kHi;
+  const int lane = threadIdx.x & 31;
+  PoolPiece p;
+  p.tile = tile < ntiles ? tile : -1;
+  p.k = -1;
+  p.route = 0;
+  if (p.tile >= 0) {
+    p.t = load_tile(tiles, tile);
+    const int* im = imeta + 5 * p.t.row;
+    const int* pm = dmeta + 5 * p.t.row;
+    p.i1s = im[0];
+    p.i2s = im[1];
+    p.w2 = max(im[2], 1);
+    p.off = im[3];
+    p.nval = min(im[4], pm[4]);
+    p.pbase = pm[0];
+    p.pw2 = max(pm[1], 1);
+    p.pstride = pm[2];
+    p.poff = pm[3];
+    const int k = ks[p.t.row];
+    p.ua = ua < 0 ? p.t.u0 : ua;
+    const int end = p.t.u0 + max(p.t.nu, 0);
+    p.ub = min(end, p.ua + min(kPoolU, max(kPoolCap / max(p.t.nv, 1), 1)));
+    if (p.t.nv > 0 && p.ua < end && k >= 0 && k < K) p.k = k;
+    if (p.t.v0 < 0 || p.t.v0 + p.t.nv > p.w2 || p.t.nv > kPoolV) p.route = 1;
+    if (p.route == 1) p.ub = end;
+  }
+  if (p.k >= 0 && p.route == 0) {
+    const double nan = __longlong_as_double(0x7ff8000000000000LL);
+    for (int b = lane; b < p.t.nv; b += 32) {
+      const int i = p.i2s + p.t.v0 + b;
+      const bool in = i >= 0 && i < L;
+      tab->x2[b] = in ? xt[i] : nan;
+      tab->y2[b] = in ? yt[i] : nan;
+    }
+    for (int a = lane; a < p.ub - p.ua; a += 32) {
+      const int i = p.i1s + p.ua + a;
+      const bool in = i >= 0 && i < L;
+      tab->x1[a] = in ? xt[i] : nan;
+      tab->y1[a] = in ? yt[i] : nan;
+    }
+    __syncwarp();
+    double e2[4];
+    warp_extremes(tab->x2, tab->y2, p.t.nv, e2);
+    for (;;) {
+      double e1[4];
+      warp_extremes(tab->x1, tab->y1, p.ub - p.ua, e1);
+      // an empty or all-NaN range fails the first tests
+      bool live = e1[0] <= e1[1] && e1[2] <= e1[3] && e2[0] <= e2[1] && e2[2] <= e2[3];
+      double fxl = 0, fxh = -1, fyl = 0, fyh = -1;
+      if (live) {
+        const double xa = qpos(e1[0], e2[1], s, off), xb = qpos(e1[1], e2[0], s, off);
+        const double ya = qpos(e1[2], e2[3], s, off), yb = qpos(e1[3], e2[2], s, off);
+        fxl = fmax(floor(fmin(xa, xb)), static_cast<double>(lo));
+        fxh = fmin(floor(fmax(xa, xb)), static_cast<double>(nx - hi - 1));
+        fyl = fmax(floor(fmin(ya, yb)), static_cast<double>(lo));
+        fyh = fmin(floor(fmax(ya, yb)), static_cast<double>(ny - hi - 1));
+        live = fxl <= fxh && fyl <= fyh;
+      }
+      if (!live) {
+        p.k = -1;            // no query of the piece is on the grid
+        break;
+      }
+      p.w = make_window(static_cast<int>(fxl), static_cast<int>(fxh), static_cast<int>(fyl),
+                        static_cast<int>(fyh), lo, TAPS, p.k, ny, nx, cpar, 1);
+      if (window_doubles(p.w) <= kPoolSlot) break;
+      if (p.ub - p.ua == 1) {
+        p.route = 1;                       // the rest of the tile, from L2
+        p.ub = p.t.u0 + p.t.nu;
+        break;
+      }
+      p.ub = p.ua + (p.ub - p.ua + 1) / 2;
+    }
+  }
+  if (lane == 0) *out = p;
+  __syncwarp();
+}
+
+// Query q of a piece on the shared route (u = ua + q / nv, v = v0 + q % nv,
+// inside the row's w2): its position from the piece's tables and its
+// destination, or false when it adds nothing.
+template <int TAPS>
+__device__ __forceinline__ bool pool_query(const PoolPiece& p, const PoolTables& tab, int q,
+                                           int dst_len, int ny, int nx, double s, double off,
+                                           double& x, double& y, int& d) {
+  const int a = q / p.t.nv;
+  const int b = q - a * p.t.nv;
+  const int u = p.ua + a;
+  const int f = u * p.w2 + p.t.v0 + b;
+  const int j = f - p.off;
+  if (j < 0 || j >= p.nval) return false;
+  if (p.pw2 == p.w2 && p.poff == p.off) {
+    d = p.pbase + u * p.pstride + p.t.v0 + b;     // g = f: g / w2 = u, g % w2 = v0 + b
+  } else {
+    const int g = p.poff + j;
+    const int gq = g / p.pw2;
+    d = p.pbase + gq * p.pstride + (g - gq * p.pw2);
+  }
+  if (d < 0 || d >= dst_len) return false;
+  x = qpos(tab.x1[a], tab.x2[b], s, off);
+  y = qpos(tab.y1[a], tab.y2[b], s, off);
+  return on_grid<TAPS>(floor(x), floor(y), ny, nx);
+}
+
+// Query q of any piece, from the tables in global memory (the L2 route).
+template <int TAPS>
+__device__ __forceinline__ bool pool_query_l2(const PoolPiece& p, int q, int dst_len,
+                                              const double* __restrict__ xt,
+                                              const double* __restrict__ yt, int L, int ny,
+                                              int nx, double s, double off, double& x,
+                                              double& y, int& d) {
+  const int a = q / p.t.nv;
+  const int f = (p.ua + a) * p.w2 + p.t.v0 + (q - a * p.t.nv);
+  const int j = f - p.off;
+  if (j < 0 || j >= p.nval) return false;
+  const int g = p.poff + j;
+  const int gq = g / p.pw2;
+  d = p.pbase + gq * p.pstride + (g - gq * p.pw2);
+  if (d < 0 || d >= dst_len) return false;
+  const int fq = f / p.w2;
+  const int i1 = p.i1s + fq;
+  const int i2 = p.i2s + (f - fq * p.w2);
+  if (i1 < 0 || i1 >= L || i2 < 0 || i2 >= L) return false;
+  x = qpos(xt[i1], xt[i2], s, off);
+  y = qpos(yt[i1], yt[i2], s, off);
+  return on_grid<TAPS>(floor(x), floor(y), ny, nx);
+}
+
+__device__ __forceinline__ void work_barrier() {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(kPoolWork) : "memory");
 }
 
 // Pool mode: value j of a row lands at dst_base0 + (g / w2) * stride + g % w2,
 // g = off + j (dmeta's own w2 and off).
+//
+// Persistent blocks walk the tiles (block b takes tiles b, b + grid, ...),
+// each cut into pieces (pool_next).  While the workers (the warps after the
+// kPoolProducers producers) compute piece i from one slot, warps 1.. stage
+// piece i + 1's window into the other slot with bulk copies, and warp 0
+// finds piece i + 2 and then waits for the copies; a block barrier ends the
+// step.  The workers take a piece on the shared route in three parts, a
+// barrier of theirs between them:
+//   decode  each query once, into registers: its position (from the piece's
+//           tables), its destination, its window offset, and its bank
+//           (offset mod 16) ranked among the piece's queries of that bank;
+//   order   each valid query to its place in (rank, bank) order, so that 16
+//           consecutive ones fall on 16 distinct banks;
+//   compute in that order: taps, the 8-byte patch loads from the window, an
+//           f64 atomicAdd to the destination.
+// Shared memory: the two slots, then x, y (doubles), the window offset and
+// the destination (ints) of kPoolCap queries in that order.
 template <int TAPS>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kPoolThreads, 1)
 sweep_pool_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__ combined,
                   int K, int ny, int nx, const double* __restrict__ xt,
                   const double* __restrict__ yt, int L, const int* __restrict__ ks,
                   const int* __restrict__ imeta, const int* __restrict__ dmeta,
-                  const int* __restrict__ tiles, double inv_scale, double off_grid,
+                  const int* __restrict__ tiles, int ntiles, double inv_scale, double off_grid,
                   unsigned long long* __restrict__ l2_tiles) {
   constexpr int lo = Family<TAPS>::kLo;
-  extern __shared__ double win[];
-  __shared__ int box[4];
-  const Tile t = load_tile(tiles);
-  const int* im = imeta + 5 * t.row;
-  const int* pm = dmeta + 5 * t.row;
-  const int k = ks[t.row];
-  if (k < 0 || k >= K) return;
-  const int w2 = max(im[2], 1);
-  const int pw2 = max(pm[1], 1);
-  const int nval = min(im[4], pm[4]);
-  const int nq = t.nu * t.nv;
-  const double* img = combined + static_cast<size_t>(k) * ny * nx;
+  constexpr int kWork = kPoolWork;
+  constexpr int kKeys = (kPoolCap + kWork - 1) / kWork;
+  extern __shared__ __align__(16) double sm[];
+  __shared__ PoolPiece pieces[3];
+  __shared__ PoolTables tabs[3];
+  __shared__ int cnt[16];
+  __shared__ unsigned long long bar;
+  double* qx = sm + 2 * kPoolSlot;
+  double* qy = qx + kPoolCap;
+  int* qo = reinterpret_cast<int*>(qy + kPoolCap);
+  int* qd = qo + kPoolCap;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = threadIdx.x - 32 * kPoolProducers;   // a worker's index
+  // the parity of the stack's first double on 16 bytes
+  const int cpar = static_cast<int>((reinterpret_cast<uintptr_t>(combined) >> 3) & 1);
+  if (static_cast<int>(blockIdx.x) >= ntiles) return;
 
-  // the query q of the tile: its position, or false when it adds nothing
-  auto query = [&](int q, double& x, double& y, int& d) {
-    const int a = q / t.nv;
-    const int f = (t.u0 + a) * w2 + t.v0 + (q - a * t.nv);
-    const int j = f - im[3];
-    if (j < 0 || j >= nval) return false;
-    const int g = pm[3] + j;
-    const int gq = g / pw2;
-    d = pm[0] + gq * pm[2] + (g - gq * pw2);
-    if (d < 0 || d >= dst_len) return false;
-    const int fq = f / w2;
-    const int i1 = im[0] + fq;
-    const int i2 = im[1] + (f - fq * w2);
-    if (i1 < 0 || i1 >= L || i2 < 0 || i2 >= L) return false;
-    x = (xt[i1] - xt[i2]) * inv_scale + off_grid;
-    y = (yt[i1] - yt[i2]) * inv_scale + off_grid;
-    return on_grid<TAPS>(floor(x), floor(y), ny, nx);
-  };
-
-  // the window of the tile's valid queries
-  int xlo = INT_MAX, xhi = INT_MIN, ylo = INT_MAX, yhi = INT_MIN;
-  for (int q = threadIdx.x; q < nq; q += kThreads) {
-    double x, y;
-    int d;
-    if (!query(q, x, y, d)) continue;
-    const int fx = static_cast<int>(floor(x));
-    const int fy = static_cast<int>(floor(y));
-    xlo = min(xlo, fx);
-    xhi = max(xhi, fx);
-    ylo = min(ylo, fy);
-    yhi = max(yhi, fy);
+  // the first two pieces and the first window
+  unsigned phase = 0;                 // the mbarrier's phase (warp 0 waits)
+  if (warp == 0) {
+    if (lane == 0) mbar_init(&bar, kPoolProducers - 1);
+    __syncwarp();
+    pool_next<TAPS>(&pieces[0], &tabs[0], blockIdx.x, -1, ntiles, tiles, ks, imeta, dmeta, K,
+                    ny, nx, xt, yt, L, inv_scale, off_grid, cpar);
+  } else if (c >= 0 && c < 16) {
+    cnt[c] = 0;
   }
-  block_bounds(box, xlo, xhi, ylo, yhi);
-  if (box[0] > box[1]) return;  // no query of the tile adds anything
-  const int x0 = box[0] - lo, y0 = box[2] - lo;
-  const int wx = box[1] - box[0] + TAPS, wy = box[3] - box[2] + TAPS;
-  const bool staged = wx * wy * static_cast<int>(sizeof(double)) <= kPoolWindowBytes;
-  if (staged) {
-    stage_window(win, img, nx, x0, y0, wx, wy);
-  } else if (threadIdx.x == 0) {
-    atomicAdd(l2_tiles, 1ull);
+  __syncthreads();
+  if (warp < kPoolProducers) {
+    const PoolPiece& p0 = pieces[0];
+    const bool staged = p0.k >= 0 && p0.route == 0;
+    if (staged && warp > 0)
+      stage_window_bulk(sm, combined, p0.k, ny, nx, p0.w, &bar, warp - 1, kPoolProducers - 1);
+    if (warp == 0) {
+      if (staged) {
+        mbar_wait(&bar, phase);
+        phase ^= 1;
+      }
+      const bool more = p0.ub < p0.t.u0 + p0.t.nu;
+      pool_next<TAPS>(&pieces[1], &tabs[1], more ? p0.tile : p0.tile + gridDim.x,
+                      more ? p0.ub : -1, ntiles, tiles, ks, imeta, dmeta, K, ny, nx, xt, yt, L,
+                      inv_scale, off_grid, cpar);
+    }
   }
+  __syncthreads();
 
-  for (int q = threadIdx.x; q < nq; q += kThreads) {
-    double x, y;
-    int d;
-    if (!query(q, x, y, d)) continue;
-    const double fx = floor(x), fy = floor(y);
-    double wxt[TAPS], wyt[TAPS];
-    taps<TAPS>(x - fx - 0.5, wxt);
-    taps<TAPS>(y - fy - 0.5, wyt);
-    const int ix = static_cast<int>(fx) - lo, iy = static_cast<int>(fy) - lo;
-    const double v = staged
-        ? patch_sum<TAPS>(win + (iy - y0) * wx + (ix - x0), wx, wxt, wyt, LoadShared())
-        : patch_sum<TAPS>(img + iy * nx + ix, nx, wxt, wyt, LoadGlobal());
-    atomicAdd(dst + d, v);
+  for (int i = 0;; ++i) {
+    const int s = i % 3, slot_i = i & 1;
+    const PoolPiece p = pieces[s];
+    if (p.tile < 0) break;
+    if (warp < kPoolProducers) {
+      // the next piece's window into the other slot (warps 1..), the piece
+      // after it (warp 0)
+      const PoolPiece& n = pieces[(i + 1) % 3];
+      const bool staged = n.tile >= 0 && n.k >= 0 && n.route == 0;
+      if (staged && warp > 0)
+        stage_window_bulk(sm + (slot_i ^ 1) * kPoolSlot, combined, n.k, ny, nx, n.w, &bar,
+                          warp - 1, kPoolProducers - 1);
+      if (warp == 0) {
+        if (n.tile >= 0) {
+          const bool more = n.ub < n.t.u0 + n.t.nu;
+          pool_next<TAPS>(&pieces[(i + 2) % 3], &tabs[(i + 2) % 3],
+                          more ? n.tile : n.tile + gridDim.x, more ? n.ub : -1, ntiles, tiles,
+                          ks, imeta, dmeta, K, ny, nx, xt, yt, L, inv_scale, off_grid, cpar);
+        } else if (lane == 0) {
+          pieces[(i + 2) % 3].tile = -1;
+        }
+        if (staged) {
+          mbar_wait(&bar, phase);
+          phase ^= 1;
+        }
+      }
+    } else {
+      if (p.k >= 0 && p.route == 1) {
+        // from L2, in query order
+        if (c == 0) atomicAdd(l2_tiles, 1ull);
+        const double* img = combined + static_cast<size_t>(p.k) * ny * nx;
+        const int nq = (p.ub - p.ua) * p.t.nv;
+        for (int q = c; q < nq; q += kWork) {
+          double x, y;
+          int d;
+          if (!pool_query_l2<TAPS>(p, q, dst_len, xt, yt, L, ny, nx, inv_scale, off_grid, x, y,
+                                   d))
+            continue;
+          const double fx = floor(x), fy = floor(y);
+          double wxt[TAPS], wyt[TAPS];
+          taps<TAPS>(x - fx - 0.5, wxt);
+          taps<TAPS>(y - fy - 0.5, wyt);
+          const int ix = static_cast<int>(fx) - lo, iy = static_cast<int>(fy) - lo;
+          atomicAdd(dst + d, patch_sum<TAPS>(img + iy * nx + ix, nx, wxt, wyt, LoadGlobal()));
+        }
+      } else if (p.k >= 0) {
+        const PoolTables& tab = tabs[s];
+        const double* slot = sm + slot_i * kPoolSlot;
+        const int nq = (p.ub - p.ua) * p.t.nv;
+        // decode: every query once, kept in registers; its bank ranked
+        // among the piece's (the lanes of one bank found from four ballots)
+        double qxr[kKeys], qyr[kKeys];
+        int qor[kKeys], qdr[kKeys], keys[kKeys];
+#pragma unroll
+        for (int it = 0; it < kKeys; ++it) {
+          const int q = c + it * kWork;
+          const bool ok = q < nq && pool_query<TAPS>(p, tab, q, dst_len, ny, nx, inv_scale,
+                                                     off_grid, qxr[it], qyr[it], qdr[it]);
+          int bank = 0;
+          if (ok) {
+            qor[it] = p.w.shift +
+                      (static_cast<int>(floor(qyr[it])) - lo - p.w.y0) * p.w.pitch +
+                      (static_cast<int>(floor(qxr[it])) - lo - p.w.x0);
+            bank = qor[it] & 15;
+          }
+          unsigned same = __ballot_sync(0xffffffffu, ok);
+#pragma unroll
+          for (int bit = 0; bit < 4; ++bit) {
+            const unsigned set = __ballot_sync(0xffffffffu, (bank >> bit) & 1);
+            same &= (bank >> bit) & 1 ? set : ~set;
+          }
+          const int leader = ok ? __ffs(same) - 1 : lane;
+          int first = 0;
+          if (ok && lane == leader) first = atomicAdd(&cnt[bank], __popc(same));
+          first = __shfl_sync(0xffffffffu, first, leader);
+          keys[it] = ok ? ((first + __popc(same & ((1u << lane) - 1u))) << 4 | bank) : -1;
+        }
+        work_barrier();
+        // order: each query to its place in (rank, bank) order
+        int cb[16];
+#pragma unroll
+        for (int b = 0; b < 16; ++b) cb[b] = cnt[b];
+        int nvalid = 0;
+#pragma unroll
+        for (int b = 0; b < 16; ++b) nvalid += cb[b];
+#pragma unroll
+        for (int it = 0; it < kKeys; ++it) {
+          if (keys[it] < 0) continue;
+          const int rank = keys[it] >> 4, bank = keys[it] & 15;
+          int pos = 0;
+#pragma unroll
+          for (int b = 0; b < 16; ++b) pos += min(cb[b], rank) + (b < bank && cb[b] > rank);
+          qx[pos] = qxr[it];
+          qy[pos] = qyr[it];
+          qo[pos] = qor[it];
+          qd[pos] = qdr[it];
+        }
+        work_barrier();
+        // compute, bank by bank
+        for (int e = c; e < nvalid; e += kWork) {
+          const double x = qx[e], y = qy[e];
+          const double fx = floor(x), fy = floor(y);
+          double wxt[TAPS], wyt[TAPS];
+          taps<TAPS>(x - fx - 0.5, wxt);
+          taps<TAPS>(y - fy - 0.5, wyt);
+          atomicAdd(dst + qd[e],
+                    patch_sum<TAPS>(slot + qo[e], p.w.pitch, wxt, wyt, LoadShared()));
+        }
+        if (c < 16) cnt[c] = 0;   // read by every worker before the last barrier
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -505,136 +991,306 @@ sweep_pool_kernel(double* __restrict__ dst, int dst_len, const double* __restric
 // whose origin is table entry i2_start: (xt[i2_start] + p % n2f,
 // yt[i2_start] + p / n2f).  The planner (interp_cuda.sweep_tiles) raises
 // unless the tables hold exactly that lattice, so this is the same as
-// reading the tables at i2_start + p.  A block takes one tile: one i1 (u0)
-// and the output pixels [v0, v0 + nv) it pairs with.
+// reading the tables at i2_start + p.  A tile is a run of i1 of one row (u0,
+// nu) with the output pixels [v0, v0 + nv) they pair with; each i1 keeps
+// those of its own that are queries of the row.
 //
-// Shared memory (sized by b_smem_bytes, for the window interp_cuda.b_window
-// gives; the wrapper asks interp_b_smem_bytes before it launches): x taps
-// (n2f, kPitch), y taps (n2f, kPitch), horizontal sums (wmax, n2f), the
-// window (wmax, wmax) in doubles, then the x and y floors (n2f each; INT_MIN
-// off the grid).  The floors of n2f lattice points spread over (n2f - 1)
-// |inv_scale| samples differ by at most floor((n2f - 1) |inv_scale|) + 2,
-// rounding included, so with the TAPS-tap guard a window never exceeds
-// wmax = that + TAPS samples on either axis.
+// A block takes a run and cuts it into sub-runs of at most `run` i1 whose
+// union window fits `wcap` doubles (one warp finds them from each i1's
+// extreme lattice columns and rows, qpos being monotone).  A sub-run
+// stages its window once and computes all its tap sets at once (a barrier);
+// then for each i1 the horizontal sums (window row a, output column c) go
+// to one of two buffers, a barrier, and the vertical sums to the
+// destinations, while the next i1's horizontal sums fill the other buffer:
+// one barrier an i1 and two a sub-run.  Both sums keep the order of
+// sum_a wy[a] (sum_b wx[b] img).
+//
+// Shared memory (b_layout), all of it dynamic: the window (wcap doubles),
+// x taps and y taps (run, n2f, kPitch), the horizontal sums (nbuf, wmax,
+// n2f), the x and y floors (run, n2f each; INT_MIN off the grid or not
+// needed), then the sub-run's head (BHead) and its i1 (BI1, run).  The
+// floors of n2f lattice points spread over (n2f - 1) |inv_scale| samples
+// differ by at most floor((n2f - 1) |inv_scale|) + 2, rounding included,
+// so one i1's window never exceeds wmax = that + TAPS samples on either
+// axis.  The compact layout, for the lattices whose one i1 does not fit
+// beside two buffers, is the one the B body of commit 910c170 took: one
+// i1 a sub-run, one buffer, a window of wmax x wmax at the pitch of its
+// own width (8-byte copies), and the head and i1 kept in the buffer until
+// the horizontal sums overwrite it (two more barriers an i1).  Its bytes
+// are that body's, so every lattice that body launched launches here.
+struct BI1 {
+  double x1, y1;                     // the i1's table entry
+  int plo, phi;                      // its outputs [plo, phi)
+  int clo, chi, rlo, rhi;            // their lattice columns and rows
+  int fxlo, fxhi, fylo, fyhi;        // their floors on the grid (fxlo > fxhi: none)
+};
+struct BHead {
+  Window w;                          // the sub-run's union window
+  int nsub;                          // its i1 (negative: none on the grid)
+  int pad;
+};
+static_assert(sizeof(BHead) % 8 == 0 && sizeof(BI1) % 8 == 0, "8-byte aligned");
+
+// The shared-memory layout of a B-mode block: the most i1 a sub-run may
+// hold (run), the window's doubles (wcap), the horizontal-sum buffers
+// (nbuf), whether the window is compact and the bytes.
+struct BLayout {
+  int run, wcap, nbuf, compact;
+  size_t bytes;
+};
+
 template <int TAPS>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kBThreads, kBMinBlocks)
 sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__ combined,
                int K, int ny, int nx, const double* __restrict__ xt,
                const double* __restrict__ yt, int L, const int* __restrict__ ks,
                const int* __restrict__ imeta, const int* __restrict__ dmeta,
                const int* __restrict__ tiles, double inv_scale, double off_grid, int n_pad,
-               int n2f, int wmax) {
+               int n2f, int wmax, BLayout lay) {
   constexpr int lo = Family<TAPS>::kLo, hi = Family<TAPS>::kHi;
   constexpr int pitch = Family<TAPS>::kPitch;
-  extern __shared__ double sm[];
-  __shared__ int box[4];
-  double* tx = sm;
-  double* ty = tx + n2f * pitch;
-  double* hs = ty + n2f * pitch;
-  double* win = hs + wmax * n2f;
-  int* fxs = reinterpret_cast<int*>(win + wmax * wmax);
-  int* fys = fxs + n2f;
+  extern __shared__ __align__(16) double sm[];
+  const int run = lay.run, wcap = lay.wcap;
+  const bool compact = lay.compact != 0;
+  double* win = sm;
+  double* tx = win + wcap;
+  double* ty = tx + run * n2f * pitch;
+  double* hs = ty + run * n2f * pitch;
+  const int hsz = compact ? max(wmax * n2f, static_cast<int>((sizeof(BHead) + sizeof(BI1)) / 8))
+                          : lay.nbuf * wmax * n2f;
+  int* fxs = reinterpret_cast<int*>(hs + hsz);
+  int* fys = fxs + run * n2f;
+  BHead* head = compact ? reinterpret_cast<BHead*>(hs) : reinterpret_cast<BHead*>(fys + run * n2f);
+  BI1* gi = reinterpret_cast<BI1*>(head + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const Tile t = load_tile(tiles);
+  const Tile t = load_tile(tiles, blockIdx.x);
   const int* im = imeta + 5 * t.row;
   const int* bm = dmeta + 4 * t.row;
   const int k = ks[t.row];
   const int m = n2f * n2f;
   const int i2s = im[1];
-  const int u = t.u0;
-  const int i1 = im[0] + u;
-  if (k < 0 || k >= K || i2s < 0 || i2s + m > L || i1 < 0 || i1 >= L) return;
-  // outputs p of this i1 that are queries of the row: off <= u m + p < off + nval
+  if (k < 0 || k >= K || i2s < 0 || i2s + m > L) return;
   const int nval = min(im[4], bm[3]);
-  const int plo = max(t.v0, im[3] - u * m);
-  const int phi = min(t.v0 + t.nv, im[3] + nval - u * m);
-  if (plo >= phi) return;
-  const int rlo = plo / n2f, rhi = (phi - 1) / n2f;
-  const int clo = rlo == rhi ? plo % n2f : 0;
-  const int chi = rlo == rhi ? (phi - 1) % n2f : n2f - 1;
   const double X0 = xt[i2s], Y0 = yt[i2s];
-  const double x1 = xt[i1], y1 = yt[i1];
-  const double* img = combined + static_cast<size_t>(k) * ny * nx;
+  const int end = t.u0 + t.nu;
+  const int cpar = static_cast<int>((reinterpret_cast<uintptr_t>(combined) >> 3) & 1);
 
-  // taps of the needed columns (threads [0, n2f)) and rows ([n2f, 2 n2f))
-  int xlo = INT_MAX, xhi = INT_MIN, ylo = INT_MAX, yhi = INT_MIN;
-  for (int s = threadIdx.x; s < 2 * n2f; s += kThreads) {
-    const bool col = s < n2f;
-    const int c = col ? s : s - n2f;
-    if (col ? (c < clo || c > chi) : (c < rlo || c > rhi)) continue;
-    const double q = col ? (x1 - (X0 + c)) * inv_scale + off_grid
-                         : (y1 - (Y0 + c)) * inv_scale + off_grid;
-    const double fq = floor(q);
-    const int n = col ? nx : ny;
-    int* fl = col ? fxs : fys;
-    if (!(fq >= lo && fq < static_cast<double>(n - hi))) {
-      fl[c] = INT_MIN;
-      continue;
-    }
-    taps<TAPS>(q - fq - 0.5, (col ? tx : ty) + c * pitch);
-    fl[c] = static_cast<int>(fq);
-    if (col) {
-      xlo = min(xlo, fl[c]);
-      xhi = max(xhi, fl[c]);
-    } else {
-      ylo = min(ylo, fl[c]);
-      yhi = max(yhi, fl[c]);
-    }
-  }
-  block_bounds(box, xlo, xhi, ylo, yhi);
-  // no column or no row on the grid: every output of this i1 is 0
-  if (box[0] > box[1] || box[2] > box[3]) return;
-  const int x0 = box[0] - lo, y0 = box[2] - lo;
-  const int wx = box[1] - box[0] + TAPS, wy = box[3] - box[2] + TAPS;
-
-  stage_window(win, img, nx, x0, y0, wx, wy);
-  // horizontal sums: window row a, output column c; a thread keeps one
-  // column's taps in registers and walks a stride of rows
-  const int ncol = chi - clo + 1;
-  const int nrg = kThreads / ncol;
-  if (threadIdx.x < nrg * ncol) {
-    const int c = clo + threadIdx.x % ncol;
-    if (fxs[c] != INT_MIN) {
-      double w[TAPS];
-#pragma unroll
-      for (int b = 0; b < TAPS; ++b) w[b] = tx[c * pitch + b];
-      const int cx = fxs[c] - lo - x0;
-      for (int a = threadIdx.x / ncol; a < wy; a += nrg) {
-        const double* row = win + a * wx + cx;
-        double s = 0.0;
-#pragma unroll
-        for (int b = 0; b < TAPS; ++b) s += w[b] * row[b];
-        hs[a * n2f + c] = s;
+  for (int ua = t.u0; ua < end;) {
+    if (warp == 0) {
+      // lane j: i1 u = ua + j, its outputs, rows, columns and floors
+      const int u = ua + lane;
+      const int i1 = im[0] + u;
+      BI1 g;
+      g.plo = max(t.v0, im[3] - u * m);
+      g.phi = min(t.v0 + t.nv, im[3] + nval - u * m);
+      g.fxlo = 1;
+      g.fxhi = 0;
+      g.fylo = 1;
+      g.fyhi = 0;
+      const bool in_run = u < end;
+      if (in_run && i1 >= 0 && i1 < L && g.plo < g.phi) {
+        g.rlo = g.plo / n2f;
+        g.rhi = (g.phi - 1) / n2f;
+        g.clo = g.rlo == g.rhi ? g.plo % n2f : 0;
+        g.chi = g.rlo == g.rhi ? (g.phi - 1) % n2f : n2f - 1;
+        g.x1 = xt[i1];
+        g.y1 = yt[i1];
+        const double xa = qpos(g.x1, X0 + g.clo, inv_scale, off_grid);
+        const double xb = qpos(g.x1, X0 + g.chi, inv_scale, off_grid);
+        const double ya = qpos(g.y1, Y0 + g.rlo, inv_scale, off_grid);
+        const double yb = qpos(g.y1, Y0 + g.rhi, inv_scale, off_grid);
+        const double fxl = fmax(floor(fmin(xa, xb)), static_cast<double>(lo));
+        const double fxh = fmin(floor(fmax(xa, xb)), static_cast<double>(nx - hi - 1));
+        const double fyl = fmax(floor(fmin(ya, yb)), static_cast<double>(lo));
+        const double fyh = fmin(floor(fmax(ya, yb)), static_cast<double>(ny - hi - 1));
+        if (fxl <= fxh && fyl <= fyh) {
+          g.fxlo = static_cast<int>(fxl);
+          g.fxhi = static_cast<int>(fxh);
+          g.fylo = static_cast<int>(fyl);
+          g.fyhi = static_cast<int>(fyh);
+        }
+      }
+      const bool has = g.fxlo <= g.fxhi;
+      // the union of lanes 0..j (inclusive scan)
+      int xl = has ? g.fxlo : INT_MAX, xh = has ? g.fxhi : INT_MIN;
+      int yl = has ? g.fylo : INT_MAX, yh = has ? g.fyhi : INT_MIN;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int a0 = __shfl_up_sync(0xffffffffu, xl, o), a1 = __shfl_up_sync(0xffffffffu, xh, o);
+        const int a2 = __shfl_up_sync(0xffffffffu, yl, o), a3 = __shfl_up_sync(0xffffffffu, yh, o);
+        if (lane >= o) {
+          xl = min(xl, a0);
+          xh = max(xh, a1);
+          yl = min(yl, a2);
+          yh = max(yh, a3);
+        }
+      }
+      bool fits = in_run && lane < run;
+      Window w{};
+      if (xl <= xh) {
+        w = make_window(xl, xh, yl, yh, lo, TAPS, k, ny, nx, cpar, 0);
+        if (compact) {
+          w.pitch = w.wx;
+          w.shift = 0;
+        }
+        fits = fits && window_doubles(w) <= wcap;
+      }
+      // the leading lanes that fit; lane 0 always does (wcap >= one i1's window)
+      const unsigned ok = __ballot_sync(0xffffffffu, fits);
+      const int n = max(ok == 0xffffffffu ? 32 : __ffs(~ok) - 1, 1);
+      if (lane < n) gi[lane] = g;
+      if (lane == n - 1) {
+        head->w = w;
+        head->nsub = xl <= xh ? n : -n;    // negative: no i1 of the sub-run is on the grid
       }
     }
-  }
-  __syncthreads();
-  // vertical sums and the scatter
-  for (int p = plo + threadIdx.x; p < phi; p += kThreads) {
-    const int r = p / n2f, c = p - r * n2f;
-    if (fxs[c] == INT_MIN || fys[r] == INT_MIN) continue;
-    const int g = bm[2] + u * m + p - im[3];
-    const int gq = g / m;
-    const int d = bm[0] + (g - gq * m) * n_pad + bm[1] + gq;
-    if (d < 0 || d >= dst_len) continue;
-    const double* col = hs + (fys[r] - lo - y0) * n2f + c;
-    const double* w = ty + r * pitch;
-    double acc = 0.0;
+    __syncthreads();
+    const int nsub = head->nsub;
+    const int n = abs(nsub);
+    if (nsub < 0) {
+      ua += n;
+      __syncthreads();   // every thread has read the head before warp 0 rewrites it
+      continue;
+    }
+    const Window w = head->w;
+    stage_window(win, combined, k, ny, nx, w, kBThreads, !compact);
+    cp_async_commit();
+    // the sub-run's tap sets: (i1 j, axis, column or row c)
+    for (int item = threadIdx.x; item < n * 2 * n2f; item += kBThreads) {
+      const int j = item / (2 * n2f);
+      const int rem = item - j * 2 * n2f;
+      const bool col = rem < n2f;
+      const int c = col ? rem : rem - n2f;
+      const BI1& g = gi[j];
+      int* fl = (col ? fxs : fys) + j * n2f;
+      const bool need = g.fxlo <= g.fxhi &&
+                        (col ? (c >= g.clo && c <= g.chi) : (c >= g.rlo && c <= g.rhi));
+      const double q = need ? (col ? qpos(g.x1, X0 + c, inv_scale, off_grid)
+                                   : qpos(g.y1, Y0 + c, inv_scale, off_grid))
+                            : 0.0;
+      const double fq = floor(q);
+      const int nn = col ? nx : ny;
+      if (!need || !(fq >= lo && fq < static_cast<double>(nn - hi))) {
+        fl[c] = INT_MIN;
+        continue;
+      }
+      taps<TAPS>(q - fq - 0.5, (col ? tx : ty) + (j * n2f + c) * pitch);
+      fl[c] = static_cast<int>(fq);
+    }
+    // the first i1, read before the horizontal sums may overwrite it (compact)
+    const BI1 g0 = gi[0];
+    cp_async_wait<0>();
+    __syncthreads();
+
+    for (int j = 0; j < n; ++j) {
+      const BI1 g = j == 0 ? g0 : gi[j];
+      const int u = ua + j;
+      double* h = hs + (lay.nbuf == 2 ? (j & 1) * wmax * n2f : 0);
+      const bool has = g.fxlo <= g.fxhi;
+      const int ncol = g.chi - g.clo + 1;
+      const int wyj = g.fyhi - g.fylo + TAPS;
+      // horizontal sums: window row a of this i1's rows, output column c; a
+      // half-warp takes one column (its taps in registers) and 16 rows at a
+      // time, which an odd window pitch puts on 16 distinct banks
+      if (has) {
+        for (int cc = threadIdx.x >> 4; cc < ncol; cc += kBThreads >> 4) {
+          const int c = g.clo + cc;
+          const int fx = fxs[j * n2f + c];
+          if (fx == INT_MIN) continue;
+          double wv[TAPS];
 #pragma unroll
-    for (int a = 0; a < TAPS; ++a) acc += w[a] * col[a * n2f];
-    atomicAdd(dst + d, acc);
+          for (int b = 0; b < TAPS; ++b) wv[b] = tx[(j * n2f + c) * pitch + b];
+          const double* base = win + w.shift + (g.fylo - lo - w.y0) * w.pitch + (fx - lo - w.x0);
+          for (int a = threadIdx.x & 15; a < wyj; a += 16) {
+            const double* row = base + a * w.pitch;
+            double s = 0.0;
+#pragma unroll
+            for (int b = 0; b < TAPS; ++b) s += wv[b] * row[b];
+            h[a * n2f + c] = s;
+          }
+        }
+      }
+      __syncthreads();
+      // vertical sums and the scatter
+      if (has) {
+        for (int p = g.plo + threadIdx.x; p < g.phi; p += kBThreads) {
+          const int r = p / n2f, c = p - r * n2f;
+          const int fx = fxs[j * n2f + c], fy = fys[j * n2f + r];
+          if (fx == INT_MIN || fy == INT_MIN) continue;
+          const int gg = bm[2] + u * m + p - im[3];
+          const int gq = gg / m;
+          const int d = bm[0] + (gg - gq * m) * n_pad + bm[1] + gq;
+          if (d < 0 || d >= dst_len) continue;
+          const double* colp = h + (fy - g.fylo) * n2f + c;
+          const double* wv = ty + (j * n2f + r) * pitch;
+          double acc = 0.0;
+#pragma unroll
+          for (int a = 0; a < TAPS; ++a) acc += wv[a] * colp[a * n2f];
+          atomicAdd(dst + d, acc);
+        }
+      }
+      // one buffer: the next i1's horizontal sums (or, compact, the next
+      // head) wait for these vertical sums
+      if (lay.nbuf == 1) __syncthreads();
+    }
+    ua += n;
   }
 }
 
-// Shared-memory bytes a B-mode block of the family needs for n2f and a
-// window of at most wmax x wmax samples.
+// Within `budget` bytes: the largest run (at most kBRun) whose tap sets,
+// floors, head and i1 fit beside two buffers and one i1's window, the
+// window taking the rest; run 0 where one i1 does not fit.
+template <int TAPS>
+BLayout b_layout_within(int n2f, int wmax, size_t budget) {
+  const size_t per_i1 =
+      static_cast<size_t>(n2f) * (2 * Family<TAPS>::kPitch * 8 + 2 * 4) + sizeof(BI1);
+  const size_t fixed = static_cast<size_t>(2) * wmax * n2f * 8 + sizeof(BHead);
+  // one i1's window: wmax rows at a pitch of at most wmax + 1, and the shift
+  const size_t wmin = (static_cast<size_t>(wmax) * (wmax + 1) + 2) & ~static_cast<size_t>(1);
+  BLayout l{0, 0, 2, 0, 0};
+  for (int r = kBRun; r >= 1; --r) {
+    if (fixed + r * per_i1 + wmin * 8 <= budget) {
+      l.run = r;
+      l.wcap = static_cast<int>(((budget - fixed - r * per_i1) / 8) & ~static_cast<size_t>(1));
+      l.bytes = fixed + r * per_i1 + static_cast<size_t>(l.wcap) * 8;
+      break;
+    }
+  }
+  return l;
+}
+
+// The layout a launch takes: two blocks an SM (kBBlockSmem) where their
+// window holds a sub-run of two i1 with room to spare -- one i1's window
+// grown by two lattice steps, an i1 sitting one input pixel, about (wmax -
+// TAPS - 1) / (n2f - 1) samples, from the next -- else one block an SM
+// (kBBlockSmemOne), whose window holds longer runs (measured on the main
+// path: lattices whose one i1 window nearly fills the smaller budget, as
+// the Piff bench group's PSFs oversampled 8x, run faster so; the bench and
+// production groups as two); else the compact layout, whose bytes may
+// exceed kBBlockSmemOne (the wrapper raises before it launches).
+template <int TAPS>
+BLayout b_layout(int n2f, int wmax) {
+  const BLayout two = b_layout_within<TAPS>(n2f, wmax, kBBlockSmem);
+  const double step = static_cast<double>(wmax - TAPS - 1) / std::max(n2f - 1, 1);
+  if (two.run >= 2 && (wmax + 2.0 * step) * (wmax + 1) + 2 <= two.wcap) return two;
+  const BLayout one = b_layout_within<TAPS>(n2f, wmax, kBBlockSmemOne);
+  if (one.run >= 1) return one;
+  const size_t hs = std::max(static_cast<size_t>(wmax) * n2f,
+                             (sizeof(BHead) + sizeof(BI1)) / 8);
+  const int wcap = wmax * wmax;
+  return BLayout{1, wcap, 1, 1,
+                 8 * (static_cast<size_t>(wcap) + 2 * n2f * Family<TAPS>::kPitch + hs) +
+                     sizeof(int) * 2 * static_cast<size_t>(n2f)};
+}
+
 template <int TAPS>
 size_t b_smem_bytes(int n2f, int wmax) {
-  return sizeof(double) * (static_cast<size_t>(n2f) * 2 * Family<TAPS>::kPitch +
-                           static_cast<size_t>(wmax) * n2f +
-                           static_cast<size_t>(wmax) * wmax) +
-         sizeof(int) * 2 * static_cast<size_t>(n2f);
+  return b_layout<TAPS>(n2f, wmax).bytes;
 }
+
+constexpr size_t kPoolSmem = sizeof(double) * (static_cast<size_t>(2) * kPoolSlot +
+                                               2 * static_cast<size_t>(kPoolCap)) +
+                             sizeof(int) * 2 * static_cast<size_t>(kPoolCap);
 
 template <int TAPS>
 int launch_dense(const double* images, int R, int ny, int nx, const double* x,
@@ -664,17 +1320,23 @@ int launch_sweep(double* dst, int dst_len, const double* combined, int K, int ny
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
     cudaFuncSetAttribute(sweep_pool_kernel<TAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kPoolWindowBytes);
-    sweep_pool_kernel<TAPS><<<ntiles, kThreads, kPoolWindowBytes, s>>>(
-        dst, dst_len, combined, K, ny, nx, xt, yt, L, ks, imeta, dmeta, tiles, inv_scale,
-        off_grid, l2_tiles);
+                         static_cast<int>(kPoolSmem));
+    int dev = 0, nsm = 0, per = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, sweep_pool_kernel<TAPS>, kPoolThreads,
+                                                  kPoolSmem);
+    const int grid = std::min(ntiles, std::max(per, 1) * std::max(nsm, 1));
+    sweep_pool_kernel<TAPS><<<grid, kPoolThreads, kPoolSmem, s>>>(
+        dst, dst_len, combined, K, ny, nx, xt, yt, L, ks, imeta, dmeta, tiles, ntiles,
+        inv_scale, off_grid, l2_tiles);
   } else {
-    const size_t smem = b_smem_bytes<TAPS>(n2f, wmax);
+    const BLayout l = b_layout<TAPS>(n2f, wmax);
     cudaFuncSetAttribute(sweep_b_kernel<TAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    sweep_b_kernel<TAPS><<<ntiles, kThreads, smem, s>>>(dst, dst_len, combined, K, ny, nx, xt,
-                                                        yt, L, ks, imeta, dmeta, tiles,
-                                                        inv_scale, off_grid, n_pad, n2f, wmax);
+                         static_cast<int>(l.bytes));
+    sweep_b_kernel<TAPS><<<ntiles, kBThreads, l.bytes, s>>>(
+        dst, dst_len, combined, K, ny, nx, xt, yt, L, ks, imeta, dmeta, tiles, inv_scale,
+        off_grid, n_pad, n2f, wmax, l);
   }
   return static_cast<int>(cudaGetLastError());
 }

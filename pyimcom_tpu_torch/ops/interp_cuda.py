@@ -16,7 +16,11 @@ kernel's outer-difference-query variant, fused with the scatters of
 ``pyimcom_tpu/ops/assemble.py``'s
 ``sweep_pool_scan`` (mode 0, the submatrix pool) and ``sweep_b_scan``
 (mode 1, -B/2): each query is formed from the f64 coordinate tables,
-interpolated and added where it lands.
+interpolated and added where it lands.  Pool tiles are walked by one
+persistent block an SM, whose producer warps find each tile's window and
+stage it into a two-slot ring with bulk copies while the other warps
+compute the previous one in shared-memory bank order; a B tile is a run of
+i1 of one row that shares one staged window.
 
 Each has a G4460 form, the same template with an 8 x 8 patch, taken with
 ``kern="G4460"``: K1 ``interp_g4460_dense`` (the JAX package's XLA
@@ -149,11 +153,15 @@ def interp_dense_plain(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 # K2: fused sweep (query formation + interpolation + scatter-add)
 # --------------------------------------------------------------------------
 
-# the most queries of one pool tile, and the most i2 columns it spans; the
-# windows of such tiles fit the 110 KB that a pool block stages on the main
-# path's groups, but for ~1 % of the production group's tiles
+# the most queries of one pool tile, and the most i2 columns it spans (the
+# kernel cuts a tile whose window outgrows its slot into pieces of fewer
+# i1); the most i1 of one B tile, a run of one row
 TILE_QUERIES = 1024
 TILE_COLS = 32
+B_RUN = 8
+# doubles of one of K2's two pool window slots (csrc/interp_d5512.cu,
+# kPoolSlot): a piece of a tile whose window outgrows it is halved
+POOL_SLOT_DOUBLES = 12544
 # shared memory a block may use on the card (sm_90)
 _SMEM_LIMIT = 232448
 _LATTICE_ERROR = ("the output coordinates of a B row are not an exact {n2f} x {n2f} "
@@ -161,7 +169,8 @@ _LATTICE_ERROR = ("the output coordinates of a B row are not an exact {n2f} x {n
                   "n2f**2); K2's B mode needs one")
 
 
-def sweep_tiles(imeta, mode: int, xt=None, yt=None, n2f: int = 0) -> np.ndarray:
+def sweep_tiles(imeta, mode: int, xt=None, yt=None, n2f: int = 0,
+                min_tiles: int = 0) -> np.ndarray:
     """
     The tiles of K2's launch: (T, 5) int32 rows [row, u0, v0, nu, nv], one
     thread block each.  Tile t holds the queries f = u * w2 + v of its row
@@ -169,9 +178,13 @@ def sweep_tiles(imeta, mode: int, xt=None, yt=None, n2f: int = 0) -> np.ndarray:
     i1 = i1_start + u and i2 = i2_start + v; every query of every row (f in
     [off, off + nval)) falls in exactly one tile, and rows with nval 0 get
     none.  Pool rows (mode 0) are cut into near-square tiles of at most
-    TILE_QUERIES queries and TILE_COLS columns; a B row (mode 1) gets one
-    tile for each i1, spanning the output pixels it pairs with.  Host
-    numpy: `imeta` (..., 5) rows [i1_start, i2_start, w2, off, nval].
+    TILE_QUERIES queries and TILE_COLS columns; a B row (mode 1) into runs
+    of at most B_RUN consecutive i1, each spanning the whole output lattice
+    (v0 0, nv w2; the kernel keeps each i1's own queries of the row),
+    shortened (down to one i1) while the launch would have fewer than
+    `min_tiles` tiles (:func:`b_min_tiles`: a launch with few i1 then still
+    fills the card).  Host numpy: `imeta` (..., 5) rows [i1_start,
+    i2_start, w2, off, nval].
 
     B tiles need the host coordinate tables `xt`, `yt` and the lattice's
     `n2f`: K2's B mode computes each row's output coordinates from the
@@ -190,11 +203,15 @@ def sweep_tiles(imeta, mode: int, xt=None, yt=None, n2f: int = 0) -> np.ndarray:
     u_lo = off // w2
     h = (off + nval - 1) // w2 + 1 - u_lo          # i1 entries of each row
     if mode == 1:
-        r = np.repeat(np.arange(len(rows)), h)
-        u = u_lo[r] + np.arange(len(r)) - np.repeat(np.cumsum(h) - h, h)
-        v0 = np.maximum(off[r] - u * w2[r], 0)
-        v1 = np.minimum(off[r] + nval[r] - u * w2[r], w2[r])
-        tiles = np.stack([rows[r], u, v0, np.ones_like(u), v1 - v0], axis=1)
+        run = B_RUN
+        while run > 1 and int((-(-h // run)).sum()) < min_tiles:
+            run -= 1
+        nt = -(-h // run)
+        r = np.repeat(np.arange(len(rows)), nt)
+        t = np.arange(len(r)) - np.repeat(np.cumsum(nt) - nt, nt)
+        u0 = u_lo[r] + t * run
+        nu = np.minimum(run, u_lo[r] + h[r] - u0)
+        tiles = np.stack([rows[r], u0, np.zeros_like(u0), nu, w2[r]], axis=1)
     else:
         nt2 = -(-w2 // TILE_COLS)
         tv = -(-w2 // nt2)
@@ -210,6 +227,16 @@ def sweep_tiles(imeta, mode: int, xt=None, yt=None, n2f: int = 0) -> np.ndarray:
         nv = np.minimum(tv[r], w2[r] - v0)
         tiles = np.stack([rows[r], u0, v0, nu, nv], axis=1)
     return tiles.astype(np.int32).reshape(-1, 5)
+
+
+def b_min_tiles(device) -> int:
+    """The least number of B tiles a launch on `device` should have: four a
+    multiprocessor of a CUDA device (two waves of the two B blocks an SM
+    holds), 0 elsewhere."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def sweep_kernel(kern: str, mode: int) -> str:
@@ -284,8 +311,9 @@ _l2_counters: dict[torch.device, torch.Tensor] = {}
 
 
 def l2_tiles(device) -> int:
-    """Pool tiles that K2 interpolated from L2 (their window outgrew shared
-    memory) on `device` since the last :func:`reset_l2_tiles`."""
+    """Pool tiles that K2 interpolated from L2 (in part: from an i1 whose
+    window alone outgrew a slot of POOL_SLOT_DOUBLES) on `device` since the
+    last :func:`reset_l2_tiles`."""
     return int(_l2_counter(torch.device(device)).item())
 
 

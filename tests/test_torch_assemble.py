@@ -22,6 +22,7 @@ import torch
 from pyimcom_tpu.ops import assemble as ref
 from pyimcom_tpu_torch.convert import from_numpy
 from pyimcom_tpu_torch.ops import assemble, interp, interp_cuda
+from k2_layout_torch import b_layout_bytes
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -351,7 +352,9 @@ def test_bench_plan_tiles_cover_every_query_once(bench_plan):
         if mode == 0:
             assert (t[:, 3] * t[:, 4]).max() <= interp_cuda.TILE_QUERIES
         else:
-            assert np.all(t[:, 3] == 1)
+            # runs of at most B_RUN i1 over the whole lattice
+            assert np.all((t[:, 3] >= 1) & (t[:, 3] <= interp_cuda.B_RUN))
+            assert np.all(t[:, 2] == 0) and np.all(t[:, 4] == im[:, 2])
 
 
 @pytest.mark.parametrize("mode", [0, 1], ids=["pool", "B"])
@@ -432,3 +435,214 @@ def test_sweep_tiles_partition_odd_rows(mode):
     want = np.sort(np.concatenate([r * 10 ** 6 + np.arange(off[r], off[r] + nval[r])
                                    for r in range(rows)]))
     np.testing.assert_array_equal(seen, want)
+
+
+def _pool_pieces(tile, im, xt, yt, inv_scale, off_grid, ny, nx, kern,
+                 slot=interp_cuda.POOL_SLOT_DOUBLES, cap=1024, umax=64):
+    """The pieces [(u_a, u_b, window doubles or None)] of one pool tile as
+    K2 cuts them (csrc/interp_d5512.cu, pool_next): at most `cap` queries
+    and `umax` i1 entries, halved in u until the window of the piece's table
+    extremes, clipped to the family's valid range, fits `slot` (None: a
+    single i1 that does not fit, read from L2 with the rest of the tile)."""
+    taps, lo, hi = interp.KERNEL_FAMILIES[kern][2:5]
+    row, u0, v0, nu, nv = (int(v) for v in tile)
+    i1s, i2s = int(im[row, 0]), int(im[row, 1])
+    x2, y2 = xt[i2s + v0:i2s + v0 + nv], yt[i2s + v0:i2s + v0 + nv]
+    out, ua, end = [], u0, u0 + nu
+    while ua < end:
+        ub = min(end, ua + min(umax, max(cap // nv, 1)))
+        while True:
+            x1, y1 = xt[i1s + ua:i1s + ub], yt[i1s + ua:i1s + ub]
+            xs = (np.array([x1.min() - x2.max(), x1.max() - x2.min()]) * inv_scale + off_grid)
+            ys = (np.array([y1.min() - y2.max(), y1.max() - y2.min()]) * inv_scale + off_grid)
+            fx = max(np.floor(xs.min()), lo), min(np.floor(xs.max()), nx - hi - 1)
+            fy = max(np.floor(ys.min()), lo), min(np.floor(ys.max()), ny - hi - 1)
+            if fx[0] > fx[1] or fy[0] > fy[1]:
+                win = 0                     # no query of the piece on the grid
+                break
+            wx, wy = int(fx[1] - fx[0]) + taps, int(fy[1] - fy[0]) + taps
+            win = 3 + wy * (wx + 2)         # a spare double a row, nx's parity, shift
+            if win <= slot:
+                break
+            if ub - ua == 1:
+                win, ub = None, end
+                break
+            ub = ua + (ub - ua + 1) // 2
+        out.append((ua, ub, win))
+        ua = ub
+    return out
+
+
+def test_bench_plan_pool_windows_fit_a_slot(bench_plan):
+    """Every piece of every pool tile of the group stages its window in one
+    of K2's two slots (none is read from L2), and few tiles are cut: the
+    windows of the planner's tiles fit the budget the kernel assumes.  The
+    tiles that are one piece (their first piece, of at most 64 i1 and 1024
+    queries, holds the whole tile and its window fits) are found at once;
+    the others are cut as the kernel cuts them."""
+    p = bench_plan
+    _ks, imeta, _dmeta, tiles = p["rows"][0]
+    ny, nx = p["stacks"][0].shape[1:]
+    xt, yt, s, off = p["xt"], p["yt"], p["inv_scale"], p["off_grid"]
+    taps, lo, hi = interp.KERNEL_FAMILIES["D5512"][2:5]
+    t = tiles.astype(np.int64)
+    row, u0, v0, nu, nv = t.T
+    i1, i2 = imeta[row, 0].astype(np.int64) + u0, imeta[row, 1].astype(np.int64) + v0
+
+    def extremes(tab, start, n):
+        # min and max of tab[start:start + n] for every tile (n <= 64)
+        idx = start[:, None] + np.arange(64)
+        a = np.where(np.arange(64) < n[:, None], tab[np.minimum(idx, len(tab) - 1)], np.nan)
+        return np.nanmin(a, 1), np.nanmax(a, 1)
+
+    whole = nu <= np.minimum(64, np.maximum(1024 // nv, 1))
+    (x1a, x1b), (y1a, y1b) = extremes(xt, i1, np.minimum(nu, 64)), extremes(yt, i1,
+                                                                           np.minimum(nu, 64))
+    (x2a, x2b), (y2a, y2b) = extremes(xt, i2, nv), extremes(yt, i2, nv)
+    fxl = np.maximum(np.floor((x1a - x2b) * s + off), lo)
+    fxh = np.minimum(np.floor((x1b - x2a) * s + off), nx - hi - 1)
+    fyl = np.maximum(np.floor((y1a - y2b) * s + off), lo)
+    fyh = np.minimum(np.floor((y1b - y2a) * s + off), ny - hi - 1)
+    win = np.where((fxl > fxh) | (fyl > fyh), 0,
+                   3 + (fyh - fyl + taps) * (fxh - fxl + taps + 2))
+    one_piece = whole & (win <= interp_cuda.POOL_SLOT_DOUBLES)
+    cut = 0
+    for t_ in tiles[~one_piece]:
+        pieces = _pool_pieces(t_, imeta, xt, yt, s, off, ny, nx, "D5512")
+        assert all(w is not None and w <= interp_cuda.POOL_SLOT_DOUBLES for *_, w in pieces)
+        assert pieces[0][0] == t_[1] and pieces[-1][1] == t_[1] + t_[3]
+        cut += len(pieces) > 1
+    assert cut <= 0.02 * len(tiles), (cut, len(tiles))
+    # the fast path agrees with the kernel's cut on a few of its tiles
+    for t_ in tiles[one_piece][:: max(1, int(one_piece.sum()) // 20)]:
+        assert len(_pool_pieces(t_, imeta, xt, yt, s, off, ny, nx, "D5512")) == 1
+
+
+@pytest.mark.parametrize("kern", ["D5512", "G4460"])
+def test_bench_plan_b_windows_fit(bench_plan, kern):
+    """The floors of each i1's output lattice span at most b_window samples
+    on either axis, taps included: the window K2's B mode sizes its shared
+    memory for (interp_cuda.b_window) holds every i1 of the group."""
+    p = bench_plan
+    _ks, imeta, _dmeta, tiles = p["rows"][1]
+    n2f, s, off = p["n2f"], p["inv_scale"], p["off_grid"]
+    taps = interp.KERNEL_FAMILIES[kern][2]
+    wmax = interp_cuda.b_window(n2f, s, kern)
+    c = np.arange(n2f)
+    for r, u0, _v0, nu, _nv in tiles.astype(np.int64):
+        i1 = imeta[r, 0] + np.arange(u0, u0 + nu)
+        i2 = imeta[r, 1]
+        fx = np.floor((p["xt"][i1][:, None] - (p["xt"][i2] + c)) * s + off)
+        fy = np.floor((p["yt"][i1][:, None] - (p["yt"][i2] + c)) * s + off)
+        assert np.all(np.ptp(fx, axis=1) + taps <= wmax)
+        assert np.all(np.ptp(fy, axis=1) + taps <= wmax)
+
+
+def test_k2_source_defaults_match_the_planner():
+    """The kernel source's slot size and B run length are the planner's."""
+    from pathlib import Path
+
+    src = (Path(interp_cuda.__file__).parent.parent / "csrc" / "interp_d5512.cu").read_text()
+    assert f"constexpr int kPoolSlot = {interp_cuda.POOL_SLOT_DOUBLES};" in src
+    assert f"constexpr int kBRun = {interp_cuda.B_RUN};" in src
+
+
+def test_b_runs_cross_row_ends_as_one_tile_an_i1():
+    """A B rectangle cut into rows in the middle of an i1 (as the coadd cuts
+    it at CHUNK queries): its runs hold every query once, and the plain K2
+    on the runs equals the plain K2 on one tile an i1 (the tiles before
+    runs) bit for bit."""
+    rng = np.random.default_rng(14)
+    n2f, n_pad = 5, 40
+    m = n2f * n2f
+    L = 300
+    xt, yt = rng.uniform(20, 30, L), rng.uniform(20, 30, L)
+    p = np.arange(m)
+    xt[250:250 + m], yt[250:250 + m] = 3.0 + p % n2f, 4.0 + p // n2f
+    w1, chunk = 23, 2 * m + 7                 # rows end mid-i1
+    nq = w1 * m
+    offs = np.arange(0, nq, chunk)
+    nval = np.minimum(chunk, nq - offs)
+    rows = len(offs)
+    imeta = np.stack([np.full(rows, 10), np.full(rows, 250), np.full(rows, m), offs, nval],
+                     1).astype(np.int32)
+    dmeta = np.stack([np.zeros(rows), np.full(rows, 3), offs, nval], 1).astype(np.int32)
+    ks = rng.integers(0, 3, rows).astype(np.int32)
+    runs = interp_cuda.sweep_tiles(imeta, 1, xt, yt, n2f)
+    assert np.all(runs[:, 3] <= interp_cuda.B_RUN) and (runs[:, 3] > 1).any()
+    seen = []
+    for r, u0, v0, nu, nv in runs.astype(np.int64):
+        f = (np.arange(u0, u0 + nu)[:, None] * m + np.arange(v0, v0 + nv)).ravel()
+        seen.append(f[(f >= offs[r]) & (f < offs[r] + nval[r])])
+    np.testing.assert_array_equal(np.sort(np.concatenate(seen)), np.arange(nq))
+    nu = runs[:, 3].astype(np.int64)
+    rr = np.repeat(np.arange(len(runs)), nu)
+    u = runs[rr, 1] + np.arange(len(rr)) - np.repeat(np.cumsum(nu) - nu, nu)
+    one = np.stack([runs[rr, 0], u, np.zeros_like(u), np.ones_like(u),
+                    np.full_like(u, m)], 1).astype(np.int32)
+    combined = _t(rng.normal(size=(3, 64, 64)))
+    args = (combined, _t(xt), _t(yt), _t(ks), _t(imeta), _t(dmeta))
+    size = m * n_pad
+    got = interp_cuda.sweep_scatter_plain(torch.zeros(size, dtype=torch.float64), *args,
+                                          _t(runs), 1.7, 5.0, 1, n_pad, n2f, "G4460")
+    want = interp_cuda.sweep_scatter_plain(torch.zeros(size, dtype=torch.float64), *args,
+                                           _t(one), 1.7, 5.0, 1, n_pad, n2f, "G4460")
+    assert int((want != 0).sum()) > nq // 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kern", ["D5512", "G4460"])
+def test_b_layout_launches_every_lattice_of_the_one_i1_body(kern):
+    """Every (n2f, wmax) whose window the one-i1 B body (x and y taps, one
+    buffer of horizontal sums, a wmax x wmax window, the floors; 16 bytes
+    of static shared memory) fitted in a block's 232448 bytes fits the
+    run layouts too: where one i1 with two buffers does not fit, the
+    compact layout takes exactly that body's bytes."""
+    taps = interp.KERNEL_FAMILIES[kern][2]
+    pitch = {"D5512": 10, "G4460": 9}[kern]
+    n2f = np.arange(1, 161)[:, None]
+    wmax = np.arange(taps + 2, 261)[None, :]
+    body = 8 * (2 * n2f * pitch + wmax * n2f + wmax * wmax) + 8 * n2f
+    fits = np.argwhere(body + 16 <= 232448)
+    compact = 0
+    for a, b in fits:
+        n, w = int(n2f[a, 0]), int(wmax[0, b])
+        got = b_layout_bytes(n, w, taps, pitch)
+        assert got <= 232448, (n, w, got)
+        if n * (2 * pitch * 8 + 8) + 56 + 32 + 8 * (2 * w * n + (w * (w + 1) + 2 & ~1)) \
+                > 232448:
+            assert got == int(body[a, b]), (n, w)
+            compact += 1
+    assert compact > 100
+    # the lattices of the survey's defaults beyond the run layouts: n2f 54 at
+    # 2.13 samples an output pixel (oversampling 6) and n2f 44 at 2.84 (8)
+    for n, s in ((54, 2.13), (44, 2.84)):
+        w = interp_cuda.b_window(n, s, kern)
+        assert b_layout_bytes(n, w, taps, pitch) == \
+            8 * (2 * n * pitch + w * n + w * w) + 8 * n
+
+
+def test_b_runs_shorten_to_fill_the_card():
+    """With min_tiles, B runs are shortened until the launch has that many
+    tiles (one i1 a tile at the least), and every query still falls in
+    exactly one tile."""
+    n2f = 5
+    m = n2f * n2f
+    L = 200
+    rng = np.random.default_rng(7)
+    xt, yt = rng.uniform(0, 9, L), rng.uniform(0, 9, L)
+    xt[150:150 + m], yt[150:150 + m] = 1.0 + np.arange(m) % n2f, 2.0 + np.arange(m) // n2f
+    rows = 6
+    offs = np.zeros(rows, int)
+    nval = np.full(rows, 22 * m)
+    imeta = np.stack([np.full(rows, 3), np.full(rows, 150), np.full(rows, m), offs, nval],
+                     1).astype(np.int32)
+    for min_tiles, want_run in ((0, 8), (18, 8), (19, 7), (60, 2), (200, 1)):
+        t = interp_cuda.sweep_tiles(imeta, 1, xt, yt, n2f, min_tiles=min_tiles)
+        assert t[:, 3].max() == want_run, (min_tiles, t[:, 3].max())
+        assert len(t) >= min(min_tiles, rows * 22)
+        seen = np.sort(np.concatenate([r * 10 ** 6 + u0 + np.arange(nu)
+                                       for r, u0, _v0, nu, _nv in t.astype(np.int64)]))
+        np.testing.assert_array_equal(
+            seen, np.sort((np.arange(rows)[:, None] * 10 ** 6 + np.arange(22)).ravel()))
+    assert interp_cuda.b_min_tiles("cpu") == 0

@@ -19,6 +19,7 @@ import torch
 from pyimcom_tpu_torch import probe
 from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda, interp, interp_cuda
 from pyimcom_tpu_torch.ops.destripe_device import DestripeCost
+from k2_layout_torch import b_layout_bytes
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -809,32 +810,131 @@ def test_k1_g4460_valid_range_edges(cuda):
         assert _rel(got, want) < TOL
 
 
-@pytest.mark.parametrize("mode, spread", [(0, 20.0), (0, 120.0), (1, 20.0)],
-                         ids=["pool", "pool-l2", "B"])
-def test_k2_g4460_matches_plain(cuda, mode, spread):
-    """K2 in its G4460 form against its plain version, on the rows of
-    test_k2_matches_plain."""
-    size, args, tiles, nval = _k2_case(cuda, mode, spread)
+def _k2_special_case(cuda, case, kern):
+    """Seeded K2 launches on the paths the main path rarely takes.
+    'pool-pieces': one 32 x 32 tile whose i1 entries lie on a diagonal 100
+    samples long, so that its window outgrows a slot and the kernel cuts it
+    into pieces of fewer i1 (none from L2); 'pool-offgrid': rows whose
+    queries all fall off the image or whose image index is out of range
+    beside ordinary rows; 'pool-edges-nan': queries whose floors sit on both
+    sides of each edge of the family's valid range, and NaN table entries;
+    'B-row-ends': a B rectangle cut into rows in the middle of an i1, so
+    that runs of i1 start and end inside the lattice.  Returns (dst size,
+    the wrapper's arguments after dst, the tiles, the live query count)."""
+    rng = np.random.default_rng(50 + len(case))
+    K, ns = 3, 160 if case == "pool-pieces" else 96
+    lo, hi = (3, 4) if kern == "G4460" else (4, 5)
+    combined = torch.as_tensor(rng.normal(size=(K, ns, ns)), device=cuda)
+    mode = 1 if case.startswith("B") else 0
+    n2f, n_pad = 5, 40
+    m = n2f * n2f
+    L = 600
+    xt, yt = rng.uniform(10, 14, L), rng.uniform(10, 14, L)
+    inv_scale, off_grid = 1.0, 40.0
+    if case == "pool-pieces":
+        xt[:32] = np.linspace(-30, 110, 32)
+        yt[:32] = np.linspace(-30, 110, 32)
+        rows = [(0, 100, 32, 0, 32 * 32, 0)]
+    elif case == "pool-offgrid":
+        xt[200:240] += 300.0                        # these i1 fall off the image
+        rows = [(0, 100, 30, 0, 900, 0), (200, 100, 30, 0, 900, 1),
+                (300, 100, 30, 0, 900, K), (400, 100, 20, 5, 300, 2)]
+    elif case == "pool-edges-nan":
+        inv_scale, off_grid = 1.0, 0.0
+        edges = np.array([lo - 1, lo, lo + 1, ns - hi - 2, ns - hi - 1, ns - hi], float)
+        fx, fy = (a.ravel() for a in np.meshgrid(edges, edges))
+        xt[:fx.size], yt[:fx.size] = fx + 0.3, fy + 0.6
+        xt[100:104], yt[100:104] = [0.0, 0.25, 0.1, 0.05], [0.0, 0.1, 0.3, 0.2]
+        xt[7], yt[19], xt[102] = np.nan, np.nan, np.nan
+        rows = [(0, 100, 4, 0, fx.size * 4, 0), (0, 101, 3, 2, fx.size * 3 - 4, 1)]
+    else:
+        p = np.arange(m)
+        xt[500:500 + m], yt[500:500 + m] = 2.0 + p % n2f, 3.0 + p // n2f
+        chunk, w1 = 2 * m + 7, 23
+        nq = w1 * m
+        rows = [(10, 500, m, off, min(chunk, nq - off), int(rng.integers(0, K)))
+                for off in range(0, nq, chunk)]
+    imeta = np.array([(i1, i2, w2, off, nval) for i1, i2, w2, off, nval, _k in rows])
+    ks = np.array([k for *_r, k in rows])
+    if mode == 0:
+        base = np.concatenate([[0], np.cumsum([r[2] * (-(-(r[3] + r[4]) // r[2])) + r[2]
+                                               for r in rows])])[:-1]
+        dmeta = np.stack([base, imeta[:, 2], imeta[:, 2], imeta[:, 3], imeta[:, 4]], 1)
+        size = int(base[-1] + 2 * imeta[-1, 2] + imeta[-1, 3] + imeta[-1, 4])
+    else:
+        dmeta = np.stack([np.zeros(len(rows)), np.full(len(rows), 3), imeta[:, 3],
+                          imeta[:, 4]], 1)
+        size = m * n_pad
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=cuda)
+
+    tiles = interp_cuda.sweep_tiles(imeta, mode, xt, yt, n2f)
+    args = (combined, torch.as_tensor(xt, device=cuda), torch.as_tensor(yt, device=cuda),
+            put(ks), put(imeta), put(dmeta), put(tiles), inv_scale, off_grid, mode, n_pad, n2f)
+    return size, args, tiles, int(imeta[:, 4].sum())
+
+
+K2_CASES = ["pool", "pool-l2", "B", "pool-pieces", "pool-offgrid", "pool-edges-nan",
+            "B-row-ends"]
+
+
+@pytest.mark.parametrize("kern", ["G4460", "D5512"])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_k2_g4460_matches_plain(cuda, case, kern):
+    """K2 in its G4460 form (and its D5512 instance, the same template)
+    against its plain version: the rows of test_k2_matches_plain ('pool',
+    'pool-l2': a window over a slot for a single i1, read from L2; 'B') and
+    the paths of _k2_special_case -- a window over the ring's budget, cut
+    into pieces; tiles with no valid query; NaN and edge queries at the
+    valid range; runs of i1 that cross a row end in B mode.  The kernel's
+    zeros are the plain version's."""
+    if case in ("pool", "pool-l2", "B"):
+        mode, spread = {"pool": (0, 20.0), "pool-l2": (0, 120.0), "B": (1, 20.0)}[case]
+        size, args, tiles, nq = _k2_case(cuda, mode, spread)
+        nq = int(nq.sum())
+    else:
+        size, args, tiles, nq = _k2_special_case(cuda, case, kern)
+        mode = args[9]
+    other = "D5512" if kern == "G4460" else "G4460"
     interp_cuda.reset_launch_counts()
+    interp_cuda.reset_l2_tiles()
     got = interp_cuda.sweep_scatter(torch.zeros(size, dtype=torch.float64, device=cuda),
-                                    *args, kern="G4460")
-    assert interp_cuda.launches[interp_cuda.sweep_kernel("G4460", mode)] == 1
-    assert interp_cuda.launches[interp_cuda.sweep_kernel("D5512", mode)] == 0
+                                    *args, kern=kern)
+    l2 = interp_cuda.l2_tiles(cuda)
+    assert interp_cuda.launches[interp_cuda.sweep_kernel(kern, mode)] == 1
+    assert interp_cuda.launches[interp_cuda.sweep_kernel(other, mode)] == 0
     want = interp_cuda.sweep_scatter_plain(
-        torch.zeros(size, dtype=torch.float64, device=cuda), *args, kern="G4460")
-    assert int((want != 0).sum()) > int(nval.sum()) // 2
+        torch.zeros(size, dtype=torch.float64, device=cuda), *args, kern=kern)
+    torch.cuda.synchronize()
+    least = {"pool-offgrid": nq // 4, "pool-edges-nan": 30}.get(case, nq // 2)
+    assert int((want != 0).sum()) > least
     assert _rel(got, want) < TOL
+    assert torch.equal(got == 0, want == 0)
+    if mode == 0:
+        assert (0 < l2 <= len(tiles)) if case == "pool-l2" else l2 == 0, (case, l2)
+    if case == "pool-offgrid":
+        # the off-grid rows and the row of image K add nothing
+        assert int((want != 0).sum()) == 900 + 300
+    if case == "B-row-ends":
+        assert (tiles[:, 3] > 1).any() and len(tiles) > 1
 
 
 def test_b_shared_memory_follows_the_family(cuda):
-    """K2's B-mode shared memory, as the kernel library sizes it: x and y
-    tap sets at the family's pitch (10 doubles for D5512, 9 for G4460),
-    horizontal sums, the window and the int32 floors; a lattice whose
-    window outgrows the card's shared memory raises before any launch."""
-    for kern, pitch in (("D5512", 10), ("G4460", 9)):
-        w = interp_cuda.b_window(27, 2.18, kern)
-        assert interp_cuda.b_smem_bytes(27, w, kern) == \
-            8 * (2 * pitch * 27 + w * 27 + w * w) + 8 * 27
+    """K2's B-mode shared memory, as the kernel library sizes it
+    (k2_layout_torch.b_layout_bytes): x and y tap sets at the family's
+    pitch (10 doubles for D5512, 9 for G4460) for a run of i1, two buffers
+    of horizontal sums, the window, the int32 floors and the run's entries,
+    two blocks an SM or, for the large windows of a PSF sampled 8x (2.909
+    samples an output pixel), one; the compact layout of one i1 where that
+    does not fit (n2f 54 at 2.13, 44 at 2.84); a lattice whose window
+    outgrows the card's shared memory raises before any launch."""
+    for kern, taps, pitch in (("D5512", 10, 10), ("G4460", 8, 9)):
+        for n2f, scale in ((27, 2.18), (34, 2.13), (27, 2.909), (6, 1.7), (60, 2.5),
+                           (54, 2.13), (44, 2.84)):
+            w = interp_cuda.b_window(n2f, scale, kern)
+            assert interp_cuda.b_smem_bytes(n2f, w, kern) == \
+                b_layout_bytes(n2f, w, taps, pitch)
     size, args, _tiles, _nval = _k2_case(cuda, 1, 20.0)
     *head, inv_scale, off_grid, mode, n_pad, n2f = args
     interp_cuda.reset_launch_counts()
@@ -842,6 +942,56 @@ def test_b_shared_memory_follows_the_family(cuda):
         interp_cuda.sweep_scatter(torch.zeros(size, dtype=torch.float64, device=cuda),
                                   *head, 200.0, off_grid, mode, n_pad, n2f, kern="G4460")
     assert interp_cuda.launches[interp_cuda.sweep_kernel("G4460", 1)] == 0
+
+
+@pytest.mark.parametrize("kern", ["G4460", "D5512"])
+@pytest.mark.parametrize("n2f, scale", [(54, 2.13), (44, 2.84)], ids=["54-2.13", "44-2.84"])
+def test_k2_b_large_windows_match_plain(cuda, kern, n2f, scale):
+    """B mode on lattices whose one i1 does not fit beside two buffers of
+    horizontal sums (OUTSIZE n2 48 with FADE 3 at oversampling 6, and n2
+    38 at oversampling 8): the compact layout, with the bytes of the
+    one-i1 body, against the plain version; rows cut in the middle of an
+    i1."""
+    rng = np.random.default_rng(n2f)
+    m = n2f * n2f
+    K, ns, L, n_pad = 3, 200, 1000 + m, 40
+    lo = 1000
+    pitch, taps = {"D5512": (10, 10), "G4460": (9, 8)}[kern]
+    xt, yt = rng.uniform(0, 4, L), rng.uniform(0, 4, L)
+    p = np.arange(m)
+    xt[lo:], yt[lo:] = 5.0 + p % n2f, 6.0 + p // n2f
+    xt[:lo] += 5.0 + (n2f - 1) / 2 - 2
+    yt[:lo] += 6.0 + (n2f - 1) / 2 - 2
+    w1, chunk = 14, 3 * m + 101
+    nq = w1 * m
+    offs = np.arange(0, nq, chunk)
+    rows = len(offs)
+    imeta = np.stack([np.full(rows, 20), np.full(rows, lo), np.full(rows, m), offs,
+                      np.minimum(chunk, nq - offs)], 1)
+    dmeta = np.stack([np.zeros(rows), np.full(rows, 3), offs, imeta[:, 4]], 1)
+    ks = rng.integers(0, K, rows)
+    wmax = interp_cuda.b_window(n2f, scale, kern)
+    assert interp_cuda.b_smem_bytes(n2f, wmax, kern) == \
+        8 * (2 * n2f * pitch + wmax * n2f + wmax * wmax) + 8 * n2f
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=cuda)
+
+    tiles = interp_cuda.sweep_tiles(imeta, 1, xt, yt, n2f)
+    args = (torch.as_tensor(rng.normal(size=(K, ns, ns)), device=cuda),
+            torch.as_tensor(xt, device=cuda), torch.as_tensor(yt, device=cuda), put(ks),
+            put(imeta), put(dmeta), put(tiles), scale, 100.0, 1, n_pad, n2f)
+    size = m * n_pad
+    interp_cuda.reset_launch_counts()
+    got = interp_cuda.sweep_scatter(torch.zeros(size, dtype=torch.float64, device=cuda),
+                                    *args, kern=kern)
+    assert interp_cuda.launches[interp_cuda.sweep_kernel(kern, 1)] == 1
+    want = interp_cuda.sweep_scatter_plain(
+        torch.zeros(size, dtype=torch.float64, device=cuda), *args, kern=kern)
+    torch.cuda.synchronize()
+    assert int((want != 0).sum()) > nq // 2
+    assert _rel(got, want) < TOL
+    assert torch.equal(got == 0, want == 0)
 
 
 def test_fftconvolve_multi_card_matches_cpu(cuda):

@@ -1,8 +1,8 @@
 """pyimcom_tpu_torch stands alone: it never imports jax, and it imports
 nothing of the JAX package pyimcom_tpu (nor of the JAX-side test fixture
 survey_fixture), not even modules there that are jax-free; it keeps its
-own copies.  The same holds for chip_smoke.py, k4_variants.py and
-survey_fixture_torch."""
+own copies.  The same holds for chip_smoke.py, k4_variants.py,
+survey_fixture_torch and k2_layout_torch (which the card's tests import)."""
 
 import ast
 import pkgutil
@@ -63,11 +63,13 @@ def test_port_imports_without_jax(case):
 
 def _sources():
     """Every .py of the port (not its git-ignored build directory), the
-    chip smoke script, the K4 variant timer and the port's survey fixture."""
+    chip smoke script, the K4 variant timer, the port's survey fixture and
+    the K2 layout mirror of the card's tests."""
     port = [p for p in sorted(PKG.rglob("*.py"))
             if "_build" not in p.relative_to(PKG).parts[:-1]]
     return port + [REPO / "chip_smoke.py", REPO / "k4_variants.py",
-                   REPO / "tests" / "survey_fixture_torch.py"]
+                   REPO / "tests" / "survey_fixture_torch.py",
+                   REPO / "tests" / "k2_layout_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
