@@ -25,7 +25,9 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    interp_d5512_pr12.cu, interp_d5512.cu of commit 910c170, whose K2 entries
    take today's arguments), started together, with
    their ptxas register and spill lines and the atomic instructions in K4's
-   SASS (cuobjdump);
+   SASS (cuobjdump; none of f64 in the planned body); and, as
+   bilinear_tiled.cu, bilinear.cu of commit 28a3190 (the tiled K4 body with
+   its 11-argument entries, both position forms);
 2. probe: the probe entry point builds csrc/probe.cu and launches its
    kernel on an (8, 128) float32 tensor (its own path: counts reset before,
    read after);
@@ -179,7 +181,8 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    ``pyimcom_tpu_torch.imdestripe.main(cfg, maxiter=5)`` on the card (object
    mask and WCS gain on): the host map build and upload seconds, peak device
    memory, seconds per CG iteration, the cost before and after, the K3 / K4
-   launches, the K4 tiles that took the global route, one cost-and-gradient's
+   launches and the plan kernel's (two a pair), K4's launches by route and
+   its tiles off the planned route (none), one cost-and-gradient's
    device time and its kernels by name from one torch.profiler trace; the
    kernel route of the
    cost against its plain route (autograd through the plain gather) at zero
@@ -188,8 +191,16 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    against the clean files (tests/test_full_pipeline.py); then K3 and K4
    alone on the first pair (against their plain versions, their bounds,
    grid_sample and its input gradient as the library yardstick, and the
-   earlier revision's K4 where built; K4's tile, shared memory, registers
-   and its global-route tiles against predict_global_tiles); and the
+   earlier revisions' K4 where built, timed in turns with it; K4's plan --
+   r, bytes, the plan kernel's build ms beside its plain version's, the
+   plan held to that version word for word --, two launches bit for bit,
+   its registers and its tiles off the plan against predict_off_plan_tiles;
+   the off-plan body once on the library's work, a 1-D stream, against the
+   plain version, its tiles off the plan as predicted; what the plans cost
+   and save on the main path's K4 work, plan_economy); k4_synthetic: K4
+   on a synthetic 4088^2 pair rolled by 0 and 45 degrees (k4_variants.py's
+   inputs), both position forms, against its plain version, itself and,
+   where built, commit 28a3190's body, in turns; and the
    bench block coadded from the clean, striped and destriped inputs (each
    with its own input directory and layer cache): 16 stamps, finite maps,
    U/C medians equal to 1e-6, the destriped science nearer the clean one
@@ -211,7 +222,9 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    peaks; then K3 and K4's float32 forms alone on the first pair against
    their plain versions (1e-12 of scale), their float64 forms on the
    widened positions and grid_sample, with their bounds (8 bytes of
-   positions a query, not 16);
+   positions a query, not 16), K4's f32 form beside commit 28a3190's where
+   built, its plan and its repeats bit for bit; each route's K4 launches
+   by route and tiles off the plan (none);
 13. mosaic_chain (in .smoke_work/mosaic_chain/): ``pyimcom_tpu_torch.pipeline``
    as scripts/run_chained_pipeline.py's defaults run it, except --n-obs 6
    (4 F184 SCAs, 12 ordered pairs): a 2x2 mosaic of 8 x 8 stamps of 32
@@ -220,7 +233,8 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    (a forkserver pool), the four blocks, the halo exchange and compression:
    the seconds of every stage and the launches of K1-K4 in each (K3 and K4
    in destripe, K1 in layers, K1 and K2 in the coadd; the layer builds'
-   K1 launches are counted in the pool's workers); at least half of the
+   K1 launches are counted in the pool's workers), K4's tiles off the
+   planned route (none); at least half of the
    SCAs destriped by 2x in their row medians; every output map finite; the
    U/C median of every block < 1e-6; |SL1 - 1| < 5e-3 of the science star
    on block _00_01 (tests/test_full_pipeline.py's bound); every compressed
@@ -340,6 +354,11 @@ PARENTS = {
     "interp_d5512_pr12": ("910c170",
                           "25f3e11095a956b03d0a4d5981a1cf7be9b352b8bbb7152030364055459c3fa8",
                           ("sweep_d5512_scatter", "sweep_g4460_scatter")),
+    # K4 of commit 28a3190 (the tiled body: shared-memory boxes flushed with f64
+    # atomics into an output the caller zeroes), both position forms
+    "bilinear_tiled": ("28a3190",
+                      "55eb7ac10a8b81e32cbea6ea1f437220d6eac1f364890a34ea38f7e9f249fb66",
+                      ("bilinear_scatter_adjoint", "bilinear_scatter_adjoint_f32")),
 }
 PEAK_BYTES_S, PEAK_F64_S = 3.35e12, 67e12               # H100 SXM data sheet
 # one tap set of each family (Horner in fh^2: 19 operations a pair of taps,
@@ -648,8 +667,9 @@ def parent_entry(name, entry):
     (build_parent() checked the source), or None where PARENT_DIR does not
     hold it: K1 of commit 7671040 (one thread a query, each patch read from
     L1 / L2) and K4 of commit c560e0f (one thread a query, four f64
-    atomicAdds into device memory), both with 9 arguments, and K2 of commit
-    910c170 (both families), with today's 22 arguments."""
+    atomicAdds into device memory), both with 9 arguments, K2 of commit
+    910c170 (both families), with today's 22 arguments, and K4 of commit
+    28a3190 (the tiled body, both position forms), with 11."""
     import ctypes
 
     from pyimcom_tpu_torch.ops import interp_cuda
@@ -659,12 +679,17 @@ def parent_entry(name, entry):
     if entry not in PARENTS[name][2]:
         raise ValueError(f"{entry} is not an entry of {name}'s parent")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    argtypes = {"interp_d5512_dense": (p, i, i, i, p, p, ll, p, p),
-                "bilinear_scatter_adjoint": (p, p, i, i, p, p, ll, p, p),
-                "sweep_d5512_scatter": interp_cuda._K2_ARGS,
-                "sweep_g4460_scatter": interp_cuda._K2_ARGS}
+    # the tiled body's entries (both forms) take the query grid, not a count
+    tiled = (p, p, i, i, p, p, i, i, p, p, p)
+    argtypes = {("interp_d5512", "interp_d5512_dense"): (p, i, i, i, p, p, ll, p, p),
+                ("bilinear", "bilinear_scatter_adjoint"): (p, p, i, i, p, p, ll, p, p),
+                ("interp_d5512_pr12", "sweep_d5512_scatter"): interp_cuda._K2_ARGS,
+                ("interp_d5512_pr12", "sweep_g4460_scatter"): interp_cuda._K2_ARGS,
+                ("bilinear_tiled", "bilinear_scatter_adjoint"): tiled,
+                ("bilinear_tiled", "bilinear_scatter_adjoint_f32"): tiled}
     fn = getattr(ctypes.CDLL(str(parent_src(name).with_name(f"lib{name}_parent.so"))), entry)
-    fn.argtypes, fn.restype = argtypes[entry], ctypes.c_int
+    fn.argtypes = argtypes[name, entry]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -961,32 +986,145 @@ class capture_destripe:
             setattr(mod, name, fn)
 
 
-def bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build, reps=20):
+def same_plan(a, b):
+    """Whether two K4 plans (bilinear_cuda.AdjointPlan) are word for word
+    the same."""
+    return (all(getattr(a, k).equal(getattr(b, k)) for k in ("rows", "ptr", "spans"))
+            and (a.pairs, a.window, a.shape, a.grid) == (b.pairs, b.window, b.shape, b.grid))
+
+
+def k4_planned(torch, dev, v, x, y, gain, shape, plan, want, parents=None, reps=20):
+    """K4 over `plan` on these inputs (a fresh output): its error against the
+    plain result `want`, two launches bit for bit, its tiles off the plan
+    (none, as predict_off_plan_tiles says), the plan's r, bytes, incidences,
+    window and build ms (build_adjoint_plan on these positions: the plan
+    kernel), `plan` held word for word to the plain builder's plan
+    (`plan_equals_plain`) and that builder's ms on the card, and its
+    device time, timed in turns with each earlier body in `parents` ({name:
+    fn(out) that adds the adjoint into `out`}, run on a zero fill, which is
+    timed with it; their errors as `<name>_max_abs_err`, times as
+    `<name>_ms`)."""
+    from pyimcom_tpu_torch.ops import bilinear_cuda as bc
+
+    bc.reset_off_plan_tiles()
+    got = bc.bilinear_scatter_adjoint(v, x, y, shape, gain, plan=plan)
+    again = bc.bilinear_scatter_adjoint(v, x, y, shape, gain, plan=plan)
+    torch.cuda.synchronize()
+    rec = dict(max_abs_err=rel_err(torch, got, want),
+               repeat_bit_identical=bool(torch.equal(got, again)),
+               off_plan_tiles=bc.off_plan_tiles(dev),
+               predicted_off_plan_tiles=bc.predict_off_plan_tiles(x, y, shape),
+               tile=[bc.PLAN_TILE, bc.PLAN_TILE], band_rows=bc.PLAN_BAND, plan_r=plan.r,
+               plan_bytes=plan.nbytes, plan_pairs=plan.pairs, plan_window=plan.window,
+               plan_build_ms=median_ms(torch, lambda: bc.build_adjoint_plan(x, y, shape), 5),
+               plan_build_plain_ms=median_ms(
+                   torch, lambda: bc.build_adjoint_plan_plain(x, y, shape), 1),
+               plan_equals_plain=same_plan(plan, bc.build_adjoint_plan_plain(x, y, shape)))
+    del got, again
+    calls = {"": lambda: bc.bilinear_scatter_adjoint(v, x, y, shape, gain, plan=plan)}
+    out_p = torch.empty(shape, dtype=torch.float64, device=dev)
+    for name, fn in (parents or {}).items():
+        def call(fn=fn):
+            out_p.zero_()
+            fn(out_p)
+        call()
+        torch.cuda.synchronize()
+        rec[f"{name}_max_abs_err"] = rel_err(torch, out_p, want)
+        calls[name] = call
+    times = {k: [] for k in calls}
+    for order in (list(calls), list(reversed(calls))):
+        for k in order:
+            times[k] += device_times(torch, calls[k], reps // 2)
+    for k, ts in times.items():
+        rec[f"{k}_ms" if k else "ms"] = statistics.median(ts)
+    assert rec["max_abs_err"] < TOL and rec["repeat_bit_identical"], rec
+    assert rec["plan_equals_plain"], rec
+    assert rec["off_plan_tiles"] == rec["predicted_off_plan_tiles"] == 0, rec
+    for name in parents or {}:
+        assert rec[f"{name}_max_abs_err"] < TOL, (name, rec)
+    return rec
+
+
+def k4_stream(torch, dev, v, x, y, shape):
+    """K4's off-plan body (the port's own tiled body, which a 1-D stream
+    takes) once on these inputs, no gain: its error against the plain
+    version, its launches by route, and its tiles off the plan (each tile of
+    1 x 1024 queries holding one in bounds) against predict_off_plan_tiles."""
+    from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
+
+    routes = dict(bc.adjoint_routes)
+    bc.reset_off_plan_tiles()
+    got = bc.bilinear_scatter_adjoint(v, x, y, shape)
+    want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, shape)
+    torch.cuda.synchronize()
+    rec = dict(stream_max_abs_err=rel_err(torch, got, want),
+               stream_launches={k: bc.adjoint_routes[k] - routes[k] for k in routes},
+               stream_off_plan_tiles=bc.off_plan_tiles(dev),
+               stream_predicted_off_plan_tiles=bc.predict_off_plan_tiles(x, y, shape))
+    assert rec["stream_max_abs_err"] < TOL, rec
+    assert rec["stream_launches"] == {"planned": 0, "stream": 1}, rec
+    assert rec["stream_off_plan_tiles"] == rec["stream_predicted_off_plan_tiles"] > 0, rec
+    return rec
+
+
+def plan_kernel_record(k4, x, floor_ms):
+    """The plan kernel's record, from K4's record `k4` of the same positions
+    `x` (k4_planned: the kernel's build ms, its plain version's, the plan
+    held to it word for word): bounds of reading xf and yf once and writing
+    the plan once (its integer work is a few operations a query)."""
+    assert k4["plan_equals_plain"], k4
+    return dict(ms=k4["plan_build_ms"], plain_ms=k4["plan_build_plain_ms"], max_abs_err=0.0,
+                position_dtype=str(x.dtype).replace("torch.", ""), queries=x.numel(),
+                plan_bytes=k4["plan_bytes"],
+                **bounds(2 * x.element_size() * x.numel() + k4["plan_bytes"], 0, floor_ms))
+
+
+def tiled_body(torch, dev, fn, v, x, y, gain, shape):
+    """fn(out) running commit 28a3190's K4 entry `fn` (the tiled body, 11
+    arguments) on these inputs, adding into `out`; None without it."""
+    if fn is None:
+        return None
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    qny, qnx = x.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(out):
+        err = fn(v.data_ptr(), None if gain is None else gain.data_ptr(), shape[0], shape[1],
+                 x.data_ptr(), y.data_ptr(), qny, qnx, out.data_ptr(), counter.data_ptr(),
+                 stream)
+        assert err == 0, err
+    return run
+
+
+def bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build, parent_tiled=None, reps=20):
     """K3 and K4 on the first pair of a DestripeCost `dc` (the neighbour's
     image and gain at the pair map's positions, on the target's pixel grid
-    as the cost passes them): device times,
-    errors against the plain versions, bounds, and the library times of
-    torch.nn.functional.grid_sample (bilinear, zeros, align_corners=True)
+    as the cost passes them, K4 over the cost's plan of the pair): device
+    times, errors against the plain versions, bounds, and the library times
+    of torch.nn.functional.grid_sample (bilinear, zeros, align_corners=True)
     and of its input gradient, which compute the unweighted gather and its
     adjoint where 0 <= floor(x) <= nx - 2 and 0 <= floor(y) <= ny - 2: they
     are timed on the pair's points inside that region (`library_points`),
     and so is each kernel doing the library's work there, without a gain and
-    writing its result (`library_work_ms`; for K4 a 1-D stream).
+    writing its result (`library_work_ms`; for K4 a 1-D stream, the
+    off-plan body, first held to the plain version there: k4_stream).
     K3 runs as the main path runs it, adding into an accumulator; its bytes
     are x, y and the accumulator read and written (32 a query), the image and
-    the gain once; K4's the values, x and y (24 a query), the gain once and
-    the output written once.  Operations: GATHER_FLOP / ADJOINT_FLOP an
-    in-bounds query.  K4 also gets its tiling, its shared memory, its ptxas
-    registers and spills (`k4_build`), its global-route tiles on this pair
-    (equal to predict_global_tiles), and, where `parent_k4` is built, the
-    earlier revision's time and error on the same inputs, each timed with
-    its output's zero fill, alternately with the new K4."""
+    the gain once; K4's the values, x and y (24 a query), the plan, the gain
+    once and the output written once.  Operations: GATHER_FLOP /
+    ADJOINT_FLOP an in-bounds query.  K4 also gets k4_planned's record (its
+    plan, repeats, tiles off the plan), its ptxas registers, spills and SASS
+    atomics (`k4_build`), and, where built, the earlier revisions' times and
+    errors on the same inputs, each timed with its output's zero fill, in
+    turns with the new K4: commit c560e0f's (`parent_`) and commit
+    28a3190's (`tiled_`, the tiled body).  Returns the K3 and K4 records and
+    the plan kernel's (plan_kernel_record)."""
     import torch.nn.functional as F
 
     from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
 
     _i, j = dc.pairs[0]
-    img, gain, x, y = dc.imgs[j], dc.ge[j], dc.xf[0], dc.yf[0]
+    img, gain, x, y, plan = dc.imgs[j], dc.ge[j], dc.xf[0], dc.yf[0], dc.plans[0]
     ny, nx = img.shape
     n, npix = x.numel(), ny * nx
     inb = bilinear.in_bounds(x, y, (ny, nx))
@@ -995,9 +1133,6 @@ def bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build, reps=20):
     acc = torch.zeros(x.shape, dtype=torch.float64, device=dev)
     got3 = bc.bilinear_gather(img, x, y, gain, out=acc.clone())
     want3 = bilinear.bilinear_gather_plain(img, x, y, gain)
-    bc.reset_global_tiles()
-    got4 = bc.bilinear_scatter_adjoint(v, x, y, (ny, nx), gain)
-    global_tiles = bc.global_tiles(dev)
     want4 = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (ny, nx), gain)
     torch.cuda.synchronize()
     # the library on the points inside its region, in its normalised coordinates
@@ -1015,9 +1150,6 @@ def bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build, reps=20):
     def lib_adjoint():
         torch.autograd.grad(out_gs, inp, vs, retain_graph=True)
 
-    def k4():
-        bc.bilinear_scatter_adjoint(v, x, y, (ny, nx), gain)
-
     vflat = vs.reshape(-1)
     common = dict(pair=list(dc.pairs[0]), image=[ny, nx], queries=n, in_bounds=n_in,
                   library_points=n_in, library_vs_unweighted_K3=lib_err,
@@ -1030,42 +1162,70 @@ def bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build, reps=20):
               library_ms=median_ms(torch, lib_gather, reps),
               library_work_ms=median_ms(torch, lambda: bc.bilinear_gather(img, xs, ys), reps),
               **bounds(8 * (4 * n + 2 * npix), GATHER_FLOP * n_in, floor_ms))
-    k4_times = device_times(torch, k4, reps)
-    k4_rec = dict(common, mode="gain, (ny, nx) query grid",
-                  max_abs_err=rel_err(torch, got4, want4),
-                  tile=list(bc.adjoint_tile(bc.query_grid(x)[0])), box_cap=bc.ADJOINT_BOX_CAP,
-                  shared_bytes=8 * bc.ADJOINT_BOX_CAP, **k4_build,
-                  global_tiles=global_tiles,
-                  predicted_global_tiles=bc.predict_global_tiles(x, y, (ny, nx)))
-    assert k4_rec["global_tiles"] == k4_rec["predicted_global_tiles"], k4_rec
+    parents = {}
     if parent_k4 is not None:
-        out_p = torch.empty((ny, nx), dtype=torch.float64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
-        def parent():
-            out_p.zero_()
+        def parent(out):
             err = parent_k4(v.data_ptr(), gain.data_ptr(), ny, nx, x.data_ptr(), y.data_ptr(),
-                            n, out_p.data_ptr(), stream)
+                            n, out.data_ptr(), stream)
             assert err == 0, err
-        parent()
-        torch.cuda.synchronize()
-        k4_rec["parent_max_abs_err"] = rel_err(torch, out_p, want4)
-        assert k4_rec["parent_max_abs_err"] < TOL, k4_rec
-        parent_times = device_times(torch, parent, reps)
-        k4_times += device_times(torch, k4, reps)
-        parent_times += device_times(torch, parent, reps)
-        k4_rec["parent_ms"] = statistics.median(parent_times)
-    k4_rec.update(ms=statistics.median(k4_times),
-                  plain_ms=median_ms(torch, lambda: bilinear.bilinear_scatter_adjoint_plain(
+        parents["parent"] = parent
+    if parent_tiled is not None:
+        parents["tiled"] = tiled_body(torch, dev, parent_tiled, v, x, y, gain, (ny, nx))
+    k4_rec = dict(common, mode="gain, (ny, nx) query grid, planned", **k4_build,
+                  **k4_planned(torch, dev, v, x, y, gain, (ny, nx), plan, want4, parents, reps))
+    # the off-plan body on the library's work (a 1-D stream), held to the
+    # plain version before it is timed there
+    k4_rec.update(k4_stream(torch, dev, vflat, xs, ys, (ny, nx)))
+    k4_rec.update(plain_ms=median_ms(torch, lambda: bilinear.bilinear_scatter_adjoint_plain(
                       v, x, y, (ny, nx), gain), 3),
                   library_ms=median_ms(torch, lib_adjoint, reps),
                   library_work_ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(
                       vflat, xs, ys, (ny, nx)), reps),
-                  **bounds(8 * (3 * n + 2 * npix), ADJOINT_FLOP * n_in, floor_ms))
+                  **bounds(8 * (3 * n + 2 * npix) + plan.nbytes, ADJOINT_FLOP * n_in, floor_ms))
     k4_rec["share_of_roofline"] = k4_rec["roofline_ms"] / k4_rec["ms"]
     for rec in (k3, k4_rec):
         assert rec["max_abs_err"] < TOL, rec
-    return k3, k4_rec
+    return k3, k4_rec, plan_kernel_record(k4_rec, x, floor_ms)
+
+
+def phase_k4_synthetic(torch, dev, floor_ms, parent_tiled, reps=10):
+    """K4 on k4_variants.py's synthetic 4088^2 pair (the target's pixels
+    rolled by 0 and 45 degrees about the centre and shifted; seeded values
+    and a gain in [0.5, 2] made on the card), with float64 positions and
+    their float32 rounding, over the plan of each: k4_planned's record
+    beside commit 28a3190's body (both forms) where built, and its bounds."""
+    from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
+
+    n = 4088
+    gen = torch.Generator(device=dev).manual_seed(20261017)
+    gain = 0.5 + 1.5 * torch.rand((n, n), generator=gen, dtype=torch.float64, device=dev)
+    v = torch.randn((n, n), generator=gen, dtype=torch.float64, device=dev)
+    yy, xx = torch.meshgrid(torch.arange(n, dtype=torch.float64, device=dev) - n / 2,
+                            torch.arange(n, dtype=torch.float64, device=dev) - n / 2,
+                            indexing="ij")
+    out = {}
+    for roll in (0, 45):
+        th = np.deg2rad(roll)
+        x64 = (np.cos(th) * xx - np.sin(th) * yy + n / 2 + 300.3).contiguous()
+        y64 = (np.sin(th) * xx + np.cos(th) * yy + n / 2 - 200.7).contiguous()
+        for form, (x, y) in (("f64", (x64, y64)), ("f32", (x64.float(), y64.float()))):
+            fn = (parent_tiled or {}).get(form)
+            plan = bc.build_adjoint_plan(x, y, (n, n))
+            want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (n, n), gain)
+            parents = {} if fn is None else {"tiled": tiled_body(torch, dev, fn, v, x, y, gain,
+                                                                (n, n))}
+            n_in = int(bilinear.in_bounds(x, y, (n, n)).sum())
+            rec = dict(queries=n * n, in_bounds=n_in,
+                       **k4_planned(torch, dev, v, x, y, gain, (n, n), plan, want, parents,
+                                    reps),
+                       **bounds((8 + 2 * x.element_size()) * n * n + 16 * n * n + plan.nbytes,
+                                ADJOINT_FLOP * n_in, floor_ms))
+            out[f"roll{roll}/{form}"] = rec
+            del want
+    emit({"phase": "k4_synthetic", "criterion": TOL, "image": [n, n], **out})
+    return out
 
 
 def trace_kernels(torch, fn, top=12):
@@ -1146,14 +1306,16 @@ def destripe_inputs(root, raw, dsdir, variant):
     return vin
 
 
-def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
+def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build, parent_tiled=None):
     """imdestripe.main on 3 striped F184 SCAs at 4088^2 (6 ordered pairs)
     with 5 CG iterations, object mask and WCS gain on; K3 and K4 at the
-    phase's shapes; the kernel route of the cost against the plain route;
-    the same maps in other storages (phase_destripe_storage); then the
-    bench block coadded from the clean, striped and destriped inputs.
-    Returns (K3, K4 records, the main path's launches, the storage phase's
-    (K3 f32, K4 f32 records, their launches))."""
+    phase's shapes (and K4 on the synthetic pairs, phase_k4_synthetic);
+    the kernel route of the cost against the plain route; the same maps in
+    other storages (phase_destripe_storage); then the bench block coadded
+    from the clean, striped and destriped inputs.  `parent_tiled`: commit
+    28a3190's K4 entries by form, or None.  Returns (K3, K4 records, the
+    main path's launches, the storage phase's (K3 f32, K4 f32 records, their
+    launches))."""
     from pyimcom_tpu_torch import imdestripe
     from pyimcom_tpu_torch.bench import quality_check
     from pyimcom_tpu_torch.config import Config
@@ -1172,21 +1334,31 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     bilinear_cuda.reset_launch_counts()
-    bilinear_cuda.reset_global_tiles()
+    bilinear_cuda.reset_off_plan_tiles()
     t0 = time.perf_counter()
     with capture_destripe() as cap:
         params, history = imdestripe.main(Config(d), maxiter=5)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = dict(bilinear_cuda.launches)
-    global_tiles = bilinear_cuda.global_tiles(dev)
+    k4_routes = dict(bilinear_cuda.adjoint_routes)
+    off_plan = bilinear_cuda.off_plan_tiles(dev)
     peak = torch.cuda.max_memory_allocated(dev)
     # imdestripe.main stores its maps at float64 on the card: the f64 forms
     assert launches["bilinear_gather"] > 0 and launches["bilinear_scatter_adjoint"] > 0, launches
     assert launches["bilinear_gather.f32"] == launches["bilinear_scatter_adjoint.f32"] == 0
+    # every K4 launch over its pair's plan, no tile off it
+    assert k4_routes == {"planned": launches["bilinear_scatter_adjoint"], "stream": 0}, k4_routes
+    assert off_plan == 0, off_plan
     prob = cap.problem
     dc = prob.device_cost
     assert len(dc.pairs) == 6 and dc.imgs.shape == (3, 4088, 4088), (dc.pairs, dc.imgs.shape)
+    # a plan a pair, by the plan kernel (two passes)
+    assert launches["bilinear_adjoint_plan"] == 2 * len(dc.pairs), launches
+    assert launches["bilinear_adjoint_plan.f32"] == 0, launches
+    plans = {"r": [pl.r for pl in dc.plans], "bytes": [pl.nbytes for pl in dc.plans],
+             "pair_f32_map_bytes": 2 * 4 * dc.ny * dc.nx}
+    assert max(plans["bytes"]) < 0.01 * plans["pair_f32_map_bytes"], plans
 
     cost0 = prob.cost(np.zeros_like(params))
     ts = [h["t"] for h in history]
@@ -1217,7 +1389,7 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
           "cg_iterations": len(history),
           "cg_iter_s": [b - a for a, b in zip([0.0] + ts[:-1], ts)],
           "cost_start": cost0, "cost_end": history[-1]["cost"], "launches": launches,
-          "K4_global_route_tiles": global_tiles,
+          "K4_routes": k4_routes, "K4_off_plan_tiles": off_plan, "K4_plans": plans,
           "cost_and_grad_device_ms": cg_ms, "cost_and_grad_host_s": cg_host_s,
           "cost_and_grad_trace": trace if trace is not None else "not measured",
           "routes": routes, "row_median_std": quality, "improved": improved})
@@ -1225,11 +1397,15 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     assert improved >= len(quality) // 2, quality
 
     # ---- K3 and K4 alone at the phase's shapes ----
-    k3, k4 = bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build)
-    emit({"phase": "bilinear_kernels", "criterion": TOL, "K3": k3, "K4": k4})
+    k3, k4, plan_rec = bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build,
+                                        None if parent_tiled is None else parent_tiled["f64"])
+    emit({"phase": "bilinear_kernels", "criterion": TOL, "K3": k3, "K4": k4,
+          "K4_plan": plan_rec, "K4_plan_economy": plan_economy(k4, launches, len(dc.pairs))})
+    phase_k4_synthetic(torch, dev, floor_ms, parent_tiled)
+    torch.cuda.empty_cache()
 
     # ---- the same maps at float32, on the card and streamed ----
-    storage = phase_destripe_storage(torch, dev, prob, p_rand, floor_ms)
+    storage = phase_destripe_storage(torch, dev, prob, p_rand, floor_ms, parent_tiled)
     del cap.problem, prob, dc
     torch.cuda.empty_cache()
 
@@ -1257,7 +1433,25 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build):
     assert all(r["stamps"] == 16 and r["finite"] for r in runs.values()), runs
     assert max(uc) - min(uc) <= 1e-6 * min(uc), uc
     assert rms["destriped"] < rms["striped"], rms
-    return k3, k4, launches, storage
+    return k3, k4, plan_rec, launches, storage
+
+
+def plan_economy(k4, launches, pairs):
+    """What the plans cost and save on the main path's K4 work, from this
+    run's first-pair times (K4 over its plan and the tiled body of commit
+    28a3190 in turns, the plan kernel's build) and its launches: K4's device
+    ms before (every launch at the tiled body's time) and after (at the
+    planned time, plus a plan a pair), and the gradients a pair at which a
+    plan pays for itself; None without the tiled body."""
+    if "tiled_ms" not in k4:
+        return None
+    saving = k4["tiled_ms"] - k4["ms"]
+    n = launches["bilinear_scatter_adjoint"]
+    return dict(k4_launches=n, pairs=pairs, gradients_per_pair=n / pairs,
+                plan_build_ms=k4["plan_build_ms"], saving_per_launch_ms=saving,
+                break_even_gradients=k4["plan_build_ms"] / saving if saving > 0 else None,
+                k4_ms_before=n * k4["tiled_ms"],
+                k4_ms_after=n * k4["ms"] + pairs * k4["plan_build_ms"])
 
 
 def destripe_cost_like(prob, xf, yf, dev, **kw):
@@ -1276,13 +1470,15 @@ def destripe_cost_like(prob, xf, yf, dev, **kw):
                                 for i, s in enumerate(prob.scas)], device=dev, **kw)
 
 
-def phase_destripe_storage(torch, dev, prob, p_rand, floor_ms):
+def phase_destripe_storage(torch, dev, prob, p_rand, floor_ms, parent_tiled=None):
     """The destripe phase's 6 pair maps in three storages (f64 / device,
-    f32 / device, f32 / host): each route's memory, time and launches by
-    form, the f32 routes held to the f64 route on the same (widened)
-    positions, what the rounding to float32 changes, what each route fits
-    on the card; then K3 / K4's float32 forms alone.  Returns (the K3 and
-    K4 f32 records, the launches of the f32 routes' cost-and-gradients)."""
+    f32 / device, f32 / host): each route's memory, time, launches by form
+    and K4's by route (every one over a plan, no tile off it), the f32
+    routes held to the f64 route on the same (widened) positions, what the
+    rounding to float32 changes, what each route fits on the card; then K3 /
+    K4's float32 forms alone (K4 beside commit 28a3190's where
+    `parent_tiled` holds it).  Returns (the K3 and K4 f32 records, the
+    launches of the f32 routes' cost-and-gradients)."""
     from pyimcom_tpu_torch.imdestripe import to_memmap
     from pyimcom_tpu_torch.ops import bilinear_cuda
 
@@ -1307,7 +1503,8 @@ def phase_destripe_storage(torch, dev, prob, p_rand, floor_ms):
     p_np = p_rand.cpu().numpy()
     cost64, grad64 = prob.cost_and_grad(p_np)
     routes, costs = {}, {}
-    f32_launches = {"bilinear_gather.f32": 0, "bilinear_scatter_adjoint.f32": 0}
+    f32_launches = {"bilinear_gather.f32": 0, "bilinear_scatter_adjoint.f32": 0,
+                    "bilinear_adjoint_plan.f32": 0}
     for name, xs, ys, kw in (("f64/device", *wide, {}),
                              ("f32/device", x32, y32, dict(map_dtype="f32")),
                              ("f32/host", *mm, dict(map_dtype="f32", map_store="host"))):
@@ -1315,35 +1512,48 @@ def phase_destripe_storage(torch, dev, prob, p_rand, floor_ms):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         before = torch.cuda.memory_allocated(dev)
+        bilinear_cuda.reset_launch_counts()
         t0 = time.perf_counter()
         c = costs[name] = destripe_cost_like(prob, xs, ys, dev, **kw)
         torch.cuda.synchronize(dev)
         build_s = time.perf_counter() - t0
+        form = ".f32" if "f32" in name else ""
+        # a plan a pair, by the plan kernel's form for these maps
+        plan_launches = bilinear_cuda.launches["bilinear_adjoint_plan" + form]
+        assert plan_launches == 2 * P, (name, bilinear_cuda.launches)
+        if form:
+            f32_launches["bilinear_adjoint_plan.f32"] += plan_launches
         resident = torch.cuda.memory_allocated(dev) - before
         build_peak = torch.cuda.max_memory_allocated(dev) - before
         torch.cuda.reset_peak_memory_stats(dev)
         bilinear_cuda.reset_launch_counts()
+        bilinear_cuda.reset_off_plan_tiles()
         host_s = []
         for _ in range(3):
             t0 = time.perf_counter()
             cost, grad = c.cost_and_grad(p_np)
             host_s.append(time.perf_counter() - t0)
         if name != "f64/device":
-            for k in f32_launches:
+            for k in ("bilinear_gather.f32", "bilinear_scatter_adjoint.f32"):
                 f32_launches[k] += bilinear_cuda.launches[k]
         launches = {k: v // 3 for k, v in bilinear_cuda.launches.items()}
+        k4_routes = {k: v // 3 for k, v in bilinear_cuda.adjoint_routes.items()}
+        off_plan = bilinear_cuda.off_plan_tiles(dev)
         cost_peak = torch.cuda.max_memory_allocated(dev) - before
         peak = max(build_peak, cost_peak)
-        form = ".f32" if "f32" in name else ""
         assert launches[f"bilinear_gather{form}"] == P, (name, launches)
         assert launches[f"bilinear_scatter_adjoint{form}"] == P, (name, launches)
-        rec = dict(build_s=build_s, resident_GiB=resident / 2 ** 30, peak_GiB=peak / 2 ** 30,
-                   peak_bytes=peak, resident_bytes=resident, build_peak_bytes=build_peak,
+        assert k4_routes == {"planned": P, "stream": 0} and off_plan == 0, (name, k4_routes,
+                                                                            off_plan)
+        rec = dict(build_s=build_s, plan_launches=plan_launches,
+                   resident_GiB=resident / 2 ** 30, peak_GiB=peak / 2 ** 30, peak_bytes=peak,
+                   resident_bytes=resident, build_peak_bytes=build_peak,
                    cost_peak_bytes=cost_peak, cost_and_grad_host_s=statistics.median(host_s),
                    cost_and_grad_device_ms=statistics.median(device_times(
                        torch, lambda c=c: c.value_and_grad(p_rand), 5,
                        sleep=20 * SLEEP_CYCLES)),
-                   launches_per_cost_and_grad=launches, cost=cost)
+                   launches_per_cost_and_grad=launches, K4_routes_per_cost_and_grad=k4_routes,
+                   K4_off_plan_tiles=off_plan, cost=cost)
         if c.maps is not None:
             # each map a view of its file, in pageable memory
             assert all(t.data_ptr() == a.ctypes.data and not t.is_pinned()
@@ -1381,12 +1591,17 @@ def phase_destripe_storage(torch, dev, prob, p_rand, floor_ms):
             fits[name] = dict(per_sca_bytes=per_sca, per_pair_bytes=pb,
                               scas_at_2_pairs_each=int(total // (per_sca + 2 * pb)),
                               pairs_beside_3_scas=int((total - 3 * per_sca) // pb))
-    k3, k4 = bilinear_f32_records(torch, dev, costs["f32/device"], floor_ms)
+    k3, k4, plan_rec = bilinear_f32_records(
+        torch, dev, costs["f32/device"], floor_ms,
+        None if parent_tiled is None else parent_tiled["f32"])
     emit({"phase": "destripe_storage", "pairs": P, "scas": S, "image": [ny, nx],
           "host_maps_s": host_maps_s, "routes": routes,
           "pair_map_bytes": pair_bytes, "f32_device_minus_host_peak_bytes": gap,
           "fits_on_card": fits, "card_bytes": total, "f32_rounding": rounding,
-          "kernels": {"K3_f32": k3, "K4_f32": k4}})
+          "kernels": {"K3_f32": k3, "K4_f32": k4, "K4_plan_f32": plan_rec},
+          "K4_plan_economy_f32": plan_economy(
+              k4, {"bilinear_scatter_adjoint": f32_launches["bilinear_scatter_adjoint.f32"]},
+              2 * P)})
     for name, rec in routes.items():
         if name != "f64/device":
             assert rec["vs_f64_device"]["cost_rel"] < 1e-12, (name, rec)
@@ -1395,10 +1610,10 @@ def phase_destripe_storage(torch, dev, prob, p_rand, floor_ms):
     assert gap >= 4 * pair_bytes["f32"], (gap, pair_bytes)
     del costs, mm
     shutil.rmtree(mdir)
-    return k3, k4, f32_launches
+    return k3, k4, plan_rec, f32_launches
 
 
-def bilinear_f32_records(torch, dev, dc, floor_ms, reps=20):
+def bilinear_f32_records(torch, dev, dc, floor_ms, parent_tiled=None, reps=20):
     """K3 and K4's float32 forms on the first pair of a float32 on-card
     DestripeCost `dc`: device times against their plain versions (1e-12 of
     scale), their float64 forms on the widened positions, and grid_sample
@@ -1409,14 +1624,19 @@ def bilinear_f32_records(torch, dev, dc, floor_ms, reps=20):
     its region, no gain, its result written, as the float64 record's).
     Bytes: K3 reads x and y (8 a query) and the accumulator and writes it
     (16), the image and the gain once; K4 reads the values (8) and x and y
-    (8), the gain once and writes the output once; operations as the
-    float64 forms'."""
+    (8), its plan, the gain once and writes the output once; operations as
+    the float64 forms'.  K4 runs over the cost's plan of the pair, with
+    k4_planned's record, beside commit 28a3190's f32 entry
+    (`parent_tiled`, the tiled body) where built; the off-plan body's f32
+    form on the library's work, held to the plain version (k4_stream) and
+    timed (`library_work_ms`).  Returns the K3 and K4 records and the plan
+    kernel's (plan_kernel_record)."""
     import torch.nn.functional as F
 
     from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
 
     _i, j = dc.pairs[0]
-    img, gain, x, y = dc.imgs[j], dc.ge[j], dc.xf[0], dc.yf[0]
+    img, gain, x, y, plan = dc.imgs[j], dc.ge[j], dc.xf[0], dc.yf[0], dc.plans[0]
     assert x.dtype == torch.float32, x.dtype
     x64, y64 = x.double(), y.double()
     ny, nx = img.shape
@@ -1428,9 +1648,6 @@ def bilinear_f32_records(torch, dev, dc, floor_ms, reps=20):
     got3 = bc.bilinear_gather(img, x, y, gain, out=acc.clone())
     want3 = bilinear.bilinear_gather_plain(img, x, y, gain)
     same3 = bool(torch.equal(got3, bc.bilinear_gather(img, x64, y64, gain, out=acc.clone())))
-    bc.reset_global_tiles()
-    got4 = bc.bilinear_scatter_adjoint(v, x, y, (ny, nx), gain)
-    global_tiles = bc.global_tiles(dev)
     want4 = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (ny, nx), gain)
     xs, ys, vs = x64[inb], y64[inb], v[inb].reshape(1, 1, 1, -1)
     xs32, ys32 = x[inb], y[inb]
@@ -1456,23 +1673,27 @@ def bilinear_f32_records(torch, dev, dc, floor_ms, reps=20):
               library_ms=median_ms(torch, lib_gather, reps),
               library_work_ms=median_ms(torch, lambda: bc.bilinear_gather(img, xs32, ys32), reps),
               **bounds(24 * n + 16 * npix, GATHER_FLOP * n_in, floor_ms))
-    k4 = dict(common, mode="gain, (ny, nx) query grid", max_abs_err=rel_err(torch, got4, want4),
-              global_tiles=global_tiles,
-              predicted_global_tiles=bc.predict_global_tiles(x, y, (ny, nx)),
-              ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(v, x, y, (ny, nx), gain),
-                           reps),
+    parents = ({} if parent_tiled is None else
+               {"tiled": tiled_body(torch, dev, parent_tiled, v, x, y, gain, (ny, nx))})
+    plan64 = bc.build_adjoint_plan(x64, y64, (ny, nx))
+    vflat = vs.reshape(-1)
+    k4 = dict(common, mode="gain, (ny, nx) query grid, planned",
+              **k4_planned(torch, dev, v, x, y, gain, (ny, nx), plan, want4, parents, reps),
+              **k4_stream(torch, dev, vflat, xs32, ys32, (ny, nx)),
               f64_form_ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(
-                  v, x64, y64, (ny, nx), gain), reps),
+                  v, x64, y64, (ny, nx), gain, plan=plan64), reps),
+              library_work_ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(
+                  vflat, xs32, ys32, (ny, nx)), reps),
               plain_ms=median_ms(torch, lambda: bilinear.bilinear_scatter_adjoint_plain(
                   v, x, y, (ny, nx), gain), 3),
               library_ms=median_ms(torch, lambda: torch.autograd.grad(
                   out_gs, inp, vs, retain_graph=True), reps),
-              **bounds(16 * n + 16 * npix, ADJOINT_FLOP * n_in, floor_ms))
+              **bounds(16 * n + 16 * npix + plan.nbytes, ADJOINT_FLOP * n_in, floor_ms))
     for rec in (k3, k4):
         rec["share_of_roofline"] = rec["roofline_ms"] / rec["ms"]
         assert rec["max_abs_err"] < TOL, rec
-    assert same3 and k4["global_tiles"] == k4["predicted_global_tiles"], (k3, k4)
-    return k3, k4
+    assert same3, k3
+    return k3, k4, plan_kernel_record(k4, x, floor_ms)
 
 
 def phase_mosaic_chain():
@@ -1485,16 +1706,22 @@ def phase_mosaic_chain():
 
     interp_cuda.reset_launch_counts()
     bilinear_cuda.reset_launch_counts()
+    bilinear_cuda.reset_off_plan_tiles()
     res = pipeline.run(WORK / "mosaic_chain", n_obs=6, report=False)
     in_process = {**interp_cuda.launches, **bilinear_cuda.launches}
+    k4_routes = dict(bilinear_cuda.adjoint_routes)
+    off_plan = bilinear_cuda.off_plan_tiles("cuda:0")
     finite = {Path(p).name: all(bool(np.all(np.isfinite(np.asarray(h.data))))
                                 for h in fits_read(p) if getattr(h, "data", None) is not None
                                 and np.asarray(h.data).dtype.kind in "fiu")
               for p in res["coadd_block_s"]}
     emit({"phase": "mosaic_chain", **res, "launches_in_process": in_process,
+          "K4_routes": k4_routes, "K4_off_plan_tiles": off_plan,
           "finite": finite, "report": "left out: the card's machine has no matplotlib"})
     st = res["launches"]
     assert st["destripe"]["bilinear_gather"] > 0 and st["destripe"]["bilinear_scatter_adjoint"] > 0
+    assert k4_routes["stream"] == 0 and k4_routes["planned"] > 0 and off_plan == 0, \
+        (k4_routes, off_plan)
     assert st["layers"]["interp_d5512_dense"] > 0, st["layers"]
     assert all(st["coadd"][k] > 0 for k in family_kernels("D5512")), st["coadd"]
     assert res["destriped_2x"] >= len(res["destripe_row_median_std"]) // 2
@@ -2672,6 +2899,10 @@ def main(argv=None):
     _build.library("bilinear")
     parent = parent_entry("interp_d5512", "interp_d5512_dense")
     parent_k4 = parent_entry("bilinear", "bilinear_scatter_adjoint")
+    parent_tiled = {form: parent_entry("bilinear_tiled", "bilinear_scatter_adjoint" + sfx)
+                   for form, sfx in (("f64", ""), ("f32", "_f32"))}
+    if None in parent_tiled.values():
+        parent_tiled = None
     parent_k2 = {kern: parent_entry("interp_d5512_pr12", entry)
                  for kern, entry in (("D5512", "sweep_d5512_scatter"),
                                      ("G4460", "sweep_g4460_scatter"))}
@@ -2680,6 +2911,13 @@ def main(argv=None):
     k4_build = {"ptxas": {k: v for k, v in ptxas_entries(reports["bilinear"]).items()
                           if "adjoint" in k},
                 "sass_atomics": sass_atomics(_build.library_path("bilinear"), "adjoint")}
+    if parent_tiled is not None:
+        k4_build["tiled_ptxas"] = {k: v for k, v in ptxas_entries(
+            reports["bilinear_tiled_parent"]).items() if "adjoint" in k}
+    # the planned body: 32-bit shared atomics (its cell counts), none of f64
+    planned = {f: ops for f, ops in k4_build["sass_atomics"].items() if "planned" in f}
+    assert len(planned) == 2 and not any("64" in op or "CAS" in op
+                                         for ops in planned.values() for op in ops), planned
     emit({"phase": "build", "gpu": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in r.splitlines()
@@ -2871,8 +3109,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # ---- 12. destriping, from imdestripe.main to the coadd ------------------------
-    k3, k4, ds_launches, (k3_32, k4_32, f32_launches) = phase_destripe(
-        torch, dev, floor_ms, parent_k4, k4_build)
+    k3, k4, plan64, ds_launches, (k3_32, k4_32, plan32, f32_launches) = phase_destripe(
+        torch, dev, floor_ms, parent_k4, k4_build, parent_tiled)
     torch.cuda.empty_cache()
 
     # ---- 13. the chained 2x2 mosaic, from destripe to compression -----------
@@ -2945,10 +3183,20 @@ def main(argv=None):
     summary.append(line("bilinear_scatter_adjoint.f32", bil, "pyimcom_tpu/ops/bilinear.py:61",
                         f32_launches["bilinear_scatter_adjoint.f32"], k4_32["max_abs_err"],
                         k4_32, k4_32["library_ms"]))
+    # the plan kernel: launches of the destripe main path (f64 maps) and of
+    # the storage phase's float32 routes' cost builds, times on the first pair
+    summary.append(line("bilinear_adjoint_plan", bil, "pyimcom_tpu/ops/bilinear.py:61",
+                        ds_launches["bilinear_adjoint_plan"], plan64["max_abs_err"], plan64,
+                        None))
+    summary.append(line("bilinear_adjoint_plan.f32", bil, "pyimcom_tpu/ops/bilinear.py:61",
+                        f32_launches["bilinear_adjoint_plan.f32"], plan32["max_abs_err"],
+                        plan32, None))
     summary.append(line("probe_add_one", "pyimcom_tpu_torch/csrc/probe.cu",
                         "scripts/probe_pallas.py:33", probe_launches,
                         kern["probe"]["max_abs_err"], kern["probe"],
                         kern["probe"]["library_ms"]))
+    # every kernel of the main path was launched there
+    assert all(k["launches"] > 0 for k in summary), summary
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

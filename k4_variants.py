@@ -3,34 +3,43 @@
 Time the destriping adjoint kernel K4 (pyimcom_tpu_torch/csrc/bilinear.cu)
 against ablations of its design, on one CUDA GPU.
 
-    python3 k4_variants.py [--rolls 0 15 30 45 60 90] [--reps 15]
+    python3 k4_variants.py [--rolls 0 15 30 45 60 90] [--reps 15] [--first-pair]
 
-Each variant is the source with one part of the design undone by a text
-replacement, built with nvcc beside the others (all builds started
-together) and called through the same C entry:
+The planned body is timed as it is and with one part of its design undone:
 
-- ``kept``: the source as it is;
-- ``odd_pitch``: the box's row pitch bw | 1, not 12 (mod 16);
-- ``line_warps``: each warp takes a run of 32 queries of a tile row, not an
-  8 x 4 block;
-- ``global_only``: every tile on the global route (four f64 atomicAdds a
-  query into device memory, as the one-thread-a-query form);
-- ``plain_shared_adds``: the shared-memory adds without atomics (wrong
-  sums: it times what the atomics cost);
-- ``no_flush``: the box is never flushed (wrong: it times the flush);
-- ``loads_only``: each tile stops after its bounding box (wrong: it times
-  reading the queries).
+- ``kept``: the source as it is, over the pair's plan
+  (``bilinear_cuda.build_adjoint_plan``);
+- ``box_window``: the same kernel over a plan whose bands all take their
+  tile's bounding box of columns (a bounding-box window, no per-band
+  spans: it stages r times the contributing queries, r printed beside);
+- source variants, each built with nvcc beside the kept source (all builds
+  started together) and called through the same C entry:
+  ``three_blocks`` (the registers fitted to three blocks an SM, not four),
+  ``chunk_1536`` (a larger staging buffer),
+  ``cell_pitch_33`` / ``gain_pitch_34`` (the cells' counts at a row pitch
+  of 33, not 38, and the gain window at 34 doubles, not 36), and parts of
+  the body left out to time them: ``no_sort`` (right sums, in no fixed
+  order), ``no_pixel_sums`` and ``loads_only`` (wrong sums: no pixel pass;
+  nothing but the plan, the copies and the stores);
+- ``no_plan``: the tiled body, the library's off-plan entry on the same 2-D
+  grid (32 x 32 query tiles, shared-memory boxes flushed with f64 atomics
+  into an output the caller zeroes; the zero fill is timed with it).
 
-The inputs are a 4088^2 pair-like query grid (the target's pixels rolled by
-each angle about the centre and shifted, ~85 % of them on a 4088^2 image),
-random values and a gain in [0.5, 2], made from a seed on the card.  Each
-time is the median of ``--reps`` device times behind a sleep (chip_smoke's
-device_times), the output's zero fill included, as the wrapper has it; the
-zero fill alone and, for the variants that compute the right sums, the
-error against the plain version are printed beside.  One JSON line per
-roll, after the card's name and power limit and a line of bank_pairs(): the
-most words of one warp's taps on a bank pair, by warp layout and pitch
-rule, at every roll.  Exits 2 without a CUDA GPU.
+The inputs are 4088^2 pair-like query grids (the target's pixels rolled by
+each angle about the centre and shifted, ~85 % of them on a 4088^2 image;
+with ``--first-pair`` also the destripe phase's first pair as chip_smoke.py
+builds it, ~2 minutes of host work), random values and a gain in [0.5, 2]
+made from a seed on the card (the pair's own gain for the first pair),
+with positions in float64 and rounded to float32 (each kernel's two forms).
+Each time is the median of ``--reps`` device times behind a sleep
+(chip_smoke's device_times), every variant timed in turns; each result
+that computes the adjoint is held to the plain version (1e-12 of scale)
+and each planned one to a second launch, bit for bit.  One JSON line per
+case and form, after the card's name and power limit: the map's steps at
+the centre, the plan's r, bytes and build time (the plan kernel, each of
+its two C entries alone, and its plain version in torch, which must give
+the same plan), the tiles' staged queries
+(quantiles, chunks), and every variant's time.  Exits 2 without a CUDA GPU.
 """
 
 import argparse
@@ -46,52 +55,21 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 OUT = REPO / ".k4_variants"           # git-ignored build directory
 
-FLUSH = "if (a != 0.0) atomicAdd(out + (y_lo + r) * nx + x_lo + c, a);"
 VARIANTS = {
     "kept": [],
-    "odd_pitch": [("int pitch = bw + ((12 - bw) & 15);", "int pitch = bw | 1;")],
-    "line_warps": [
-        ("const int qr = TILE_W == 32 ? r0 + (f >> 7) * 4 + (lane >> 3) : r0;",
-         "const int qr = r0 + f / TILE_W;"),
-        ("const int qc = TILE_W == 32 ? c0 + ((f >> 5) & 3) * 8 + (lane & 7) : c0 + f;",
-         "const int qc = c0 + f % TILE_W;")],
-    "global_only": [("if (static_cast<long long>(bw) * bh > kBoxCap) {", "if (true) {")],
-    "plain_shared_adds": [("atomicAdd(acc + s, vv * w[0]);", "acc[s] += vv * w[0];"),
-                          ("atomicAdd(acc + s + 1, vv * w[1]);", "acc[s + 1] += vv * w[1];"),
-                          ("atomicAdd(acc + s + pitch, vv * w[2]);",
-                           "acc[s + pitch] += vv * w[2];"),
-                          ("atomicAdd(acc + s + pitch + 1, vv * w[3]);",
-                           "acc[s + pitch + 1] += vv * w[3];")],
-    "no_flush": [(FLUSH, "if (a == -1.5) out[(y_lo + r) * nx + x_lo + c] = a;")],
-    "loads_only": [("  if (x_lo > x_hi) return;  // no query of the tile is in bounds",
-                    "  if (x_lo <= x_hi && x_hi < 0) out[0] = v[0] + v[1] + v[2] + v[3];\n"
-                    "  return;")],
+    "three_blocks": [("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;"),
+                     ("constexpr int kChunk = 1280;", "constexpr int kChunk = 1536;")],
+    "chunk_1536": [("constexpr int kChunk = 1280;", "constexpr int kChunk = 1536;")],
+    "cell_pitch_33": [("constexpr int kCellPitch = 38;", "constexpr int kCellPitch = 33;")],
+    "gain_pitch_34": [("constexpr int kGainPitch = 36;", "constexpr int kGainPitch = 34;")],
+    "no_sort": [("    for (int a = lo + 1; a < hi; ++a) {",
+                 "    for (int a = lo + 1; a < hi && a < 0; ++a) {")],
+    "no_pixel_sums": [("      for (int e = start[cc]; e < hi; ++e) {",
+                       "      for (int e = start[cc]; e < hi && e < 0; ++e) {")],
+    "loads_only": [("    if (cur.n > 0) compute<Pos>(", "    if (cur.n < 0) compute<Pos>(")],
 }
-WRONG = ("plain_shared_adds", "no_flush", "loads_only")
-
-
-def bank_pairs(rolls=np.arange(0.0, 180.0, 1.0), bw=46, seed=0, trials=20):
-    """The most distinct 8-byte words of one warp's taps that share a bank
-    pair (word % 16), over `rolls` (degrees) and random sub-pixel offsets,
-    for each warp layout (a run of 32, an 8 x 4 block) and box pitch rule
-    (bw | 1, 12 mod 16), at a 46-pixel-wide box; 2 is the least for 32
-    words.  Computed on the host: no card is needed."""
-    rng = np.random.default_rng(seed)
-    lane = np.arange(32)
-    layouts = {"run_of_32": (0 * lane, lane), "block_8x4": (lane // 8, lane % 8)}
-    pitches = {"odd": bw | 1, "12_mod_16": bw + ((12 - bw) & 15)}
-    out = {}
-    for lname, (r, c) in layouts.items():
-        for pname, pitch in pitches.items():
-            worst = 0
-            for roll in np.deg2rad(rolls):
-                for x0, y0 in rng.uniform(0, 1, (trials, 2)):
-                    ix = np.floor(np.cos(roll) * c - np.sin(roll) * r + x0 + 8).astype(int)
-                    iy = np.floor(np.sin(roll) * c + np.cos(roll) * r + y0 + 8).astype(int)
-                    words = np.unique(iy * pitch + ix)
-                    worst = max(worst, int(np.bincount(words % 16).max()))
-            out[f"{lname}/{pname}"] = worst
-    return out
+# variants that do not compute the adjoint (they time a part of the body)
+WRONG = ("no_pixel_sums", "loads_only")
 
 
 def source(name):
@@ -105,6 +83,7 @@ def source(name):
 
 def build(name):
     from pyimcom_tpu_torch import _build
+    from pyimcom_tpu_torch.ops import bilinear_cuda as bc
 
     src, lib = OUT / f"{name}.cu", OUT / f"lib{name}.so"
     src.write_text(source(name))
@@ -112,11 +91,88 @@ def build(name):
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(lib)).bilinear_scatter_adjoint
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = (p, p, i, i, p, p, i, i, p, p, p)
-    fn.restype = ctypes.c_int
-    return name, fn
+    dll = ctypes.CDLL(str(lib))
+    fns = {}
+    for entry in ("bilinear_scatter_adjoint", "bilinear_scatter_adjoint_f32",
+                  "bilinear_scatter_adjoint_stream", "bilinear_scatter_adjoint_stream_f32"):
+        fn = getattr(dll, entry)
+        fn.argtypes, fn.restype = bc._SIGNATURES[entry], ctypes.c_int
+        fns[entry] = fn
+    return name, fns
+
+
+def box_plan(plan):
+    """`plan` with every band of a tile spanning the tile's bounding box of
+    columns (its window counted again)."""
+    import dataclasses
+
+    import torch
+
+    T = plan.ptr.numel() - 1
+    nb = (plan.ptr[1:] - plan.ptr[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(T, device=nb.device), nb)
+    s = plan.spans.long() & 0xFFFFFFFF
+    lo, hi = s & 0xFFFF, s >> 16
+    empty = lo > hi
+    big = torch.iinfo(torch.int64).max
+    t_lo = torch.full((T,), big, dtype=torch.int64, device=nb.device)
+    t_hi = torch.full((T,), -1, dtype=torch.int64, device=nb.device)
+    t_lo.scatter_reduce_(0, tile, torch.where(empty, big, lo), "amin")
+    t_hi.scatter_reduce_(0, tile, torch.where(empty, -1, hi), "amax")
+    packed = t_lo[tile] | (t_hi[tile] << 16)
+    spans = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(torch.int32)
+    box = dataclasses.replace(plan, spans=spans.contiguous())
+    return dataclasses.replace(box, window=int(box.tile_windows().sum()))
+
+
+def plan_entries_ms(torch, cs, bc, x, y, n, plan, reps):
+    """Device ms of the plan kernel's two C entries each alone (the rows
+    pass and the tiles' words; the columns pass and the spans) on these
+    positions, into buffers of `plan`'s sizes, without build_adjoint_plan's
+    read-backs between and after them."""
+    dev = x.device
+    T = plan.ptr.numel() - 1
+    nbt = int((plan.ptr[1:] - plan.ptr[:-1]).max())
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows, ptr = torch.empty((T, 2), **i32), torch.empty(T + 1, **i32)
+    meta = torch.empty(4, dtype=torch.int64, device=dev)
+    s1, s2 = torch.empty(2 * T, **i32), torch.empty(2 * T * nbt, **i32)
+    spans = torch.empty(plan.spans.numel(), **i32)
+
+    def rows_entry():
+        bc._launch("bilinear_adjoint_plan", x.dtype, dev, x.data_ptr(), y.data_ptr(), n, n, n,
+                   n, s1.data_ptr(), rows.data_ptr(), ptr.data_ptr(), meta.data_ptr(),
+                   route="_rows")
+
+    def cols_entry():
+        bc._launch("bilinear_adjoint_plan", x.dtype, dev, x.data_ptr(), y.data_ptr(), n, n, n,
+                   n, rows.data_ptr(), ptr.data_ptr(), nbt, s2.data_ptr(), spans.data_ptr(),
+                   meta.data_ptr(), route="_cols")
+    return {"plan_rows_entry_ms": cs.median_ms(torch, rows_entry, reps),
+            "plan_cols_entry_ms": cs.median_ms(torch, cols_entry, reps)}
+
+
+def first_pair(torch, dev):
+    """The destripe phase's first pair as chip_smoke.py builds it (3 striped
+    F184 SCAs at 4088^2, imdestripe.main for one CG iteration): its
+    positions (float64), the neighbour's gain and the target's shape."""
+    import shutil
+
+    import chip_smoke as cs
+    from pyimcom_tpu_torch import imdestripe
+    from pyimcom_tpu_torch.config import Config
+
+    root = OUT / "destripe"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg_dict, _raw = cs.striped_survey(root)
+    d = dict(cfg_dict, DSOUT=[str(root / "ds"), "ds"],
+             DSOBSFILE=str(root / "in" / "sim_L2_*[0-9].fits"))
+    with cs.capture_destripe() as cap:
+        imdestripe.main(Config(d), maxiter=1)
+    dc = cap.problem.device_cost
+    _i, j = dc.pairs[0]
+    return dc.xf[0].clone(), dc.yf[0].clone(), dc.ge[j].clone(), (dc.ny, dc.nx)
 
 
 def main():
@@ -125,53 +181,119 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rolls", type=float, nargs="+", default=[0, 15, 30, 45, 60, 90])
     ap.add_argument("--reps", type=int, default=15)
+    ap.add_argument("--first-pair", action="store_true",
+                    help="also time the destripe phase's first pair (builds its survey: "
+                         "~2 min of host work)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k4_variants: no CUDA GPU available", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(REPO)]
+    sys.path[:0] = [str(REPO), str(REPO / "tests")]
     import chip_smoke as cs
-    from pyimcom_tpu_torch.ops import bilinear
+    from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
 
     OUT.mkdir(exist_ok=True)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        fns = dict(pool.map(build, VARIANTS))
+        libs = dict(pool.map(build, VARIANTS))
     print(cs.gpu_name_and_power(), flush=True)
-    print(json.dumps({"bank_pairs_max_words": bank_pairs()}), flush=True)
     dev = torch.device("cuda", 0)
     n = 4088
     gen = torch.Generator(device=dev).manual_seed(20261017)
-    gain = 0.5 + 1.5 * torch.rand((n, n), generator=gen, dtype=torch.float64, device=dev)
+    gain_syn = 0.5 + 1.5 * torch.rand((n, n), generator=gen, dtype=torch.float64, device=dev)
     v = torch.randn((n, n), generator=gen, dtype=torch.float64, device=dev)
     yy, xx = torch.meshgrid(torch.arange(n, dtype=torch.float64, device=dev) - n / 2,
                             torch.arange(n, dtype=torch.float64, device=dev) - n / 2,
                             indexing="ij")
-    out = torch.empty((n, n), dtype=torch.float64, device=dev)
-    counter = torch.zeros(1, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    cases = []
     for roll in args.rolls:
         th = np.deg2rad(roll)
-        x = (np.cos(th) * xx - np.sin(th) * yy + n / 2 + 300.3).contiguous()
-        y = (np.sin(th) * xx + np.cos(th) * yy + n / 2 - 200.7).contiguous()
-        want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (n, n), gain)
-        rec = {"roll_deg": roll, "queries": n * n,
-               "in_bounds": int(bilinear.in_bounds(x, y, (n, n)).sum()),
-               "zero_fill_ms": cs.median_ms(torch, out.zero_, args.reps)}
-        for name, fn in fns.items():
-            def call(fn=fn, name=name):
+        cases.append((f"roll {roll:g}", gain_syn,
+                      (np.cos(th) * xx - np.sin(th) * yy + n / 2 + 300.3).contiguous(),
+                      (np.sin(th) * xx + np.cos(th) * yy + n / 2 - 200.7).contiguous()))
+    del xx, yy
+    if args.first_pair:
+        x, y, g, shape = first_pair(torch, dev)
+        assert shape == (n, n) and x.shape == (n, n), (shape, x.shape)
+        cases.append(("destripe first pair", g, x, y))
+    out = torch.empty((n, n), dtype=torch.float64, device=dev)
+    again = torch.empty_like(out)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for case, gain, x64, y64 in cases:
+        for form, (x, y) in (("f64", (x64, y64)), ("f32", (x64.float(), y64.float()))):
+            sfx = "_f32" if form == "f32" else ""
+            plan = bc.build_adjoint_plan(x, y, (n, n))
+            box = box_plan(plan)
+            want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (n, n), gain)
+            windows = plan.tile_windows()
+            chunks = torch.clamp(-(-windows // bc.PLAN_CHUNK), min=1)
+            staging = windows[windows > 0].double()
+            c = n // 2
+            rec = {"case": case, "positions": form, "queries": n * n,
+                   # the map's steps at the grid's centre: a column, a row
+                   "map_step_column": [float(x64[c, c + 1] - x64[c, c]),
+                                       float(y64[c, c + 1] - y64[c, c])],
+                   "map_step_row": [float(x64[c + 1, c] - x64[c, c]),
+                                    float(y64[c + 1, c] - y64[c, c])],
+                   "in_bounds": int(bilinear.in_bounds(x, y, (n, n)).sum()),
+                   "plan_r": plan.r, "plan_bytes": plan.nbytes,
+                   "plan_build_ms": cs.median_ms(
+                       torch, lambda x=x, y=y: bc.build_adjoint_plan(x, y, (n, n)), 3),
+                   "plan_build_plain_ms": cs.median_ms(
+                       torch, lambda x=x, y=y: bc.build_adjoint_plan_plain(x, y, (n, n)), 1),
+                   "plan_equals_plain": cs.same_plan(
+                       plan, bc.build_adjoint_plan_plain(x, y, (n, n))),
+                   **plan_entries_ms(torch, cs, bc, x, y, n, plan, args.reps),
+                   "box_window_r": box.r, "tiles_staging": staging.numel(),
+                   "tile_window_quantiles_10_50_90_99": torch.quantile(
+                       staging, torch.tensor([0.1, 0.5, 0.9, 0.99], dtype=torch.float64,
+                                             device=dev)).tolist(),
+                   "tiles_by_chunks": {int(k): int(c) for k, c in zip(*torch.unique(
+                       chunks, return_counts=True))},
+                   "zero_fill_ms": cs.median_ms(torch, out.zero_, args.reps)}
+            calls = {}
+            for name, fns in libs.items():
+                for pname, p in (("", plan), ("box_window", box)):
+                    if pname and name != "kept":
+                        continue
+                    key = pname or name
+
+                    def call(fn=fns["bilinear_scatter_adjoint" + sfx], p=p, dst=out, key=key):
+                        err = fn(v.data_ptr(), gain.data_ptr(), n, n, x.data_ptr(),
+                                 y.data_ptr(), n, n, p.rows.data_ptr(), p.ptr.data_ptr(),
+                                 p.spans.data_ptr(), dst.data_ptr(), 0, stream)
+                        if err != 0:
+                            raise RuntimeError(f"variant {key}: cudaError {err}")
+                    calls[key] = call
+
+            def no_plan(fn=libs["kept"]["bilinear_scatter_adjoint_stream" + sfx]):
                 out.zero_()
                 err = fn(v.data_ptr(), gain.data_ptr(), n, n, x.data_ptr(), y.data_ptr(), n, n,
                          out.data_ptr(), counter.data_ptr(), stream)
                 if err != 0:
-                    raise RuntimeError(f"variant {name}: cudaError {err}")
-            call()
-            torch.cuda.synchronize()
-            rec[f"{name}_ms"] = cs.median_ms(torch, call, args.reps)
-            if name not in WRONG:
-                rec[f"{name}_max_abs_err"] = cs.rel_err(torch, out, want)
-                if not rec[f"{name}_max_abs_err"] < cs.TOL:
-                    raise RuntimeError(f"variant {name} disagrees with the plain version: {rec}")
-        print(json.dumps(rec), flush=True)
+                    raise RuntimeError(f"variant no_plan: cudaError {err}")
+            calls["no_plan"] = no_plan
+            for key, call in calls.items():
+                call()
+                torch.cuda.synchronize()
+                rec[f"{key}_max_abs_err"] = cs.rel_err(torch, out, want)
+                if key in WRONG:
+                    continue
+                if not rec[f"{key}_max_abs_err"] < cs.TOL:
+                    raise RuntimeError(f"variant {key} disagrees with the plain version: {rec}")
+                if key != "no_plan":
+                    again.copy_(out)
+                    call()
+                    torch.cuda.synchronize()
+                    rec[f"{key}_repeat_bit_identical"] = bool(torch.equal(out, again))
+            # in turns: each variant, then each again in reverse order
+            times = {key: [] for key in calls}
+            for order in (list(calls), list(reversed(calls))):
+                for key in order:
+                    times[key] += cs.device_times(torch, calls[key], args.reps)
+            for key, ts in times.items():
+                rec[f"{key}_ms"] = float(np.median(ts))
+            print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -41,26 +41,67 @@
 // K3 is one thread a query in grid-stride loops: the image and gain rows
 // come through L1/L2 about once, the streams are read and written coalesced.
 //
-// K4 takes the queries in tiles of their own grid (32 x 32 of a 2-D query
-// grid, 1 x 1024 of a 1-D stream), 256 threads a tile, four queries a
-// thread.  One thread a query with four f64 atomicAdds into device memory
-// issues ~56M atomics a 4088^2 pair, each warp-wide one spread over up to 32
-// cache lines of a tilted line through the output.  Instead a tile of a
-// rotated grid covers a compact patch of the output: the CTA reduces the
-// bounding box of its in-bounds taps, and if that box fits kBoxCap doubles
-// it zeroes an accumulator box in shared memory, adds its queries' four
-// contributions there with shared-memory atomics (a compare-and-swap loop
-// on this card: it has no f64 add in shared memory), and flushes the box's
-// nonzero pixels to the output with global atomicAdd, row-major and
-// coalesced: about one global atomic a touched output pixel.  The gain taps
-// come through L1, each warp's 8 x 4 block of queries reading a compact
-// patch.  A tile whose box does not fit (wild or NaN-ridden positions, a
-// 1-D stream over many rows) adds its queries straight into device memory,
-// and counts itself in a device counter (global_tiles).  Either way sums are
-// taken in no fixed order.  What is left bounds it by bytes: the streams
-// (24 B a query), the gain, and the output zeroed by the caller, then read
-// and written back by the flush's atomics (it outgrows the 50 MB L2).
+// K4 on a 2-D query grid (a destripe pair's: the target's pixel grid) is
+// owner-writes over a per-pair plan.  Every query adds into the four pixels
+// around its floor tap, so scattering from the queries' side needs f64
+// atomics: the tiled body (commit 6691642) zeroed a box in shared memory,
+// added there with CAS loops (this card has no f64 add in shared memory)
+// and flushed the box with f64 atomicAdd into an output the caller had
+// zeroed; neighbouring boxes overlap, so the output (beyond the 50 MB L2)
+// was written by the memset and then read and written again, ~24 bytes a
+// pixel where one store is 8, and its float32-position form (8 bytes less
+// a query) took the float64 form's time.  Here one CTA owns a 32 x 32 tile
+// of the OUTPUT and writes each of its pixels once.  The queries that add
+// into a tile are those whose floor tap lies in its 33 x 33 window of tap
+// cells (the tile, and one cell above and to the left); a pair map is built
+// once and read unchanged by every CG iteration, so the plan that names
+// them is built once a pair, on the card (the plan kernel near the end of
+// this file, two passes over the positions:
+// ops/bilinear_cuda.build_adjoint_plan), and reused by every launch: for
+// each tile its first and last query row and, for each band of kBand query
+// rows from the first, the span of columns [lo, hi] that holds
+// its contributing queries (one 32-bit word a band; ~0.7-0.9 MB a 4088^2
+// pair, r = staged / contributing queries 1.0 at a 0 degree roll and 1.12
+// at 45; a bounding box of columns gives r 1.96 at 45, k4_variants.py).
+// A persistent grid walks the tiles (tile blockIdx.x + k gridDim.x), each in
+// chunks of at most kChunk window queries: a chunk's row segments come from
+// the plan (its words and first spans prefetched a tile or two ahead); the
+// CTA stages the chunk's values and positions, and on a tile's first chunk
+// its gain with a 1-pixel halo, in shared memory with cp.async (a warp a
+// row segment, its lanes along the columns); then it takes each staged
+// query's tap, keeps those in the window, divides its value by the norm of
+// its gain-weighted weights (K3's arithmetic), counts the queries by cell
+// with 32-bit shared atomics, places them by cell (an exclusive scan of the
+// counts), sorts each cell's few entries by staging order, and each thread
+// sums the products of the 3 x 3 cells of its 2 x 2 pixels, each cell's
+// queries in staging order.  No f64 atomic anywhere, no zero fill (a fresh
+// output is allocated with torch.empty and every pixel stored once; with
+// `accumulate` each pixel is read, added to and written once), and the sums
+// are taken in a fixed order: two launches give the same bits.  What
+// bounds it: the bytes it stages -- values and positions (16 or 24 bytes a
+// staged query), the gain with its halo, the output once -- which a body
+// doing nothing else moves in 0.22 / 0.25 ms on a 4088^2 pair (float32 /
+// float64 positions; H100 80GB HBM3 at 700 W, k4_variants.py loads_only),
+// and the chunk's compute between barriers, which overlaps the copies only
+// across CTAs: four CTAs an SM (64 registers, one staging buffer; two
+// buffers, which overlap a CTA's own copies and work, fit two CTAs an SM
+// and are slower).  Shared memory is laid out against bank conflicts along
+// the lines of cells that a warp's queries follow at any roll (the
+// kCellPitch and kGainPitch notes).
 
+// A 1-D stream (qny == 1), or a grid wider than 65535 columns (the plan
+// keeps columns in 16 bits), has no plan: it takes the tiled body, unchanged
+// but for its counter.  That body takes the queries in tiles of their own
+// grid (1 x 1024 of a stream, 32 x 32 of a grid), 256 threads a tile: the
+// CTA reduces the bounding box of its in-bounds taps and, if that box fits
+// kBoxCap doubles, zeroes an accumulator box in shared memory, adds its
+// queries' four contributions there with shared-memory atomics and flushes
+// the box's nonzero pixels with global atomicAdd; a tile whose box does not
+// fit adds its queries straight into device memory.  Each of its tiles that
+// holds a query in bounds counts itself in a device counter
+// (off_plan_tiles), so a caller can see K4 work off the planned route.
+
+#include <algorithm>
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -124,8 +165,8 @@ __global__ void gather_kernel(const double* __restrict__ image, const double* __
   }
 }
 
-// K4's tiling.  A tile is kTileQueries queries: 32 x 32 of a 2-D query grid,
-// 1 x 1024 of one row.  kBoxCap is the f64 slots of a tile's accumulator box
+// K4's off-plan body (the tiled one).  A tile is kTileQueries queries: 32 x 32 of a
+// 2-D query grid, 1 x 1024 of one row.  kBoxCap is the f64 slots of a tile's accumulator box
 // in shared memory (24 KB): a 32 x 32 tile rolled by 45 degrees at the same
 // pixel scale touches a 46 x 46 box, so boxes fit up to a local scale of
 // ~1.2 at any roll (a box's pitch takes up to 15 more columns where they
@@ -137,8 +178,9 @@ constexpr int kWarps = kAdjThreads / 32;
 constexpr int kBoxCap = 3072;
 
 // The bilinear weights of a query's taps, scaled by the gain taps where
-// given, and its value over their norm; shared by both routes so they add
-// the same products.
+// given, and its value over their norm; shared by both routes of the
+// off-plan body so they add the same products (the planned body takes its
+// gain taps from shared memory in the same order of operations).
 __device__ __forceinline__ double adjoint_weights(double fx, double fy, double v,
                                                   const double* __restrict__ gain, int i, int nx,
                                                   double w[4]) {
@@ -173,13 +215,13 @@ __device__ __forceinline__ int warp_max(int a) {
 // query's four contributions there with shared-memory atomics, flush the
 // nonzero pixels with global atomics, row by row) or, where the box
 // outgrows kBoxCap, the global route (each query's four adds straight into
-// device memory, and one count in global_tiles).
+// device memory).  A tile with a query in bounds adds one to off_plan_tiles.
 template <int TILE_W, typename Pos>
 __global__ void __launch_bounds__(kAdjThreads, 4)
     adjoint_tile_kernel(const double* __restrict__ values, const double* __restrict__ gain,
                         int ny, int nx, const Pos* __restrict__ xf,
                         const Pos* __restrict__ yf, int qny, int qnx, double* out,
-                        unsigned long long* __restrict__ global_tiles) {
+                        unsigned long long* __restrict__ off_plan_tiles) {
   constexpr int TILE_H = kTileQueries / TILE_W;
   extern __shared__ double acc[];
   __shared__ int red[4][kWarps];
@@ -233,11 +275,11 @@ __global__ void __launch_bounds__(kAdjThreads, 4)
     y_hi = max(y_hi, red[3][w]);
   }
   if (x_lo > x_hi) return;  // no query of the tile is in bounds
+  if (t == 0) atomicAdd(off_plan_tiles, 1ull);
   const int bw = x_hi - x_lo + 2, bh = y_hi - y_lo + 2;
 
   if (static_cast<long long>(bw) * bh > kBoxCap) {
     // the global route
-    if (t == 0) atomicAdd(global_tiles, 1ull);
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       int ix, iy;
@@ -256,10 +298,10 @@ __global__ void __launch_bounds__(kAdjThreads, 4)
   // the shared route.  An 8-byte word w sits on bank pair w % 16; with the
   // pitch = 12 (mod 16), the words of a warp's taps (a rolled 8 x 4 patch)
   // share a pair at most 4 at a time at any roll, twice the least (a pitch
-  // of bw | 1 can put a 45-degree run of 32 on one pair; k4_variants.py
-  // bank_pairs() counts both).  Where that does not fit, the pitch is bw.  Box pixel p is row p / bw: (p + 0.5) / bw in f32
-  // lies 0.5 / bw from an integer, far above its rounding error while
-  // bw * bh <= kBoxCap.
+  // of bw | 1 can put a 45-degree run of 32 on one pair, as a bank
+  // count found).  Where that does not fit, the pitch is bw.  Box pixel p
+  // is row p / bw: (p + 0.5) / bw in f32 lies 0.5 / bw from an integer, far
+  // above its rounding error while bw * bh <= kBoxCap.
   int pitch = bw + ((12 - bw) & 15);
   if (pitch * bh > kBoxCap) pitch = bw;
   const int npix = bw * bh;
@@ -292,18 +334,767 @@ __global__ void __launch_bounds__(kAdjThreads, 4)
 template <int TILE_W, typename Pos>
 void launch_adjoint(const double* values, const double* gain, int ny, int nx, const Pos* xf,
                     const Pos* yf, int qny, int qnx, double* out,
-                    unsigned long long* global_tiles, cudaStream_t stream) {
+                    unsigned long long* off_plan_tiles, cudaStream_t stream) {
   constexpr int TILE_H = kTileQueries / TILE_W;
   constexpr int smem = kBoxCap * static_cast<int>(sizeof(double));
   const long long tiles =
       static_cast<long long>((qny + TILE_H - 1) / TILE_H) * ((qnx + TILE_W - 1) / TILE_W);
   adjoint_tile_kernel<TILE_W, Pos><<<static_cast<unsigned>(tiles), kAdjThreads, smem, stream>>>(
-      values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles);
+      values, gain, ny, nx, xf, yf, qny, qnx, out, off_plan_tiles);
+}
+
+// ---- K4's planned body ------------------------------------------------------
+// A CTA of kPlanThreads owns a kOwn x kOwn tile of the output; its window is
+// the kCellSide x kCellSide tap cells from one above and one left of the
+// tile (a query adds into its tap's pixel and the pixels below and right).
+// The plan of tile t: rows[2t], rows[2t + 1] its first and last query row;
+// spans[ptr[t] + k] the columns lo | hi << 16 of band k, query rows
+// rows[2t] + kBand k ... + kBand - 1 (clipped to the last), lo > hi for a
+// band without a contributing query.  A chunk is at most kChunk queries of
+// a group of kGroupBands bands, expanded into row segments, in band, row
+// and column order: the staging order.
+constexpr int kOwn = 32;
+constexpr int kCellSide = kOwn + 1;
+// the cells' row pitch in the count and start arrays: a warp's queries run
+// along a line of cells, and with a pitch of 33 an anti-diagonal line
+// (step 33 - 1 = 32) puts every lane's count on one bank; with 38 a line at
+// any angle puts at most 6 of a warp's cells on one bank (at most 23 at 33)
+constexpr int kCellPitch = 38;
+constexpr int kCells = kCellSide * kCellPitch;
+constexpr int kGainSide = kOwn + 2;
+// the gain window's row pitch in doubles: with 34, a warp's queries along a
+// line at -30 degrees read their gain taps 8 to a bank pair; with 36 at most
+// 4 at any angle
+constexpr int kGainPitch = 36;
+constexpr int kBand = 4;
+constexpr int kPlanThreads = 256;
+constexpr int kChunk = 1280;
+constexpr int kChunkPerThread = kChunk / kPlanThreads;
+constexpr int kGroupBands = 16;
+constexpr int kSegs = kGroupBands * kBand;
+constexpr int kCellsPerThread = (kCells + kPlanThreads - 1) / kPlanThreads;
+constexpr int kPixPerThread = kOwn * kOwn / kPlanThreads;
+// one staging buffer: a CTA stages a chunk, then computes it, and four CTAs
+// an SM overlap one another's copies and work (a second buffer, the next
+// chunk's copies in flight while one computes, fits two CTAs an SM and took
+// 0.538 / 0.518 ms against 0.383 / 0.380 on the first destripe pair, f64 /
+// f32 positions; H100 80GB HBM3 at 700 W)
+constexpr int kMinBlocks = 4;
+static_assert(kSegs == 64, "warp 0 expands a group's segments, two a lane");
+static_assert(kCells < 2048 && kChunk <= 2048, "a cell and its slot share one int");
+static_assert(kChunk % kPlanThreads == 0 && kChunk <= 65536, "staging indices are 16-bit");
+static_assert(kPixPerThread == 4 && kPlanThreads == 256 && kOwn == 32,
+              "a thread a 2 x 2 block of pixels");
+
+// The dynamic shared memory of the planned body (bytes): the staging
+// buffer (the values, then x, then y), the gain window, the cell
+// counts (then, scanned in place, the cells' starts), the staging indices
+// in cell order, a group's segments, the warp sums of the scan, the chunk
+// counts, and the plan prefetched ahead of the walk: the words (first and
+// last query row, first band and one past the last) of kWordSlots tiles
+// and the first band group's spans of kSpanSlots tiles.
+constexpr int kWordSlots = 3, kSpanSlots = 2;
+template <typename Pos>
+struct PlanLayout {
+  static constexpr int kStageBytes =
+      kChunk * static_cast<int>(sizeof(double) + 2 * sizeof(Pos));
+  static constexpr int kGainBytes = kGainSide * kGainPitch * static_cast<int>(sizeof(double));
+  static constexpr int kGain = kStageBytes;
+  static constexpr int kCount = kGain + kGainBytes;
+  static constexpr int kOrder = kCount + 4 * (kCells + 1);
+  static constexpr int kSegRow = kOrder + 2 * kChunk;
+  static constexpr int kSegLo = kSegRow + 4 * kSegs;
+  static constexpr int kSegPre = kSegLo + 4 * kSegs;
+  static constexpr int kWarpSum = kSegPre + 4 * (kSegs + 1);
+  static constexpr int kDesc = kWarpSum + 4 * (kPlanThreads / 32);
+  static constexpr int kWords = kDesc + 4 * 2;
+  static constexpr int kSpans = kWords + 4 * 4 * kWordSlots;
+  static constexpr int kBytes = kSpans + 4 * kGroupBands * kSpanSlots;
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A chunk of a CTA's walk (the same in every thread).
+struct Chunk {
+  int tile;   // the output tile; -1: the walk has ended
+  int group;  // its band group
+  int e0;     // the chunk's first query among the group's
+  int n;      // its queries
+  int total;  // the group's queries
+  int nb;     // the tile's bands
+  int tseq;   // its tile's ordinal in the walk (the prefetched plan's slots)
+};
+
+__device__ __forceinline__ bool last_of_tile(const Chunk& c) {
+  return c.e0 + kChunk >= c.total && (c.group + 1) * kGroupBands >= c.nb;
+}
+
+__device__ __forceinline__ Chunk next_chunk(const Chunk& c, int tiles) {
+  Chunk s = c;
+  if (c.e0 + kChunk < c.total) {
+    s.e0 = c.e0 + kChunk;
+  } else if ((c.group + 1) * kGroupBands < c.nb) {
+    s.group = c.group + 1;
+    s.e0 = 0;
+  } else {
+    s.tile = c.tile + static_cast<int>(gridDim.x);
+    if (s.tile >= tiles) s.tile = -1;
+    s.group = 0;
+    s.e0 = 0;
+    s.tseq = c.tseq + 1;
+  }
+  return s;
+}
+
+// The address of word j of tile t's plan: its first and last query row,
+// its first band's index in spans and one past its last.
+__device__ __forceinline__ const int* tile_word(const int* rows, const int* ptr, int t, int j) {
+  return j < 2 ? rows + 2 * t + j : ptr + t + j - 2;
+}
+
+// Start the copies of the plan a tile or two ahead of tile c.tile (warp 0;
+// the CTA's tiles are gridDim.x apart): the words of the tile two ahead and
+// the first band group's spans of the next (whose words came a tile ago).
+template <typename Pos>
+__device__ void prefetch_plan(const Chunk& c, char* smem, const int* __restrict__ rows,
+                              const int* __restrict__ ptr, const unsigned* __restrict__ spans,
+                              int tiles) {
+  using L = PlanLayout<Pos>;
+  int* words = reinterpret_cast<int*>(smem + L::kWords);
+  unsigned* sp = reinterpret_cast<unsigned*>(smem + L::kSpans);
+  const int lane = threadIdx.x;
+  const int t1 = c.tile + static_cast<int>(gridDim.x), t2 = t1 + static_cast<int>(gridDim.x);
+  if (t1 < tiles) {
+    const int* w1 = words + 4 * ((c.tseq + 1) % kWordSlots);
+    if (lane < min(kGroupBands, w1[3] - w1[2]))
+      cp_async<4>(sp + kGroupBands * ((c.tseq + 1) % kSpanSlots) + lane, spans + w1[2] + lane);
+  }
+  if (t2 < tiles && lane < 4)
+    cp_async<4>(words + 4 * ((c.tseq + 2) % kWordSlots) + lane, tile_word(rows, ptr, t2, lane));
+}
+
+// Expand chunk c's band group into its row segments (warp 0, from its
+// tile's prefetched words and, for the first group, spans; a row segment is
+// one query row of a band, its span's columns) with their exclusive prefix
+// counts, and fill in c's counts (every thread, after the barrier).
+template <typename Pos>
+__device__ void describe(Chunk& c, char* smem, const unsigned* __restrict__ spans) {
+  using L = PlanLayout<Pos>;
+  int* seg_row = reinterpret_cast<int*>(smem + L::kSegRow);
+  int* seg_lo = reinterpret_cast<int*>(smem + L::kSegLo);
+  int* seg_pre = reinterpret_cast<int*>(smem + L::kSegPre);
+  int* desc = reinterpret_cast<int*>(smem + L::kDesc);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int* tw = reinterpret_cast<const int*>(smem + L::kWords) + 4 * (c.tseq % kWordSlots);
+    const unsigned* first =
+        reinterpret_cast<const unsigned*>(smem + L::kSpans) + kGroupBands * (c.tseq % kSpanSlots);
+    const int row_lo = tw[0], row_hi = tw[1];
+    const int p0 = tw[2], nb = tw[3] - p0;
+    int w[2], r[2], l[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int sg = 2 * lane + i;
+      const int k = c.group * kGroupBands + sg / kBand;
+      const int qr = row_lo + k * kBand + sg % kBand;
+      w[i] = r[i] = l[i] = 0;
+      if (k < nb && qr <= row_hi) {
+        const unsigned sp = c.group == 0 ? first[k] : spans[p0 + k];
+        const int lo = static_cast<int>(sp & 0xffffu), hi = static_cast<int>(sp >> 16);
+        if (lo <= hi) {
+          w[i] = hi - lo + 1;
+          r[i] = qr;
+          l[i] = lo;
+        }
+      }
+    }
+    const int mine = w[0] + w[1];
+    int incl = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    seg_row[2 * lane] = r[0];
+    seg_row[2 * lane + 1] = r[1];
+    seg_lo[2 * lane] = l[0];
+    seg_lo[2 * lane + 1] = l[1];
+    seg_pre[2 * lane] = incl - mine;
+    seg_pre[2 * lane + 1] = incl - mine + w[0];
+    if (lane == 31) {
+      seg_pre[kSegs] = incl;
+      desc[0] = incl;
+      desc[1] = nb;
+    }
+  }
+  __syncthreads();
+  c.total = desc[0];
+  c.nb = desc[1];
+  c.n = max(0, min(kChunk, c.total - c.e0));
+}
+
+// Start the copies of chunk c into its staging buffer (warp w the row
+// segments w, w + 8, ..., its lanes along the columns), and, on its tile's
+// first chunk, of the tile's gain window (the pixels on the image).
+template <typename Pos>
+__device__ void issue(const Chunk& c, char* smem, const double* __restrict__ values,
+                      const double* __restrict__ gain, int ny, int nx,
+                      const Pos* __restrict__ xf, const Pos* __restrict__ yf, int qnx,
+                      int tiles_x) {
+  using L = PlanLayout<Pos>;
+  double* sv = reinterpret_cast<double*>(smem);
+  Pos* sx = reinterpret_cast<Pos*>(smem + kChunk * sizeof(double));
+  Pos* sy = sx + kChunk;
+  const int* seg_row = reinterpret_cast<const int*>(smem + L::kSegRow);
+  const int* seg_lo = reinterpret_cast<const int*>(smem + L::kSegLo);
+  const int* seg_pre = reinterpret_cast<const int*>(smem + L::kSegPre);
+  const int lane = threadIdx.x & 31, e_hi = c.e0 + c.n;
+  for (int sg = threadIdx.x >> 5; sg < kSegs; sg += kPlanThreads / 32) {
+    const int p0 = seg_pre[sg];
+    const int a = max(p0, c.e0), b = min(seg_pre[sg + 1], e_hi);
+    if (a >= b) continue;
+    // query e of the group lies at base + e of the grid
+    const long long base = static_cast<long long>(seg_row[sg]) * qnx + seg_lo[sg] - p0;
+    for (int e = a + lane; e < b; e += 32) {
+      const int el = e - c.e0;
+      cp_async<8>(sv + el, values + base + e);
+      cp_async<static_cast<int>(sizeof(Pos))>(sx + el, xf + base + e);
+      cp_async<static_cast<int>(sizeof(Pos))>(sy + el, yf + base + e);
+    }
+  }
+  if (gain != nullptr && c.group == 0 && c.e0 == 0) {
+    double* sg = reinterpret_cast<double*>(smem + L::kGain);
+    const int wy = (c.tile / tiles_x) * kOwn - 1, wx = (c.tile % tiles_x) * kOwn - 1;
+    for (int r = threadIdx.x >> 5; r < kGainSide; r += kPlanThreads / 32) {
+      const int gy = wy + r;
+      if (gy < 0 || gy >= ny) continue;
+      for (int i = lane; i < kGainSide; i += 32)
+        if (wx + i >= 0 && wx + i < nx)
+          cp_async<8>(sg + r * kGainPitch + i, gain + static_cast<long long>(gy) * nx + wx + i);
+    }
+  }
+}
+
+// Add chunk c's products into each thread's pixel sums acc: the 2 x 2
+// pixels (2 (threadIdx.x / 16) + i / 2, 2 (threadIdx.x % 16) + i % 2) of
+// the tile.
+template <typename Pos>
+__device__ void compute(const Chunk& c, char* smem, bool weighted, int ny, int nx, int tiles_x,
+                        double acc[kPixPerThread]) {
+  using L = PlanLayout<Pos>;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  double* sv = reinterpret_cast<double*>(smem);
+  const Pos* sx = reinterpret_cast<const Pos*>(smem + kChunk * sizeof(double));
+  const Pos* sy = sx + kChunk;
+  const double* sg = reinterpret_cast<const double*>(smem + L::kGain);
+  int* cnt = reinterpret_cast<int*>(smem + L::kCount);
+  int* start = cnt;  // after step 2
+  unsigned short* order = reinterpret_cast<unsigned short*>(smem + L::kOrder);
+  int* wsum = reinterpret_cast<int*>(smem + L::kWarpSum);
+  // the window's first tap cell
+  const int wy = (c.tile / tiles_x) * kOwn - 1, wx = (c.tile % tiles_x) * kOwn - 1;
+
+  // 1. each staged query's tap; those in the window get their value over
+  //    the gain norm (in place) and a place among their cell's (a 32-bit
+  //    shared atomic: the order within a cell is fixed in step 4)
+  int place[kChunkPerThread];  // cell | slot << 11, -1 outside the window
+#pragma unroll
+  for (int j = 0; j < kChunkPerThread; ++j) {
+    const int el = t + j * kPlanThreads;
+    place[j] = -1;
+    if (el < c.n) {
+      const double x = static_cast<double>(sx[el]), y = static_cast<double>(sy[el]);
+      int ix, iy;
+      if (tap_floor(x, y, nx, ny, &ix, &iy)) {
+        const int cy = iy - wy, cx = ix - wx;
+        if (static_cast<unsigned>(cy) < kCellSide && static_cast<unsigned>(cx) < kCellSide) {
+          if (weighted) {
+            const double* g = sg + cy * kGainPitch + cx;
+            double w[4];
+            bilinear_weights(x - ix, y - iy, w);
+            w[0] *= g[0];
+            w[1] *= g[1];
+            w[2] *= g[kGainPitch];
+            w[3] *= g[kGainPitch + 1];
+            const double norm = w[0] + w[1] + w[2] + w[3];
+            sv[el] = sv[el] / (norm > 0.0 ? norm : 1.0);
+          }
+          const int cc = cy * kCellPitch + cx;
+          place[j] = cc | (atomicAdd(cnt + cc, 1) << 11);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. where each cell's queries start: an exclusive scan of the counts in
+  //    place, kCellsPerThread consecutive cells a thread (the kernel zeroes
+  //    them again after the chunk)
+  {
+    int loc[kCellsPerThread], sum = 0;
+#pragma unroll
+    for (int i = 0; i < kCellsPerThread; ++i) {
+      const int cc = t * kCellsPerThread + i;
+      loc[i] = cc < kCells ? cnt[cc] : 0;
+      sum += loc[i];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    int run = incl - sum;
+    for (int w = 0; w < warp; ++w) run += wsum[w];
+#pragma unroll
+    for (int i = 0; i < kCellsPerThread; ++i) {
+      const int cc = t * kCellsPerThread + i;
+      if (cc < kCells) start[cc] = run;
+      run += loc[i];
+    }
+    if (t == kPlanThreads - 1) start[kCells] = run;
+  }
+  __syncthreads();
+
+  // 3. each window query's staging index at its place
+#pragma unroll
+  for (int j = 0; j < kChunkPerThread; ++j)
+    if (place[j] >= 0)
+      order[start[place[j] & 2047] + (place[j] >> 11)] =
+          static_cast<unsigned short>(t + j * kPlanThreads);
+  __syncthreads();
+
+  // 4. each cell's few queries in staging order (insertion sort)
+  for (int cc = t; cc < kCells; cc += kPlanThreads) {
+    const int lo = start[cc], hi = start[cc + 1];
+    for (int a = lo + 1; a < hi; ++a) {
+      const unsigned short key = order[a];
+      int b = a - 1;
+      while (b >= lo && order[b] > key) {
+        order[b + 1] = order[b];
+        --b;
+      }
+      order[b + 1] = key;
+    }
+  }
+  __syncthreads();
+
+  // 5. each thread's 2 x 2 pixels (rows 2 pa + dy, columns 2 pb + dx) take
+  //    the products of their 3 x 3 cells: each cell's queries once, in
+  //    staging order, the cells row-major (a pixel's four give it w3, w2,
+  //    w1, then w0, its own tap's)
+  const int pa = t >> 4, pb = t & 15;
+  double gp[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    gp[i] = weighted ? sg[(2 * pa + (i >> 1) + 1) * kGainPitch + 2 * pb + (i & 1) + 1] : 1.0;
+#pragma unroll
+  for (int ry = 0; ry < 3; ++ry) {
+#pragma unroll
+    for (int rx = 0; rx < 3; ++rx) {
+      // the cell's tap is the block's pixel (ry - 1, rx - 1): it gives w0 to
+      // that pixel, w1 to the one right, w2 below, w3 below right
+      const int cc = (2 * pa + ry) * kCellPitch + 2 * pb + rx;
+      const double ix = wx + 2 * pb + rx, iy = wy + 2 * pa + ry;
+      const int hi = start[cc + 1];
+      for (int e = start[cc]; e < hi; ++e) {
+        const int q = order[e];
+        const double fx = static_cast<double>(sx[q]) - ix, fy = static_cast<double>(sy[q]) - iy;
+        const double v = sv[q];
+        if (ry >= 1 && rx >= 1) {
+          const double w = (1.0 - fx) * (1.0 - fy);
+          acc[(ry - 1) * 2 + rx - 1] += v * (weighted ? w * gp[(ry - 1) * 2 + rx - 1] : w);
+        }
+        if (ry >= 1 && rx <= 1) {
+          const double w = fx * (1.0 - fy);
+          acc[(ry - 1) * 2 + rx] += v * (weighted ? w * gp[(ry - 1) * 2 + rx] : w);
+        }
+        if (ry <= 1 && rx >= 1) {
+          const double w = (1.0 - fx) * fy;
+          acc[ry * 2 + rx - 1] += v * (weighted ? w * gp[ry * 2 + rx - 1] : w);
+        }
+        if (ry <= 1 && rx <= 1) {
+          const double w = fx * fy;
+          acc[ry * 2 + rx] += v * (weighted ? w * gp[ry * 2 + rx] : w);
+        }
+      }
+    }
+  }
+}
+
+// One CTA a tile at a time, tiles blockIdx.x + k gridDim.x, each walked in
+// chunks (next_chunk): stage a chunk, compute it, then expand the next
+// chunk's segments and start its copies.
+template <typename Pos>
+__global__ void __launch_bounds__(kPlanThreads, kMinBlocks)
+    planned_adjoint_kernel(const double* __restrict__ values, const double* __restrict__ gain,
+                           int ny, int nx, const Pos* __restrict__ xf,
+                           const Pos* __restrict__ yf, int qnx, const int* __restrict__ rows,
+                           const int* __restrict__ ptr, const unsigned* __restrict__ spans,
+                           double* __restrict__ out, int accumulate) {
+  using L = PlanLayout<Pos>;
+  extern __shared__ __align__(16) char smem[];
+  const int tiles_x = (nx + kOwn - 1) / kOwn;
+  const int tiles = ((ny + kOwn - 1) / kOwn) * tiles_x;
+  int* cnt = reinterpret_cast<int*>(smem + L::kCount);
+  for (int i = threadIdx.x; i <= kCells; i += kPlanThreads) cnt[i] = 0;
+  double acc[kPixPerThread];
+#pragma unroll
+  for (int i = 0; i < kPixPerThread; ++i) acc[i] = 0.0;
+
+  Chunk cur{static_cast<int>(blockIdx.x), 0, 0, 0, 0, 0, 0};
+  if (threadIdx.x < 32) {
+    // the first tile's words and first spans, and the next tile's words
+    int* words = reinterpret_cast<int*>(smem + L::kWords);
+    unsigned* sp = reinterpret_cast<unsigned*>(smem + L::kSpans);
+    const int lane = threadIdx.x, t1 = cur.tile + static_cast<int>(gridDim.x);
+    if (lane < 4) words[lane] = *tile_word(rows, ptr, cur.tile, lane);
+    if (lane >= 4 && lane < 8 && t1 < tiles) words[lane] = *tile_word(rows, ptr, t1, lane - 4);
+    __syncwarp();
+    if (lane < min(kGroupBands, words[3] - words[2])) sp[lane] = spans[words[2] + lane];
+    __syncwarp();
+    prefetch_plan<Pos>(cur, smem, rows, ptr, spans, tiles);
+  }
+  describe<Pos>(cur, smem, spans);
+  issue<Pos>(cur, smem, values, gain, ny, nx, xf, yf, qnx, tiles_x);
+  cp_async_commit();
+  __syncthreads();  // the segments are the next describe's
+  while (cur.tile >= 0) {
+    Chunk nxt = next_chunk(cur, tiles);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (cur.n > 0) compute<Pos>(cur, smem, gain != nullptr, ny, nx, tiles_x, acc);
+    if (last_of_tile(cur)) {
+      // one store a pixel; into `out`, one read-add-write (none on a tile
+      // without a band: it adds nothing)
+      const int r0 = (cur.tile / tiles_x) * kOwn, c0 = (cur.tile % tiles_x) * kOwn;
+#pragma unroll
+      for (int i = 0; i < kPixPerThread; ++i) {
+        const int r = r0 + 2 * (threadIdx.x >> 4) + (i >> 1);
+        const int col = c0 + 2 * (threadIdx.x & 15) + (i & 1);
+        if (r < ny && col < nx && !(accumulate && cur.nb == 0)) {
+          double* o = out + static_cast<long long>(r) * nx + col;
+          *o = accumulate ? *o + acc[i] : acc[i];
+        }
+        acc[i] = 0.0;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i <= kCells; i += kPlanThreads) cnt[i] = 0;
+    // the next chunk's segments and copies (on a new tile, the plan a tile
+    // or two ahead of it prefetched; those copies land with the chunk's)
+    if (nxt.tile >= 0) {
+      describe<Pos>(nxt, smem, spans);
+      if (nxt.tile != cur.tile && threadIdx.x < 32)
+        prefetch_plan<Pos>(nxt, smem, rows, ptr, spans, tiles);
+      issue<Pos>(nxt, smem, values, gain, ny, nx, xf, yf, qnx, tiles_x);
+    }
+    cp_async_commit();
+    cur = nxt;
+  }
+}
+
+template <typename Pos>
+int scatter_planned(const double* values, const double* gain, int ny, int nx, const Pos* xf,
+                    const Pos* yf, int qnx, const int* rows, const int* ptr,
+                    const unsigned* spans, double* out, int accumulate, void* stream) {
+  const long long tiles = static_cast<long long>((ny + kOwn - 1) / kOwn) *
+                          ((nx + kOwn - 1) / kOwn);
+  if (tiles <= 0) return static_cast<int>(cudaGetLastError());
+  if (tiles > INT_MAX || qnx > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = PlanLayout<Pos>::kBytes;
+  cudaFuncSetAttribute(planned_adjoint_kernel<Pos>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  int dev = 0, nsm = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, planned_adjoint_kernel<Pos>, kPlanThreads,
+                                                smem);
+  const int grid = static_cast<int>(
+      std::min<long long>(tiles, static_cast<long long>(std::max(per, 1)) * std::max(nsm, 1)));
+  planned_adjoint_kernel<Pos><<<grid, kPlanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      values, gain, ny, nx, xf, yf, qnx, rows, ptr, spans, out, accumulate);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int blocks_for(long long n) {
   const long long b = (n + kThreads - 1) / kThreads;
   return static_cast<int>(b < (1LL << 20) ? b : (1LL << 20));
+}
+
+// ---- K4's plan, built on the card --------------------------------------------
+// The plan of a (qny, qnx) query grid on the (ny, nx) output (the planned
+// body's note above; ops/bilinear_cuda.build_adjoint_plan), in two C
+// entries of two kernels each, with one read-back between them (nbt, the
+// most bands of a tile, sizes the columns pass) and one at the end (the
+// counts).  The reductions take a lane a query, grid-stride.  A query in
+// bounds adds into the tile of its floor tap's pixel and, where the tap's
+// other pixels fall in another tile, the tile below, right and below-right
+// (plan_tiles: four slots, -1 for none).  Along a row a slot's tile holds
+// for a run of columns (a pair map is near-affine), so a thread reduces only
+// where its slot's tile differs from its left neighbour's (a run's first
+// query) or its right neighbour's (a run's last), as the plain version
+// (build_adjoint_plan_plain) reduces one entry a run: the rows pass takes
+// each tile's first and last query row (32-bit atomicMin / atomicMax) and
+// counts the incidences (a block's sum, one 64-bit atomicAdd a block); one
+// block then packs each tile's words (rows, and ptr by a scan of its band
+// counts) and finds nbt and the bands in all.  The columns pass takes each
+// band's first and last column, and a grid over (tile, band) packs the
+// spans and sums the window.  The positions are read once a pass (a
+// lane's neighbours' tiles come by shuffles); the atomics are a few a run,
+// ~10^6 on a 4088^2 pair against its 1.7 * 10^7 queries; the scratch starts
+// from byte fills (0x7f7f7f7f above any row or column, -1).
+constexpr int kPackThreads = 1024;
+
+template <typename Pos>
+__device__ __forceinline__ int plan_tiles(Pos xv, Pos yv, int ny, int nx, int tiles_x,
+                                          int t[4]) {
+  t[0] = t[1] = t[2] = t[3] = -1;
+  int ix, iy;
+  if (!tap_floor(static_cast<double>(xv), static_cast<double>(yv), nx, ny, &ix, &iy)) return 0;
+  const int ty0 = iy / kOwn, tx0 = ix / kOwn, ty1 = (iy + 1) / kOwn, tx1 = (ix + 1) / kOwn;
+  const bool down = ty1 != ty0, right = tx1 != tx0;
+  t[0] = ty0 * tiles_x + tx0;
+  if (down) t[1] = ty1 * tiles_x + tx0;
+  if (right) t[2] = ty0 * tiles_x + tx1;
+  if (down && right) t[3] = ty1 * tiles_x + tx1;
+  return 1 + down + right + (down && right);
+}
+
+// The rows pass (kCols false: row_lo, row_hi (T,), pairs) or the columns
+// pass (kCols true: each tile's first row at rows[2t], col_lo, col_hi
+// (T * nbt,)).  A block takes kThreads consecutive queries of a row at a
+// time (grid-stride over the rows' pieces), a lane one query; a lane's left
+// and right neighbours' tiles come from the lanes beside it by shuffles,
+// the warp's edges computing their own.
+template <typename Pos, bool kCols>
+__global__ void __launch_bounds__(kThreads)
+    plan_pass_kernel(const Pos* __restrict__ xf, const Pos* __restrict__ yf, int qny, int qnx,
+                     int ny, int nx, int* __restrict__ row_lo, int* __restrict__ row_hi,
+                     unsigned long long* __restrict__ pairs, const int* __restrict__ rows,
+                     int nbt, int* __restrict__ col_lo, int* __restrict__ col_hi) {
+  __shared__ int warp_sums[kThreads / 32];
+  const int tiles_x = (nx + kOwn - 1) / kOwn, lane = threadIdx.x & 31;
+  const int pieces_x = (qnx + kThreads - 1) / kThreads;
+  const long long pieces = static_cast<long long>(qny) * pieces_x;
+  int count = 0;
+  for (long long w = blockIdx.x; w < pieces; w += gridDim.x) {
+    const int qr = static_cast<int>(w / pieces_x);
+    const int qc = static_cast<int>(w - static_cast<long long>(qr) * pieces_x) * kThreads +
+                   static_cast<int>(threadIdx.x);
+    const long long q = static_cast<long long>(qr) * qnx + qc;
+    int t[4], tl[4], tr[4];
+    t[0] = t[1] = t[2] = t[3] = -1;
+    if (qc < qnx) count += plan_tiles(xf[q], yf[q], ny, nx, tiles_x, t);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      tl[k] = __shfl_up_sync(0xffffffffu, t[k], 1);
+      tr[k] = __shfl_down_sync(0xffffffffu, t[k], 1);
+    }
+    if (lane == 0) {
+      if (qc > 0 && qc < qnx)
+        plan_tiles(xf[q - 1], yf[q - 1], ny, nx, tiles_x, tl);
+      else
+        tl[0] = tl[1] = tl[2] = tl[3] = -1;
+    }
+    if (kCols && lane == 31) {
+      if (qc + 1 < qnx)
+        plan_tiles(xf[q + 1], yf[q + 1], ny, nx, tiles_x, tr);
+      else
+        tr[0] = tr[1] = tr[2] = tr[3] = -1;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (t[k] < 0) continue;
+      if (kCols) {
+        const int key = t[k] * nbt + (qr - rows[2 * t[k]]) / kBand;
+        if (t[k] != tl[k]) atomicMin(col_lo + key, qc);
+        if (t[k] != tr[k]) atomicMax(col_hi + key, qc);
+      } else if (t[k] != tl[k]) {
+        atomicMin(row_lo + t[k], qr);
+        atomicMax(row_hi + t[k], qr);
+      }
+    }
+  }
+  if (kCols) return;
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_xor_sync(0xffffffffu, count, o);
+  if (lane == 0) warp_sums[threadIdx.x >> 5] = count;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long total = 0;
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
+    if (total) atomicAdd(pairs, static_cast<unsigned long long>(total));
+  }
+}
+
+// One block: each tile's words -- rows[2t], rows[2t + 1] its first and last
+// query row ((0, -1) without a query), ptr its first band (an exclusive scan
+// of the band counts, ptr[T] all of them) -- and meta[1] = nbt, meta[2] =
+// the bands in all.  The tiles go in segments of kPackSeg: their band
+// counts read coalesced into shared memory, a thread scanning kPackPer
+// consecutive ones, the starts written back coalesced.
+constexpr int kPackPer = 8, kPackSeg = kPackThreads * kPackPer;
+__global__ void __launch_bounds__(kPackThreads)
+    plan_words_kernel(const int* __restrict__ row_lo, const int* __restrict__ row_hi, int T,
+                      int* __restrict__ rows, int* __restrict__ ptr, long long* __restrict__ meta) {
+  __shared__ int nb_s[kPackSeg];
+  __shared__ int warp_sums[kPackThreads / 32], warp_max[kPackThreads / 32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int carry = 0, most = 0;
+  for (int s0 = 0; s0 < T; s0 += kPackSeg) {
+    for (int j = t; j < kPackSeg; j += kPackThreads) {
+      const int i = s0 + j;
+      int nb = 0;
+      if (i < T) {
+        const int lo = row_lo[i], hi = row_hi[i];
+        nb = hi >= 0 ? (hi - lo) / kBand + 1 : 0;
+        rows[2 * i] = hi >= 0 ? lo : 0;
+        rows[2 * i + 1] = hi >= 0 ? hi : -1;
+      }
+      nb_s[j] = nb;
+      most = max(most, nb);
+    }
+    __syncthreads();
+    int loc[kPackPer], sum = 0;
+#pragma unroll
+    for (int k = 0; k < kPackPer; ++k) {
+      loc[k] = nb_s[t * kPackPer + k];
+      sum += loc[k];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    int run = carry + incl - sum, seg = 0;
+    for (int w = 0; w < kPackThreads / 32; ++w) {
+      if (w < warp) run += warp_sums[w];
+      seg += warp_sums[w];
+    }
+#pragma unroll
+    for (int k = 0; k < kPackPer; ++k) {
+      nb_s[t * kPackPer + k] = run;
+      run += loc[k];
+    }
+    __syncthreads();
+    for (int j = t; j < kPackSeg && s0 + j < T; j += kPackThreads) ptr[s0 + j] = nb_s[j];
+    carry += seg;
+    __syncthreads();  // nb_s and warp_sums are the next segment's
+  }
+  for (int o = 16; o > 0; o >>= 1) most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+  if (lane == 0) warp_max[warp] = most;
+  __syncthreads();
+  if (t == 0) {
+    int m = 0;
+    for (int w = 0; w < kPackThreads / 32; ++w) m = max(m, warp_max[w]);
+    ptr[T] = carry;
+    meta[1] = m;
+    meta[2] = carry;
+  }
+}
+
+// Band k of tile t (entry t * nbt + k, k below the tile's band count): its
+// span lo | hi << 16 at spans[ptr[t] + k] (0xffff | 0 without a query), and
+// its staged queries (its rows times its columns) added into *window.
+__global__ void __launch_bounds__(kThreads)
+    plan_spans_kernel(const int* __restrict__ rows, const int* __restrict__ ptr, int T, int nbt,
+                      const int* __restrict__ col_lo, const int* __restrict__ col_hi,
+                      unsigned* __restrict__ spans, unsigned long long* __restrict__ window) {
+  __shared__ long long warp_sums[kThreads / 32];
+  long long win = 0;
+  const long long n = static_cast<long long>(T) * nbt;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int t = static_cast<int>(i / nbt);
+    const int k = static_cast<int>(i - static_cast<long long>(t) * nbt);
+    const int p0 = ptr[t];
+    if (k >= ptr[t + 1] - p0) continue;
+    int lo = col_lo[i], hi = col_hi[i];
+    if (hi < 0) {
+      lo = 0xffff;
+      hi = 0;
+    } else {
+      const int first = rows[2 * t] + kBand * k;
+      win += static_cast<long long>(min(first + kBand - 1, rows[2 * t + 1]) - first + 1) *
+             (hi - lo + 1);
+    }
+    spans[p0 + k] = static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+  }
+  for (int o = 16; o > 0; o >>= 1) win += __shfl_xor_sync(0xffffffffu, win, o);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = win;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long total = 0;
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
+    if (total) atomicAdd(window, static_cast<unsigned long long>(total));
+  }
+}
+
+// A grid of at most 8 blocks of kThreads an SM (every thread resident).
+int resident_blocks(long long n) {
+  int dev = 0, nsm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  return std::min(blocks_for(n), 8 * std::max(nsm, 1));
+}
+
+// The rows pass and the words: scratch (2, T) int32, meta (4,) int64 (the
+// incidences, nbt, the bands, the window), both filled here.
+template <typename Pos>
+int plan_rows(const Pos* xf, const Pos* yf, int qny, int qnx, int ny, int nx, int* scratch,
+              int* rows, int* ptr, long long* meta, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int T = ((ny + kOwn - 1) / kOwn) * ((nx + kOwn - 1) / kOwn);
+  const long long n = static_cast<long long>(qny) * qnx;
+  cudaMemsetAsync(scratch, 0x7f, sizeof(int) * T, s);
+  cudaMemsetAsync(scratch + T, 0xff, sizeof(int) * T, s);
+  cudaMemsetAsync(meta, 0, 4 * sizeof(long long), s);
+  if (n > 0)
+    plan_pass_kernel<Pos, false><<<resident_blocks(n), kThreads, 0, s>>>(
+        xf, yf, qny, qnx, ny, nx, scratch, scratch + T,
+        reinterpret_cast<unsigned long long*>(meta), nullptr, 0, nullptr, nullptr);
+  plan_words_kernel<<<1, kPackThreads, 0, s>>>(scratch, scratch + T, T, rows, ptr, meta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The columns pass and the spans: scratch (2, T * nbt) int32, filled here;
+// the window added into meta[3].
+template <typename Pos>
+int plan_cols(const Pos* xf, const Pos* yf, int qny, int qnx, int ny, int nx, const int* rows,
+              const int* ptr, int nbt, int* scratch, unsigned* spans, long long* meta,
+              void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int T = ((ny + kOwn - 1) / kOwn) * ((nx + kOwn - 1) / kOwn);
+  const long long n = static_cast<long long>(qny) * qnx, m = static_cast<long long>(T) * nbt;
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  cudaMemsetAsync(scratch, 0x7f, sizeof(int) * m, s);
+  cudaMemsetAsync(scratch + m, 0xff, sizeof(int) * m, s);
+  if (n > 0)
+    plan_pass_kernel<Pos, true><<<resident_blocks(n), kThreads, 0, s>>>(
+        xf, yf, qny, qnx, ny, nx, nullptr, nullptr, nullptr, rows, nbt, scratch, scratch + m);
+  plan_spans_kernel<<<resident_blocks(m), kThreads, 0, s>>>(
+      rows, ptr, T, nbt, scratch, scratch + m, spans,
+      reinterpret_cast<unsigned long long*>(meta + 3));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Pos>
@@ -317,16 +1108,16 @@ int gather(const double* image, const double* gain, int ny, int nx, const Pos* x
 }
 
 template <typename Pos>
-int scatter_adjoint(const double* values, const double* gain, int ny, int nx, const Pos* xf,
-                    const Pos* yf, int qny, int qnx, double* out,
-                    unsigned long long* global_tiles, void* stream) {
+int scatter_stream(const double* values, const double* gain, int ny, int nx, const Pos* xf,
+                   const Pos* yf, int qny, int qnx, double* out,
+                   unsigned long long* off_plan_tiles, void* stream) {
   if (qny > 0 && qnx > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (qny == 1)
       launch_adjoint<kTileQueries, Pos>(values, gain, ny, nx, xf, yf, qny, qnx, out,
-                                        global_tiles, s);
+                                        off_plan_tiles, s);
     else
-      launch_adjoint<32, Pos>(values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles, s);
+      launch_adjoint<32, Pos>(values, gain, ny, nx, xf, yf, qny, qnx, out, off_plan_tiles, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -351,25 +1142,96 @@ int bilinear_gather_f32(const double* image, const double* gain, int ny, int nx,
   return gather<float>(image, gain, ny, nx, xf, yf, n, out, accumulate, stream);
 }
 
-// K4.  values, xf, yf f64 on a (qny, qnx) query grid, row-major (a 1-D
-// stream is one row, qny = 1); gain (ny, nx) f64 or NULL; out (ny, nx) f64,
-// to which the kernel adds (the caller zeroes it); global_tiles one counter
-// on the device, to which each tile that takes the global route adds one.
-// A 2-D grid is cut into 32 x 32 tiles, one row into 1 x 1024.  Returns
-// cudaGetLastError() after the launch.
+// K4, planned.  values, xf, yf f64 on a (qny, qnx) query grid, row-major,
+// qnx <= 65535; gain (ny, nx) f64 or NULL; rows (T, 2), ptr (T + 1) int32
+// and spans int32 the plan of these positions for the T = ceil(ny / 32)
+// ceil(nx / 32) tiles of the output (ops/bilinear_cuda.build_adjoint_plan);
+// out (ny, nx) f64: written whole, or with `accumulate` added into.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for too wide a
+// grid).
 int bilinear_scatter_adjoint(const double* values, const double* gain, int ny, int nx,
-                             const double* xf, const double* yf, int qny, int qnx, double* out,
-                             unsigned long long* global_tiles, void* stream) {
-  return scatter_adjoint<double>(values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles,
-                                 stream);
+                             const double* xf, const double* yf, int qny, int qnx,
+                             const int* rows, const int* ptr, const unsigned* spans, double* out,
+                             int accumulate, void* stream) {
+  (void)qny;
+  return scatter_planned<double>(values, gain, ny, nx, xf, yf, qnx, rows, ptr, spans, out,
+                                 accumulate, stream);
 }
 
-// K4 on float32 positions xf, yf; everything else as bilinear_scatter_adjoint.
+// K4, planned, on float32 positions xf, yf; everything else as
+// bilinear_scatter_adjoint.
 int bilinear_scatter_adjoint_f32(const double* values, const double* gain, int ny, int nx,
                                  const float* xf, const float* yf, int qny, int qnx,
-                                 double* out, unsigned long long* global_tiles, void* stream) {
-  return scatter_adjoint<float>(values, gain, ny, nx, xf, yf, qny, qnx, out, global_tiles,
+                                 const int* rows, const int* ptr, const unsigned* spans,
+                                 double* out, int accumulate, void* stream) {
+  (void)qny;
+  return scatter_planned<float>(values, gain, ny, nx, xf, yf, qnx, rows, ptr, spans, out,
+                                accumulate, stream);
+}
+
+// K4 off the plan (the tiled body), for a 1-D stream (qny = 1: tiles of 1 x
+// 1024 queries) or a grid wider than the plan's columns (32 x 32 tiles).
+// values, xf, yf f64 on the (qny, qnx) query grid; gain (ny, nx) f64 or
+// NULL; out (ny, nx) f64, to which the kernel adds (the caller zeroes it);
+// off_plan_tiles one counter on the device, to which each tile holding a
+// query in bounds adds one.  Returns cudaGetLastError() after the launch.
+int bilinear_scatter_adjoint_stream(const double* values, const double* gain, int ny, int nx,
+                                    const double* xf, const double* yf, int qny, int qnx,
+                                    double* out, unsigned long long* off_plan_tiles,
+                                    void* stream) {
+  return scatter_stream<double>(values, gain, ny, nx, xf, yf, qny, qnx, out, off_plan_tiles,
                                 stream);
+}
+
+// K4 off the plan on float32 positions; everything else as
+// bilinear_scatter_adjoint_stream.
+int bilinear_scatter_adjoint_stream_f32(const double* values, const double* gain, int ny,
+                                        int nx, const float* xf, const float* yf, int qny,
+                                        int qnx, double* out,
+                                        unsigned long long* off_plan_tiles, void* stream) {
+  return scatter_stream<float>(values, gain, ny, nx, xf, yf, qny, qnx, out, off_plan_tiles,
+                               stream);
+}
+
+// K4's plan, the rows pass and the tiles' words.  xf, yf f64 on a (qny,
+// qnx) query grid, row-major; for the T = ceil(ny / 32) ceil(nx / 32) tiles
+// of the (ny, nx) output: scratch (2, T) int32, rows (T, 2) and ptr (T + 1)
+// int32 written (the plan's); meta (4,) int64 written: the (tile, query)
+// incidences, nbt (the most bands of a tile), the bands in all, and 0 for
+// the window.  Returns cudaGetLastError() after the launches.
+int bilinear_adjoint_plan_rows(const double* xf, const double* yf, int qny, int qnx, int ny,
+                               int nx, int* scratch, int* rows, int* ptr, long long* meta,
+                               void* stream) {
+  return plan_rows<double>(xf, yf, qny, qnx, ny, nx, scratch, rows, ptr, meta, stream);
+}
+
+// The rows pass on float32 positions; everything else as
+// bilinear_adjoint_plan_rows.
+int bilinear_adjoint_plan_rows_f32(const float* xf, const float* yf, int qny, int qnx, int ny,
+                                   int nx, int* scratch, int* rows, int* ptr, long long* meta,
+                                   void* stream) {
+  return plan_rows<float>(xf, yf, qny, qnx, ny, nx, scratch, rows, ptr, meta, stream);
+}
+
+// K4's plan, the columns pass and the spans: rows, ptr and nbt = meta[1]
+// from the rows pass; scratch (2, T nbt) int32; spans (meta[2],) int32
+// written (the plan's); the staged queries added into meta[3].  Returns
+// cudaGetLastError() after the launches.
+int bilinear_adjoint_plan_cols(const double* xf, const double* yf, int qny, int qnx, int ny,
+                               int nx, const int* rows, const int* ptr, int nbt, int* scratch,
+                               unsigned* spans, long long* meta, void* stream) {
+  return plan_cols<double>(xf, yf, qny, qnx, ny, nx, rows, ptr, nbt, scratch, spans, meta,
+                           stream);
+}
+
+// The columns pass on float32 positions; everything else as
+// bilinear_adjoint_plan_cols.
+int bilinear_adjoint_plan_cols_f32(const float* xf, const float* yf, int qny, int qnx, int ny,
+                                   int nx, const int* rows, const int* ptr, int nbt,
+                                   int* scratch, unsigned* spans, long long* meta,
+                                   void* stream) {
+  return plan_cols<float>(xf, yf, qny, qnx, ny, nx, rows, ptr, nbt, scratch, spans, meta,
+                          stream);
 }
 
 }  // extern "C"

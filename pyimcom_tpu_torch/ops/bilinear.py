@@ -120,31 +120,35 @@ def bilinear_gather(image: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
 
 def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
                              shape, g_eff: torch.Tensor | None = None, *,
-                             out: torch.Tensor | None = None) -> torch.Tensor:
+                             out: torch.Tensor | None = None, plan=None) -> torch.Tensor:
     """The exact adjoint of :func:`bilinear_gather` with respect to the
-    image; with `out`, added into it in place.  K4 on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    image; with `out`, added into it in place.  K4 on a CUDA tensor (over
+    `plan`, K4's plan of these positions, where one is given:
+    bilinear_cuda.build_adjoint_plan), the plain version on a CPU tensor,
+    which takes no plan and ignores one."""
     from . import bilinear_cuda
 
     if _device_route(values, "bilinear_scatter_adjoint"):
-        return bilinear_cuda.bilinear_scatter_adjoint(values, xf, yf, shape, g_eff, out=out)
+        return bilinear_cuda.bilinear_scatter_adjoint(values, xf, yf, shape, g_eff, out=out,
+                                                      plan=plan)
     val = bilinear_scatter_adjoint_plain(values, xf, yf, shape, g_eff)
     return val if out is None else out.add_(val)
 
 
 class BilinearGather(torch.autograd.Function):
     """
-    ``BilinearGather.apply(image, xf, yf, g_eff=None, acc=None)``: the
-    gather of `image` (ny, nx) at (xf, yf) (K3), added in place into `acc`
-    where one is given (and returned).  The positions are float64 or both
-    float32.  The backward is K4 with respect to the image, and the identity
-    with respect to `acc`; the positions and the gain take no gradient.  It
-    saves only its inputs xf, yf and g_eff, no output.
+    ``BilinearGather.apply(image, xf, yf, g_eff=None, acc=None, plan=None)``:
+    the gather of `image` (ny, nx) at (xf, yf) (K3), added in place into
+    `acc` where one is given (and returned).  The positions are float64 or
+    both float32.  The backward is K4 with respect to the image (over
+    `plan`, K4's plan of the positions, where given), and the identity with
+    respect to `acc`; the positions and the gain take no gradient.  It saves
+    only its inputs xf, yf and g_eff and the plan, no output.
     """
 
     @staticmethod
-    def forward(ctx, image, xf, yf, g_eff=None, acc=None):
-        ctx.shape, ctx.with_acc = tuple(image.shape), acc is not None
+    def forward(ctx, image, xf, yf, g_eff=None, acc=None, plan=None):
+        ctx.shape, ctx.with_acc, ctx.plan = tuple(image.shape), acc is not None, plan
         ctx.save_for_backward(xf, yf, g_eff)
         if acc is None:
             return bilinear_gather(image, xf, yf, g_eff)
@@ -156,6 +160,7 @@ class BilinearGather(torch.autograd.Function):
         xf, yf, g_eff = ctx.saved_tensors
         grad_image = None
         if ctx.needs_input_grad[0]:
-            grad_image = bilinear_scatter_adjoint(grad.contiguous(), xf, yf, ctx.shape, g_eff)
+            grad_image = bilinear_scatter_adjoint(grad.contiguous(), xf, yf, ctx.shape, g_eff,
+                                                  plan=ctx.plan)
         grad_acc = grad if ctx.with_acc and ctx.needs_input_grad[4] else None
-        return grad_image, None, None, None, grad_acc
+        return grad_image, None, None, None, grad_acc, None

@@ -18,17 +18,27 @@ under their own names (``bilinear_gather.f32``,
 float64 as they read it, so they compute what the f64 forms compute on the
 widened positions.  The plain versions are in ``ops/bilinear.py``.
 
-K4 takes its queries in tiles of their grid: a 2-D `xf` is the (qny, qnx)
-query grid (a destripe pair passes the target's pixel grid), any other
-shape one row.  A tile whose taps' bounding box outgrows the kernel's
-shared-memory box adds straight into device memory and counts itself in
-:func:`global_tiles`; :func:`predict_global_tiles` computes the same count
-in plain torch.
+K4 on a 2-D query grid (a destripe pair passes the target's pixel grid)
+is owner-writes over a per-pair plan: one block a 32 x 32 tile of the
+output, which stages the queries the plan names for it and writes each of
+its pixels once, with no f64 atomic and its sums in a fixed order (two
+launches give the same bits).  :func:`build_adjoint_plan` builds the plan
+on the card with the plan kernel of the same file (``bilinear_adjoint_plan``:
+two C entries a plan, each a pass over the positions and its packing,
+counted under that name) and on a CPU tensor with its plain version
+(:func:`build_adjoint_plan_plain`); a caller that launches K4 many times on
+one map (the destripe cost) builds it once and passes it; a call without
+one builds it.  A 1-D stream (or a grid wider than
+``PLAN_MAX_COLS`` columns) has no plan and takes the earlier tiled body, which counts
+its tiles in :func:`off_plan_tiles`; :func:`predict_off_plan_tiles`
+computes the same count in plain torch.  ``adjoint_routes`` counts K4's
+launches by route.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -39,31 +49,51 @@ from .interp_cuda import _check
 # by the wrappers where they launch, and nowhere else; a form on float32
 # positions counts under its kernel's name + ".f32"
 launches = {"bilinear_gather": 0, "bilinear_scatter_adjoint": 0,
-            "bilinear_gather.f32": 0, "bilinear_scatter_adjoint.f32": 0}
+            "bilinear_gather.f32": 0, "bilinear_scatter_adjoint.f32": 0,
+            "bilinear_adjoint_plan": 0, "bilinear_adjoint_plan.f32": 0}
 # the position dtypes a kernel takes, and the suffix of their form's C entry
 POSITION_FORMS = {torch.float64: "", torch.float32: "_f32"}
 
+# K4's launches by route: over a plan, or the tiled body off the plan
+adjoint_routes = {"planned": 0, "stream": 0}
+
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _GATHER_ARGS = (_p, _p, _i, _i, _p, _p, _ll, _p, _i, _p)
-_ADJOINT_ARGS = (_p, _p, _i, _i, _p, _p, _i, _i, _p, _p, _p)
+_PLANNED_ARGS = (_p, _p, _i, _i, _p, _p, _i, _i, _p, _p, _p, _p, _i, _p)
+_STREAM_ARGS = (_p, _p, _i, _i, _p, _p, _i, _i, _p, _p, _p)
+_PLAN_ROWS_ARGS = (_p, _p, _i, _i, _i, _i, _p, _p, _p, _p, _p)
+_PLAN_COLS_ARGS = (_p, _p, _i, _i, _i, _i, _p, _p, _i, _p, _p, _p, _p)
 _SIGNATURES = {"bilinear_gather": _GATHER_ARGS, "bilinear_gather_f32": _GATHER_ARGS,
-               "bilinear_scatter_adjoint": _ADJOINT_ARGS,
-               "bilinear_scatter_adjoint_f32": _ADJOINT_ARGS}
-# K4's tiling, as csrc/bilinear.cu has it: (rows, columns) of queries a tile
-# of a 2-D query grid and of one row, and the f64 slots of a tile's
-# accumulator box in shared memory
-ADJOINT_TILE, ADJOINT_ROW_TILE, ADJOINT_BOX_CAP = (32, 32), (1, 1024), 3072
+               "bilinear_scatter_adjoint": _PLANNED_ARGS,
+               "bilinear_scatter_adjoint_f32": _PLANNED_ARGS,
+               "bilinear_scatter_adjoint_stream": _STREAM_ARGS,
+               "bilinear_scatter_adjoint_stream_f32": _STREAM_ARGS,
+               "bilinear_adjoint_plan_rows": _PLAN_ROWS_ARGS,
+               "bilinear_adjoint_plan_rows_f32": _PLAN_ROWS_ARGS,
+               "bilinear_adjoint_plan_cols": _PLAN_COLS_ARGS,
+               "bilinear_adjoint_plan_cols_f32": _PLAN_COLS_ARGS}
+# K4's plan, as csrc/bilinear.cu reads it: output pixels a side of a tile,
+# query rows a band, and the widest query grid (columns are 16-bit); the
+# window queries the kernel stages at a time (kChunk)
+PLAN_TILE, PLAN_BAND, PLAN_MAX_COLS, PLAN_CHUNK = 32, 4, 65535, 1280
+# query rows of positions one step of build_adjoint_plan reads
+PLAN_BUILD_ROWS = 256
+# the off-plan body's tiling: (rows, columns) of queries a tile of a grid
+# and of one row
+ADJOINT_TILE, ADJOINT_ROW_TILE = (32, 32), (1, 1024)
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, adjoint_routes):
+        for k in counts:
+            counts[k] = 0
 
 
-def _launch(name: str, pos_dtype, device: torch.device, *args) -> None:
-    """Launch kernel `name` in its form for positions of `pos_dtype`."""
+def _launch(name: str, pos_dtype, device: torch.device, *args, route: str = "") -> None:
+    """Launch kernel `name` (its C entry `name` + `route`) in its form for
+    positions of `pos_dtype`."""
     suffix = POSITION_FORMS[pos_dtype]
-    entry = name + suffix
+    entry = name + route + suffix
     fn = getattr(_build.library("bilinear"), entry)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[entry]
@@ -107,57 +137,246 @@ def query_grid(xf: torch.Tensor) -> tuple[int, int]:
     return 1, xf.numel()
 
 
-def adjoint_tile(qny: int) -> tuple[int, int]:
-    """(rows, columns) of queries in a K4 tile of a grid of `qny` rows."""
-    return ADJOINT_ROW_TILE if qny == 1 else ADJOINT_TILE
+def planned_route(qny: int, qnx: int) -> bool:
+    """Whether K4 takes a (qny, qnx) query grid over a plan: a grid of more
+    than one row and at most PLAN_MAX_COLS columns."""
+    return qny > 1 and qnx <= PLAN_MAX_COLS
 
 
-def predict_global_tiles(xf: torch.Tensor, yf: torch.Tensor, shape) -> int:
-    """The K4 tiles that take the global route on these positions, in plain
-    torch (any device): a tile with a query in bounds whose taps' bounding
-    box holds more than ADJOINT_BOX_CAP pixels."""
+@dataclass(frozen=True)
+class AdjointPlan:
+    """
+    K4's plan of one set of positions: for each 32 x 32 tile t of the
+    (ny, nx) output, row-major, the queries whose floor tap lies in its
+    33 x 33 window of tap cells (the tile, one row above and one column
+    left), as ``rows[t]`` = its first and last query row and, for each band
+    k of PLAN_BAND query rows from the first, ``spans[ptr[t] + k]`` = lo |
+    hi << 16, the band's columns (lo > hi: none); a tile without a query has
+    no band, rows (0, -1).  `pairs` counts the (tile, query) incidences,
+    `window` the queries the kernel stages (each band's rows times its
+    span); ``r`` = window / pairs.
+    """
+
+    rows: torch.Tensor
+    ptr: torch.Tensor
+    spans: torch.Tensor
+    shape: tuple
+    grid: tuple
+    pairs: int
+    window: int
+
+    @property
+    def r(self) -> float:
+        return self.window / self.pairs if self.pairs else 1.0
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.rows, self.ptr, self.spans))
+
+    def tile_windows(self) -> torch.Tensor:
+        """The queries the kernel stages for each tile (int64, T)."""
+        T = self.ptr.numel() - 1
+        nb = (self.ptr[1:] - self.ptr[:-1]).long()
+        tile = torch.repeat_interleave(torch.arange(T, device=nb.device), nb)
+        band = torch.arange(tile.numel(), device=nb.device) - self.ptr[:-1].long()[tile]
+        first = self.rows[:, 0].long()[tile] + PLAN_BAND * band
+        rows = torch.minimum(first + PLAN_BAND - 1, self.rows[:, 1].long()[tile]) - first + 1
+        span = self.spans.long() & 0xFFFFFFFF
+        width = torch.clamp((span >> 16) - (span & 0xFFFF) + 1, min=0)
+        return torch.zeros(T, dtype=torch.int64, device=nb.device).index_add_(0, tile,
+                                                                             rows * width)
+
+
+def _plan_incidences(x, y, r0: int, shape, tiles_x: int, drop: int):
+    """The (tile, query) incidences of the queries x, y (query rows r0.. of
+    the grid, 2-D): tiles (4, n) -- the tile of the tap's pixel, then the
+    tile below, right and below-right where the tap's other pixels fall in
+    another tile, else `drop`, as for a query out of bounds -- and the
+    queries' rows and columns (n,)."""
+    from .bilinear import in_bounds
+
+    ny, nx = shape
+    inb = in_bounds(x, y, shape)
+    ix = torch.where(inb, torch.floor(x.double()), 0.0).long()
+    iy = torch.where(inb, torch.floor(y.double()), 0.0).long()
+    ty0, tx0 = iy // PLAN_TILE, ix // PLAN_TILE
+    ty1, tx1 = (iy + 1) // PLAN_TILE, (ix + 1) // PLAN_TILE
+    down, right = ty1 != ty0, tx1 != tx0
+    tiles = torch.stack([torch.where(keep, ty * tiles_x + tx, drop) for ty, tx, keep in (
+        (ty0, tx0, inb), (ty1, tx0, inb & down), (ty0, tx1, inb & right),
+        (ty1, tx1, inb & down & right))]).reshape(4, -1)
+    qr = torch.arange(r0, r0 + x.shape[0], device=x.device)[:, None].expand(x.shape)
+    qc = torch.arange(x.shape[1], device=x.device)[None, :].expand(x.shape)
+    return tiles, qr.reshape(-1), qc.reshape(-1)
+
+
+def _runs(key, qr, n_keys):
+    """The runs of equal `key` within each query row of flat incidences
+    (key (m,) in [0, n_keys], query rows qr (m,) nondecreasing): each run's
+    key and its first and last index.  Along a row a key holds for a run of
+    columns (a tile's stretch of a near-affine map), so the reductions take
+    one entry a run, not one a query."""
+    keys, counts = torch.unique_consecutive(key + (n_keys + 1) * qr, return_counts=True)
+    last = torch.cumsum(counts, 0) - 1
+    return keys % (n_keys + 1), last - counts + 1, last
+
+
+def _plan_grid(xf: torch.Tensor, shape):
+    """(ny, nx), (qny, qnx) and the tiles (T, tiles_x) of K4's plan of
+    positions `xf` on a `shape` output; raises off the planned route."""
+    ny, nx = (int(v) for v in shape)
+    qny, qnx = query_grid(xf)
+    if not planned_route(qny, qnx):
+        raise ValueError(f"a {qny} x {qnx} query grid has no K4 plan: it needs more than one "
+                         f"row and at most {PLAN_MAX_COLS} columns")
+    tiles_x = -(-nx // PLAN_TILE)
+    return (ny, nx), (qny, qnx), -(-ny // PLAN_TILE) * tiles_x, tiles_x
+
+
+def build_adjoint_plan_plain(xf: torch.Tensor, yf: torch.Tensor, shape) -> AdjointPlan:
+    """The plain version of :func:`build_adjoint_plan`: the plan
+    (:class:`AdjointPlan`) of the positions xf, yf (f64 or f32, a 2-D query
+    grid: :func:`planned_route`) on a (ny, nx) = `shape` output, in plain
+    torch on their device: two passes over the positions, PLAN_BUILD_ROWS
+    query rows a step (each tile's first and last row, then each band's
+    columns), each reducing one entry a run of a row's queries with one key
+    (:func:`_runs`)."""
+    (ny, nx), (qny, qnx), T, tiles_x = _plan_grid(xf, shape)
+    x, y = xf.reshape(qny, qnx), yf.reshape(qny, qnx)
+    dev = x.device
+    big = torch.iinfo(torch.int64).max
+    steps = range(0, qny, PLAN_BUILD_ROWS)
+
+    def step(r0):
+        return _plan_incidences(x[r0:r0 + PLAN_BUILD_ROWS], y[r0:r0 + PLAN_BUILD_ROWS], r0,
+                                (ny, nx), tiles_x, T)
+
+    # each tile's first and last query row
+    row_lo = torch.full((T + 1,), big, dtype=torch.int64, device=dev)
+    row_hi = torch.full((T + 1,), -1, dtype=torch.int64, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    for r0 in steps:
+        t, qr, _qc = step(r0)
+        for k in range(4):
+            key, first, _last = _runs(t[k], qr, T)
+            row_lo.scatter_reduce_(0, key, qr[first], "amin")
+            row_hi.scatter_reduce_(0, key, qr[first], "amax")
+        pairs += (t < T).sum()
+    row_lo, row_hi = row_lo[:T], row_hi[:T]
+    live = row_hi >= 0
+    nb = torch.where(live, (row_hi - row_lo) // PLAN_BAND + 1, 0)
+    nbt = int(nb.max()) if T else 0
+    # each band's columns
+    col_lo = torch.full((T * nbt + 1,), big, dtype=torch.int64, device=dev)
+    col_hi = torch.full((T * nbt + 1,), -1, dtype=torch.int64, device=dev)
+    for r0 in steps if nbt else ():
+        t, qr, qc = step(r0)
+        keep = t < T
+        tt = torch.where(keep, t, 0)
+        band_key = torch.where(keep, tt * nbt + (qr - row_lo[tt]) // PLAN_BAND, T * nbt)
+        for k in range(4):
+            # a run lies in one row, its columns increasing
+            key, first, last = _runs(band_key[k], qr, T * nbt)
+            col_lo.scatter_reduce_(0, key, qc[first], "amin")
+            col_hi.scatter_reduce_(0, key, qc[last], "amax")
+    band = torch.arange(nbt, device=dev)
+    mask = band[None, :] < nb[:, None]
+    lo, hi = col_lo[:T * nbt].reshape(T, nbt)[mask], col_hi[:T * nbt].reshape(T, nbt)[mask]
+    empty = hi < 0
+    lo, hi = torch.where(empty, 0xFFFF, lo), torch.where(empty, 0, hi)
+    packed = lo | (hi << 16)
+    spans = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(torch.int32)
+    tile = torch.arange(T, device=dev)[:, None].expand(T, nbt)[mask]
+    first = row_lo[tile] + PLAN_BAND * band[None, :].expand(T, nbt)[mask]
+    band_rows = torch.minimum(first + PLAN_BAND - 1, row_hi[tile]) - first + 1
+    window = int((band_rows * torch.where(empty, 0, hi - lo + 1)).sum())
+    rows = torch.stack([torch.where(live, row_lo, 0), torch.where(live, row_hi, -1)], 1)
+    ptr = torch.cat([nb.new_zeros(1), torch.cumsum(nb, 0)])
+    return AdjointPlan(rows=rows.to(torch.int32).contiguous(), ptr=ptr.to(torch.int32),
+                       spans=spans.contiguous(), shape=(ny, nx), grid=(qny, qnx),
+                       pairs=int(pairs), window=window)
+
+
+def build_adjoint_plan(xf: torch.Tensor, yf: torch.Tensor, shape) -> AdjointPlan:
+    """K4's plan (:class:`AdjointPlan`) of the positions xf, yf (f64, or
+    both f32, contiguous; a 2-D query grid: :func:`planned_route`) on a
+    (ny, nx) = `shape` output.  On a CUDA tensor the plan kernel's two C
+    entries (``bilinear_adjoint_plan_rows``: each tile's rows and ptr, then
+    ``_cols``: the spans), with the most bands of a tile read back between
+    them and the counts at the end; on a CPU tensor its plain version,
+    :func:`build_adjoint_plan_plain`, which gives the same plan."""
+    if xf.device.type == "cpu":
+        return build_adjoint_plan_plain(xf, yf, shape)
+    (ny, nx), (qny, qnx), T, _tiles_x = _plan_grid(xf, shape)
+    dev = xf.device
+    _check_pair((ny, nx), xf, yf, None, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows, ptr = torch.empty((T, 2), **i32), torch.empty(T + 1, **i32)
+    # the incidences, the most bands of a tile, the bands, the window
+    meta = torch.empty(4, dtype=torch.int64, device=dev)
+    scratch = torch.empty(2 * T, **i32)
+    _launch("bilinear_adjoint_plan", xf.dtype, dev, xf.data_ptr(), yf.data_ptr(), qny, qnx, ny,
+            nx, scratch.data_ptr(), rows.data_ptr(), ptr.data_ptr(), meta.data_ptr(),
+            route="_rows")
+    _pairs, nbt, bands, _window = meta.tolist()
+    if T * nbt >= 2 ** 31 or bands >= 2 ** 31:
+        raise ValueError(f"K4's plan of {T} tiles of up to {nbt} bands outgrows int32")
+    spans = torch.empty(bands, **i32)
+    if nbt:
+        scratch = torch.empty(2 * T * nbt, **i32)
+        _launch("bilinear_adjoint_plan", xf.dtype, dev, xf.data_ptr(), yf.data_ptr(), qny, qnx,
+                ny, nx, rows.data_ptr(), ptr.data_ptr(), nbt, scratch.data_ptr(),
+                spans.data_ptr(), meta.data_ptr(), route="_cols")
+    pairs, _nbt, _bands, window = meta.tolist()
+    return AdjointPlan(rows=rows, ptr=ptr, spans=spans, shape=(ny, nx), grid=(qny, qnx),
+                       pairs=pairs, window=window)
+
+
+def _check_plan(plan, shape, grid, dev) -> None:
+    if not isinstance(plan, AdjointPlan):
+        raise TypeError(f"plan must be an AdjointPlan, got {type(plan).__name__}")
+    if tuple(plan.shape) != tuple(shape) or tuple(plan.grid) != tuple(grid):
+        raise ValueError(f"the plan is for a {plan.grid} query grid on a {plan.shape} output, "
+                         f"not {tuple(grid)} on {tuple(shape)}")
+    for name in ("rows", "ptr", "spans"):
+        _check(getattr(plan, name), f"plan.{name}", torch.int32, dev, getattr(plan, name).dim())
+
+
+def predict_off_plan_tiles(xf: torch.Tensor, yf: torch.Tensor, shape) -> int:
+    """The K4 tiles these positions give the off-plan body, in plain torch
+    (any device): none on a planned grid (:func:`planned_route`); else each
+    of its tiles (1 x 1024 queries of one row, 32 x 32 of a grid) that holds
+    a query in bounds."""
     from .bilinear import in_bounds
 
     qny, qnx = query_grid(xf)
-    th, tw = adjoint_tile(qny)
+    if planned_route(qny, qnx) or xf.numel() == 0:
+        return 0
+    th, tw = ADJOINT_ROW_TILE if qny == 1 else ADJOINT_TILE
     ty, tx = -(-qny // th), -(-qnx // tw)
-    inb = in_bounds(xf, yf, shape).reshape(qny, qnx)
-    big = float(2 ** 31)
-
-    def per_tile(a, fill):
-        full = a.new_full((ty * th, tx * tw), fill)
-        full[:qny, :qnx] = a
-        return full.reshape(ty, th, tx, tw).transpose(1, 2).reshape(ty, tx, th * tw)
-
-    fx = torch.floor(xf.double()).reshape(qny, qnx)
-    fy = torch.floor(yf.double()).reshape(qny, qnx)
-    x_lo = per_tile(torch.where(inb, fx, big), big).amin(-1)
-    x_hi = per_tile(torch.where(inb, fx, -big), -big).amax(-1)
-    y_lo = per_tile(torch.where(inb, fy, big), big).amin(-1)
-    y_hi = per_tile(torch.where(inb, fy, -big), -big).amax(-1)
-    live = per_tile(inb, False).any(-1)
-    box = (x_hi - x_lo + 2) * (y_hi - y_lo + 2)
-    return int((live & (box > ADJOINT_BOX_CAP)).sum())
+    full = torch.zeros((ty * th, tx * tw), dtype=torch.bool, device=xf.device)
+    full[:qny, :qnx] = in_bounds(xf, yf, shape).reshape(qny, qnx)
+    return int(full.reshape(ty, th, tx, tw).any(3).any(1).sum())
 
 
-def _global_counter(device: torch.device) -> torch.Tensor:
-    c = _global_counters.get(device)
+def _off_plan_counter(device: torch.device) -> torch.Tensor:
+    c = _off_plan_counters.get(device)
     if c is None:
-        c = _global_counters[device] = torch.zeros(1, dtype=torch.int64, device=device)
+        c = _off_plan_counters[device] = torch.zeros(1, dtype=torch.int64, device=device)
     return c
 
 
-_global_counters: dict[torch.device, torch.Tensor] = {}
+_off_plan_counters: dict[torch.device, torch.Tensor] = {}
 
 
-def global_tiles(device) -> int:
-    """K4 tiles that took the global route (their box outgrew shared memory)
-    on `device` since the last :func:`reset_global_tiles`."""
-    return int(_global_counter(torch.device(device)).item())
+def off_plan_tiles(device) -> int:
+    """K4 tiles that the off-plan body ran with a query in bounds on
+    `device` since the last :func:`reset_off_plan_tiles`."""
+    return int(_off_plan_counter(torch.device(device)).item())
 
 
-def reset_global_tiles() -> None:
-    for c in _global_counters.values():
+def reset_off_plan_tiles() -> None:
+    for c in _off_plan_counters.values():
         c.zero_()
 
 
@@ -191,14 +410,18 @@ def bilinear_gather(image: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
 
 def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor,
                              shape, g_eff: torch.Tensor | None = None, *,
-                             out: torch.Tensor | None = None) -> torch.Tensor:
+                             out: torch.Tensor | None = None,
+                             plan: AdjointPlan | None = None) -> torch.Tensor:
     """
     K4: the exact adjoint of K3 with respect to the image: values f64 and
     xf, yf (f64, or both f32), one shape, CUDA -> (ny, nx) = `shape` f64,
     each in-bounds value added into its four taps with K3's weights (and
-    gain).  The queries are tiled on their grid (:func:`query_grid`); the
-    sums are taken with atomics, in no fixed order.  With `out` ((ny, nx)
-    f64) the contributions are added into it in place, and it is returned.
+    gain).  On a planned grid (:func:`planned_route`) over `plan`
+    (:func:`build_adjoint_plan` of these positions and `shape`; built here
+    if not given), each output pixel written once, its sum in a fixed
+    order; else by the off-plan body, with atomics, in no fixed order.  With
+    `out` ((ny, nx) f64) the contributions are added into it in place, and
+    it is returned.
     """
     dev = values.device
     _check(values, "values", torch.float64, dev, values.dim())
@@ -206,19 +429,36 @@ def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.T
     if values.shape != xf.shape:
         raise ValueError(f"values must have xf's shape {tuple(xf.shape)}, got "
                          f"{tuple(values.shape)}")
-    if out is None:
-        out = torch.zeros((ny, nx), dtype=torch.float64, device=dev)
-    else:
+    if out is not None:
         _check(out, "out", torch.float64, dev, 2)
         if tuple(out.shape) != (ny, nx):
             raise ValueError(f"out must have the image's shape {(ny, nx)}, got "
                              f"{tuple(out.shape)}")
-    if xf.numel() == 0:
-        return out
     qny, qnx = query_grid(xf)
     if qny >= 2 ** 31 or qnx >= 2 ** 31:
         raise ValueError("K4 indexes the query grid's rows and columns with int32")
+    planned = planned_route(qny, qnx)
+    if plan is not None:
+        if not planned:
+            raise ValueError(f"a {qny} x {qnx} query grid takes no plan")
+        _check_plan(plan, (ny, nx), (qny, qnx), dev)
+    if xf.numel() == 0:
+        return out if out is not None else torch.zeros((ny, nx), dtype=torch.float64,
+                                                       device=dev)
+    if planned:
+        if plan is None:
+            plan = build_adjoint_plan(xf, yf, (ny, nx))
+        result = out if out is not None else torch.empty((ny, nx), dtype=torch.float64,
+                                                         device=dev)
+        _launch("bilinear_scatter_adjoint", xf.dtype, dev, values.data_ptr(), _ptr(g_eff), ny,
+                nx, xf.data_ptr(), yf.data_ptr(), qny, qnx, plan.rows.data_ptr(),
+                plan.ptr.data_ptr(), plan.spans.data_ptr(), result.data_ptr(),
+                int(out is not None))
+        adjoint_routes["planned"] += 1
+        return result
+    result = out if out is not None else torch.zeros((ny, nx), dtype=torch.float64, device=dev)
     _launch("bilinear_scatter_adjoint", xf.dtype, dev, values.data_ptr(), _ptr(g_eff), ny, nx,
-            xf.data_ptr(), yf.data_ptr(), qny, qnx, out.data_ptr(),
-            _global_counter(dev).data_ptr())
-    return out
+            xf.data_ptr(), yf.data_ptr(), qny, qnx, result.data_ptr(),
+            _off_plan_counter(dev).data_ptr(), route="_stream")
+    adjoint_routes["stream"] += 1
+    return result

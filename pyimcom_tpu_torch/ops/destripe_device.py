@@ -9,11 +9,15 @@ as one differentiable PyTorch function; ``torch.autograd.grad`` gives its
 exact gradient, through the gain weighting too.  The pair gather is
 :class:`~.bilinear.BilinearGather` (kernel K3 on the card, its adjoint K4 in
 the backward), added in place into the target's accumulator; its positions
-and the accumulator keep the target's (ny, nx) pixel grid, which K4 tiles.
-It saves no per-pair output for the backward: the JAX package
-rematerialises its scan for the same reason (P saved planes of 4088^2 would
-add P x 134 MB).  The hit counts and the valid pixels depend on the maps
-alone, so they are computed once, when the module is built.
+and the accumulator keep the target's (ny, nx) pixel grid.  It saves no
+per-pair output for the backward: the JAX package rematerialises its scan
+for the same reason (P saved planes of 4088^2 would add P x 134 MB).  The
+hit counts, the valid pixels and, on a CUDA device, K4's plan of each pair
+(which queries add into each 32 x 32 tile of the target's grid; ~1 MB a
+4088^2 pair, built by the plan kernel and kept on the device whatever the
+maps' storage) depend on the maps alone, so they are computed once, when
+the module is built, in the one walk over the pairs that counts the hits.
+On the CPU the plain adjoint runs, which takes no plan.
 
 The pair maps (each pair's positions, two (ny, nx) planes) are stored at
 ``map_dtype`` "f64" or "f32" (the JAX package's PYIMCOM_DESTRIPE_MAP_DTYPE:
@@ -46,6 +50,7 @@ from .bilinear import (
     bilinear_scatter_adjoint,
     in_bounds,
 )
+from .bilinear_cuda import build_adjoint_plan
 
 # the storage of the pair maps: their dtype, and where they live
 MAP_DTYPES = {"f64": torch.float64, "f32": torch.float32}
@@ -216,8 +221,15 @@ class _StreamedPairs(torch.autograd.Function):
             if g_img[j] is None:
                 g_img[j] = g_acc[i].new_zeros((cost.ny, cost.nx))
             bilinear_scatter_adjoint(g_acc[i].contiguous(), x, y, (cost.ny, cost.nx),
-                                     cost.ge[j], out=g_img[j])
+                                     cost.ge[j], out=g_img[j], plan=cost.plans[p])
         return (None, *g_img)
+
+
+def _pair_plan(x, y, shape):
+    """K4's plan of a pair's maps x, y on a `shape` target where K4 runs
+    over it, on a CUDA device; None on the CPU, whose plain adjoint takes
+    no plan."""
+    return build_adjoint_plan(x, y, shape) if x.is_cuda else None
 
 
 class DestripeCost(torch.nn.Module):
@@ -292,10 +304,12 @@ class DestripeCost(torch.nn.Module):
             self.yf = [_host_map(a, ny, nx, mdt) for a in yf]
             self.maps = PairMaps(self.xf, self.yf, dev) if self.pairs else None
             walk = self.maps.walk(range(len(self.pairs))) if self.pairs else ()
-        # hit counts of each target pixel (built while the maps stream up):
-        # where none, J is 0 and r is 0
+        # hit counts of each target pixel and K4's plan of each pair (built
+        # while the maps stream up): where no hit, J is 0 and r is 0
+        self.plans = []
         for p, x, y in walk:
             cnt[self.pairs[p][0]] += in_bounds(x, y, (ny, nx))
+            self.plans.append(_pair_plan(x, y, (ny, nx)))
         valid = cnt > 0
         mask = put(masks, torch.bool) if masks is not None else torch.ones_like(valid)
         self.register_buffer("cnt", torch.where(valid, cnt, 1.0))
@@ -340,7 +354,7 @@ class DestripeCost(torch.nn.Module):
                 acc[i] = acc[i] + checkpoint(self._plain_pair, imgs[j], p, use_reentrant=False)
             elif self.map_store == "device":
                 acc[i] = BilinearGather.apply(imgs[j], self.xf[p], self.yf[p], self.ge[j],
-                                              acc[i])
+                                              acc[i], self.plans[p])
         eps = params.new_zeros(())
         for i in self.targets:
             J = acc[i] / self.cnt[i]

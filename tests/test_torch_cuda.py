@@ -378,7 +378,9 @@ def test_bilinear_gather_backward_launches_k4(cuda):
     (grad,) = torch.autograd.grad(out, image, v)
     assert bilinear_cuda.launches == {"bilinear_gather": 1, "bilinear_scatter_adjoint": 1,
                                       "bilinear_gather.f32": 0,
-                                      "bilinear_scatter_adjoint.f32": 0}
+                                      "bilinear_scatter_adjoint.f32": 0,
+                                      "bilinear_adjoint_plan": 0,
+                                      "bilinear_adjoint_plan.f32": 0}
     assert _rel(grad, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, gain)) < TOL
 
 
@@ -408,42 +410,114 @@ def _grid_case(cuda, seed, roll, qny=150, qnx=173, ny=170, nx=190, scale=1.0):
 @pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
 @pytest.mark.parametrize("roll", [0, 15, 45, 90])
 def test_k4_matches_plain_on_rotated_grids(cuda, roll, weighted):
-    """K4 on a 2-D query grid (the destripe pair's layout): one launch,
-    every tile on the shared-memory route, held to the plain version."""
-    img, gain, x, y, v = _grid_case(cuda, 40 + roll, roll)
+    """K4 on a 2-D query grid (the destripe pair's layout), over its plan,
+    in both position forms, fresh and added into an output: one planned
+    launch each, nothing off the plan, held to the plain version; two
+    launches give the same bits."""
+    img, gain, x64, y64, v = _grid_case(cuda, 40 + roll, roll)
     g = gain if weighted else None
-    inb = bilinear.in_bounds(x, y, img.shape)
+    inb = bilinear.in_bounds(x64, y64, img.shape)
     assert int(inb.sum()) > 10_000 and int((~inb).sum()) > 1000
-    assert bool(torch.any(x == img.shape[1] - 1)) and bool(torch.any(y == img.shape[0] - 1))
-    assert int(torch.floor(x[inb]).max()) == img.shape[1] - 2      # the last column's taps
-    assert int(torch.floor(y[inb]).max()) == img.shape[0] - 2      # the last row's
-    bilinear_cuda.reset_launch_counts()
-    bilinear_cuda.reset_global_tiles()
-    got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)
-    assert bilinear_cuda.launches["bilinear_scatter_adjoint"] == 1
-    assert bilinear_cuda.global_tiles(cuda) == 0
-    assert bilinear_cuda.predict_global_tiles(x, y, img.shape) == 0
-    assert _rel(got, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)) < TOL
+    assert bool(torch.any(x64 == img.shape[1] - 1)) and bool(torch.any(y64 == img.shape[0] - 1))
+    assert int(torch.floor(x64[inb]).max()) == img.shape[1] - 2    # the last column's taps
+    assert int(torch.floor(y64[inb]).max()) == img.shape[0] - 2    # the last row's
+    base = torch.randn(img.shape, dtype=torch.float64, device=cuda)
+    for x, y in ((x64, y64), (x64.float(), y64.float())):
+        plan = bilinear_cuda.build_adjoint_plan(x, y, img.shape)
+        want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)
+        bilinear_cuda.reset_launch_counts()
+        bilinear_cuda.reset_off_plan_tiles()
+        got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g, plan=plan)
+        into = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g, plan=plan,
+                                                      out=base.clone())
+        again = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g, plan=plan)
+        key = "bilinear_scatter_adjoint" + (".f32" if x.dtype == torch.float32 else "")
+        assert bilinear_cuda.launches[key] == 3
+        assert bilinear_cuda.adjoint_routes == {"planned": 3, "stream": 0}
+        assert bilinear_cuda.off_plan_tiles(cuda) == 0
+        assert bilinear_cuda.predict_off_plan_tiles(x, y, img.shape) == 0
+        assert _rel(got, want) < TOL
+        assert _rel(into, base + want) < TOL
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("roll", [0, 15, 45, 90])
+def test_k4_plan_kernel_matches_plain(cuda, roll):
+    """The plan kernel (two passes, counted as two launches) gives the plain
+    builder's plan word for word, in both position forms, on a ragged
+    rolled grid with NaN, infinite and off-grid positions, on a map scaled
+    by 0.3 (many bands a tile) and on a grid with no query in bounds."""
+    img, _gain, x64, y64, _v = _grid_case(cuda, 60 + roll, roll)
+    _img, _gain, xs, ys, _v = _grid_case(cuda, 61, roll, ny=45, nx=40, scale=0.3)
+    cases = [(x64, y64, img.shape), (xs, ys, (45, 40)), (x64 + 1e4, y64, img.shape)]
+    for x, y, shape in cases:
+        for xx, yy in ((x, y), (x.float(), y.float())):
+            key = "bilinear_adjoint_plan" + (".f32" if xx.dtype == torch.float32 else "")
+            bilinear_cuda.reset_launch_counts()
+            got = bilinear_cuda.build_adjoint_plan(xx, yy, shape)
+            want = bilinear_cuda.build_adjoint_plan_plain(xx, yy, shape)
+            assert bilinear_cuda.launches[key] == (2 if want.window else 1)
+            for name in ("rows", "ptr", "spans"):
+                assert torch.equal(getattr(got, name), getattr(want, name)), (roll, name)
+            assert (got.pairs, got.window, got.shape, got.grid) == (
+                want.pairs, want.window, want.shape, want.grid)
 
 
 @pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
 def test_k4_global_route_when_the_box_outgrows_shared_memory(cuda, weighted):
-    """A grid scaled by 2.5 gives tiles whose box outgrows the shared budget:
-    they take the global route, counted as predict_global_tiles says; the
-    15-degree pair grid takes none."""
+    """A grid scaled by 2.5, whose tiles outgrew the shared-memory box of
+    the tiled body (its global route), takes the planned route whole: nothing
+    off the plan, as predict_off_plan_tiles says, and the plain version's
+    sums; so does the 15-degree pair grid, through a plan built in the
+    call."""
     img, gain, x, y, v = _grid_case(cuda, 50, 30, ny=400, nx=420, scale=2.5)
     g = gain if weighted else None
     want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)
-    bilinear_cuda.reset_global_tiles()
+    bilinear_cuda.reset_launch_counts()
+    bilinear_cuda.reset_off_plan_tiles()
     got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)
-    n_global = bilinear_cuda.global_tiles(cuda)
-    assert n_global > 0
-    assert n_global == bilinear_cuda.predict_global_tiles(x, y, img.shape)
+    assert bilinear_cuda.off_plan_tiles(cuda) == 0
+    assert bilinear_cuda.predict_off_plan_tiles(x, y, img.shape) == 0
+    assert bilinear_cuda.adjoint_routes == {"planned": 1, "stream": 0}
     assert _rel(got, want) < TOL
     img, gain, x, y, v = _grid_case(cuda, 51, 15)
-    bilinear_cuda.reset_global_tiles()
+    bilinear_cuda.reset_off_plan_tiles()
     bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, gain if weighted else None)
-    assert bilinear_cuda.global_tiles(cuda) == 0
+    assert bilinear_cuda.off_plan_tiles(cuda) == 0
+
+
+@pytest.mark.parametrize("pos", ["f64", "f32"])
+def test_k4_window_larger_than_staging(cuda, pos):
+    """A map at a scale of 0.3 puts ~12000 queries and up to 39 bands in a
+    tile's window, nine chunks or more of the kernel's staging buffer and three
+    band groups: the planned kernel streams them and keeps ownership, equal
+    to the plain version and to itself bit for bit."""
+    img, gain, x, y, v = _grid_case(cuda, 54, 45, qny=600, qnx=580, ny=200, nx=190,
+                                    scale=0.3)
+    if pos == "f32":
+        x, y = x.float(), y.float()
+    plan = bilinear_cuda.build_adjoint_plan(x, y, img.shape)
+    assert int((plan.ptr[1:] - plan.ptr[:-1]).max()) > 16 and plan.window > 8 * 1280 * 20
+    want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, gain)
+    got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, gain, plan=plan)
+    assert _rel(got, want) < TOL
+    assert torch.equal(got, bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, gain,
+                                                                   plan=plan))
+
+
+def test_k4_plan_checks(cuda):
+    """A plan of other positions' grid or output raises, as does a plan
+    given for a 1-D stream."""
+    img, gain, x, y, v = _grid_case(cuda, 55, 15)
+    plan = bilinear_cuda.build_adjoint_plan(x, y, img.shape)
+    with pytest.raises(ValueError, match="plan"):
+        bilinear_cuda.bilinear_scatter_adjoint(v[:-1], x[:-1], y[:-1], img.shape, plan=plan)
+    with pytest.raises(ValueError, match="plan"):
+        bilinear_cuda.bilinear_scatter_adjoint(v, x, y, (img.shape[0] + 1, img.shape[1]),
+                                               plan=plan)
+    with pytest.raises(ValueError, match="takes no plan"):
+        bilinear_cuda.bilinear_scatter_adjoint(v.reshape(-1), x.reshape(-1), y.reshape(-1),
+                                               img.shape, plan=plan)
 
 
 @pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
@@ -456,13 +530,15 @@ def test_k3_k4_adjoint_identity_on_a_grid(cuda, weighted):
 
 
 def test_k4_one_row_stream_counts_its_global_tiles(cuda):
-    """A 1-D stream is one row of queries, tiled 1 x 1024: on a flattened
-    rotated grid a tile spans several of its rows, so its box outgrows
-    shared memory and it takes the global route, as predicted."""
+    """A 1-D stream is one row of queries, tiled 1 x 1024, with no plan: it
+    takes the off-plan body, one launch on that route, and counts each of
+    its tiles holding a query in bounds, as predicted."""
     img, gain, x, y, v = _bil_case(cuda, 53)
-    bilinear_cuda.reset_global_tiles()
+    bilinear_cuda.reset_launch_counts()
+    bilinear_cuda.reset_off_plan_tiles()
     got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, gain)
-    assert bilinear_cuda.global_tiles(cuda) == bilinear_cuda.predict_global_tiles(
+    assert bilinear_cuda.adjoint_routes == {"planned": 0, "stream": 1}
+    assert bilinear_cuda.off_plan_tiles(cuda) == bilinear_cuda.predict_off_plan_tiles(
         x, y, img.shape) > 0
     assert _rel(got, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, gain)) < TOL
 
@@ -487,14 +563,21 @@ def test_destripe_cost_cuda_matches_cpu(cuda):
                 yf.append(np.sin(th) * xx + np.cos(th) * yy - 2.1 * (i - j))
     kw = dict(amp_cols=32, col_boundary_const=2.0)
     cpu = DestripeCost(imgs, gains, masks, pairs, xf, yf, device="cpu", **kw)
+    bilinear_cuda.reset_launch_counts()
     gpu = DestripeCost(imgs, gains, masks, pairs, xf, yf, device=cuda, **kw)
+    # a plan a pair on the card, by the plan kernel; none on the CPU
+    assert bilinear_cuda.launches["bilinear_adjoint_plan"] == 2 * len(pairs)
+    assert cpu.plans == [None] * len(pairs) and None not in gpu.plans
     p = rng.normal(scale=0.01, size=S * cpu.np_each)
     bilinear_cuda.reset_launch_counts()
     cost, grad = gpu.cost_and_grad(p)
     assert bilinear_cuda.launches == {"bilinear_gather": len(pairs),
                                       "bilinear_scatter_adjoint": len(pairs),
                                       "bilinear_gather.f32": 0,
-                                      "bilinear_scatter_adjoint.f32": 0}
+                                      "bilinear_scatter_adjoint.f32": 0,
+                                      "bilinear_adjoint_plan": 0,
+                                      "bilinear_adjoint_plan.f32": 0}
+    assert bilinear_cuda.adjoint_routes == {"planned": len(pairs), "stream": 0}
     want_cost, want_grad = cpu.cost_and_grad(p)
     np.testing.assert_allclose(cost, want_cost, rtol=1e-12)
     np.testing.assert_allclose(grad, want_grad, rtol=1e-9, atol=1e-12)
@@ -504,9 +587,10 @@ def test_destripe_cost_cuda_matches_cpu(cuda):
 
 
 # the float32-position forms of K3 and K4: a stream (1-D, tiles of one row
-# in K4), grids rolled by 0-90 degrees (ragged against K4's 32 x 32 tiles),
-# and a grid scaled by 2.5 (K4's global route); NaN, +-inf and off-grid
-# positions, the last row and column among them, in every case
+# in K4's off-plan body), grids rolled by 0-90 degrees (ragged against K4's
+# 32 x 32 tiles), and a grid scaled by 2.5 (the tiled body's global route, planned
+# now); NaN, +-inf and off-grid positions, the last row and column among
+# them, in every case
 F32_CASES = ("stream", "roll0", "roll15", "roll45", "roll90", "global")
 
 
@@ -527,27 +611,31 @@ def test_k3_k4_f32_forms_match_plain(cuda, kind, weighted):
     """K3 and K4 on float32 positions: one launch of each .f32 form, held to
     the plain versions (which widen the positions to float64); K3's f32
     form equals its f64 form on the widened positions bit for bit (the same
-    float64 arithmetic, no atomics); K4's global-route tiles are those
-    predicted."""
+    float64 arithmetic, no atomics); K4's tiles off the plan are those
+    predicted: a stream's, none of a grid's."""
     img, gain, x, y, v = _f32_case(cuda, kind)
     g = gain if weighted else None
     inb = bilinear.in_bounds(x, y, img.shape)
     assert int(inb.sum()) > 10_000 and int((~inb).sum()) > 100
     assert bool(torch.any(torch.isnan(x))) and bool(torch.any(torch.isinf(x)))
     bilinear_cuda.reset_launch_counts()
-    bilinear_cuda.reset_global_tiles()
+    bilinear_cuda.reset_off_plan_tiles()
     got3 = bilinear_cuda.bilinear_gather(img, x, y, g, out=v.clone())
     got4 = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)
-    n_global = bilinear_cuda.global_tiles(cuda)
+    n_off = bilinear_cuda.off_plan_tiles(cuda)
+    # a grid's plan built in the call: the plan kernel's two passes
+    planned = bilinear_cuda.planned_route(*bilinear_cuda.query_grid(x))
     assert bilinear_cuda.launches == {"bilinear_gather": 0, "bilinear_scatter_adjoint": 0,
                                       "bilinear_gather.f32": 1,
-                                      "bilinear_scatter_adjoint.f32": 1}
+                                      "bilinear_scatter_adjoint.f32": 1,
+                                      "bilinear_adjoint_plan": 0,
+                                      "bilinear_adjoint_plan.f32": 2 * planned}
     assert _rel(got3, bilinear.bilinear_gather_plain(img, x, y, g) + v) < TOL
     assert _rel(got4, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)) < TOL
     assert torch.equal(got3, bilinear_cuda.bilinear_gather(img, x.double(), y.double(), g,
                                                            out=v.clone()))
-    assert n_global == bilinear_cuda.predict_global_tiles(x, y, img.shape)
-    assert (n_global > 0) == (kind in ("stream", "global"))
+    assert n_off == bilinear_cuda.predict_off_plan_tiles(x, y, img.shape)
+    assert (n_off > 0) == (kind == "stream")
     off = ~inb
     assert torch.all(bilinear_cuda.bilinear_gather(img, x, y, g)[off] == 0)
 

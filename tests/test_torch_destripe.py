@@ -171,13 +171,15 @@ def test_bilinear_gather_on_a_grid_matches_flat_positions(case):
     assert torch.equal(grads[(20, 30)], grads[(600,)])
 
 
-def _global_tiles_reference(xf, yf, shape, tile, cap):
-    """K4's global-route tiles by a loop over the tiles in NumPy: a tile
-    with a query in bounds whose taps' bounding box holds more than `cap`
-    pixels."""
+def _global_tiles_reference(xf, yf, shape, tile, max_cols):
+    """K4's tiles off the planned route by a loop over the tiles in NumPy:
+    none on a grid of more than one row and at most `max_cols` columns;
+    else each `tile` of the off-plan body that holds a query in bounds."""
     ny, nx = shape
     x = xf.reshape(-1, xf.shape[-1]) if xf.ndim >= 2 else xf.reshape(1, -1)
     y = yf.reshape(x.shape)
+    if x.shape[0] > 1 and x.shape[1] <= max_cols:
+        return 0
     th, tw = tile
     n = 0
     for r0 in range(0, x.shape[0], th):
@@ -185,15 +187,18 @@ def _global_tiles_reference(xf, yf, shape, tile, cap):
             fx, fy = np.floor(x[r0:r0 + th, c0:c0 + tw]), np.floor(y[r0:r0 + th, c0:c0 + tw])
             with np.errstate(invalid="ignore"):
                 ok = (fx >= 0) & (fx < nx - 1) & (fy >= 0) & (fy < ny - 1)
-            n += bool(ok.any()) and (np.ptp(fx[ok]) + 2) * (np.ptp(fy[ok]) + 2) > cap
+            n += bool(ok.any())
     return n
 
 
 @pytest.mark.parametrize("case", ["roll15", "roll45", "scale2.5", "one_row", "holes"])
 def test_predict_global_tiles(case):
-    """bilinear_cuda.predict_global_tiles (the K4 tiles that outgrow the
-    shared-memory box, which chip_smoke.py holds the card's count to)
-    against a loop over the tiles; a pair-like grid at any roll has none."""
+    """bilinear_cuda.predict_off_plan_tiles (the K4 tiles off the planned
+    route, which chip_smoke.py holds the card's count to) against a loop
+    over the tiles, on each case's 2-D grid and on its flattened stream: a
+    pair-like grid at any roll or scale has none (the tiled body sent the
+    scaled grid's tiles and the far query's to its global route; the plan
+    takes them); a stream counts its tiles that hold a query in bounds."""
     from pyimcom_tpu_torch.ops import bilinear_cuda as bc
 
     rng = np.random.default_rng(8)
@@ -207,16 +212,16 @@ def test_predict_global_tiles(case):
         xf[rng.random(xf.shape) < 0.3] = np.nan
         xf[:40, :40] = -5.0                  # tiles with no query in bounds
         xf[100, 100] = 3.0                   # one query far from its tile's
+    grids = [(xf, yf), (xf.ravel(), yf.ravel())]
     if case == "one_row":
-        xf, yf = xf.ravel(), yf.ravel()
-    tile = bc.adjoint_tile(bc.query_grid(_t(xf))[0])
-    assert tile == ((1, 1024) if case == "one_row" else (32, 32))
-    got = bc.predict_global_tiles(_t(xf), _t(yf), (ny, nx))
-    assert got == _global_tiles_reference(xf, yf, (ny, nx), tile, bc.ADJOINT_BOX_CAP)
-    if case in ("roll15", "roll45"):
-        assert got == 0
-    else:
-        assert got > 0
+        grids = [(xf[:1], yf[:1]), (xf.ravel(), yf.ravel())]
+    for x, y in grids:
+        qrows = bc.query_grid(_t(x))[0]
+        tile = bc.ADJOINT_ROW_TILE if qrows == 1 else bc.ADJOINT_TILE
+        got = bc.predict_off_plan_tiles(_t(x), _t(y), (ny, nx))
+        assert got == _global_tiles_reference(x, y, (ny, nx), tile, bc.PLAN_MAX_COLS)
+        assert (got > 0) == (qrows == 1)
+        assert bc.planned_route(*bc.query_grid(_t(x))) == (qrows > 1)
 
 
 def test_query_grid():

@@ -2,7 +2,8 @@
 nothing of the JAX package pyimcom_tpu (nor of the JAX-side test fixture
 survey_fixture), not even modules there that are jax-free; it keeps its
 own copies.  The same holds for chip_smoke.py, k4_variants.py,
-survey_fixture_torch and k2_layout_torch (which the card's tests import)."""
+survey_fixture_torch, k2_layout_torch (which the card's tests import) and
+k4_plan_torch (K4's planned traversal, emulated for the CPU tests)."""
 
 import ast
 import pkgutil
@@ -63,13 +64,13 @@ def test_port_imports_without_jax(case):
 
 def _sources():
     """Every .py of the port (not its git-ignored build directory), the
-    chip smoke script, the K4 variant timer, the port's survey fixture and
-    the K2 layout mirror of the card's tests."""
+    chip smoke script, the K4 variant timer, the port's survey fixture, the
+    K2 layout mirror of the card's tests and the K4 traversal emulation."""
     port = [p for p in sorted(PKG.rglob("*.py"))
             if "_build" not in p.relative_to(PKG).parts[:-1]]
     return port + [REPO / "chip_smoke.py", REPO / "k4_variants.py",
                    REPO / "tests" / "survey_fixture_torch.py",
-                   REPO / "tests" / "k2_layout_torch.py"]
+                   REPO / "tests" / "k2_layout_torch.py", REPO / "tests" / "k4_plan_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
