@@ -27,7 +27,9 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    their ptxas register and spill lines and the atomic instructions in K4's
    SASS (cuobjdump; none of f64 in the planned body); and, as
    bilinear_tiled.cu, bilinear.cu of commit 28a3190 (the tiled K4 body with
-   its 11-argument entries, both position forms);
+   its 11-argument entries, both position forms); and, as
+   bilinear_plan.cu, bilinear.cu of commit 379dcb5 (K4's plan kernel in two
+   C entries with host read-backs between and after them, both forms);
 2. probe: the probe entry point builds csrc/probe.cu and launches its
    kernel on an (8, 128) float32 tensor (its own path: counts reset before,
    read after);
@@ -151,7 +153,20 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    loop's task, at most 2^22 queries of it) and K2<8> (pool, B) on the
    G4460 block's first group, against their plain versions (1e-12 of
    scale), with their bounds, and K2 of commit 910c170 on the same launches
-   where built;
+   where built; wing_canvas_production: K1<8>'s wing-canvas launches at
+   production size made on the card (wing_queries: a WING_A^2 canvas at
+   oversampling 3 mapped into mosaic blocks of 2560^2 padded to 2572^2,
+   seeded images from a torch.Generator): one production block at rolls
+   0, 45 and 90 degrees, the 25-36 launches of a layer at 0 degrees and
+   one block covering the canvas (WING_A^2 queries, a 1.07 GB image), each
+   through interp2d_dense with its canvas hint (the canvas body), timed in
+   turns with the body of runs of 32 queries, the two equal bit for bit
+   on the whole launch, the canvas body within 1e-12 of scale of the plain
+   version on its first 2^22 queries, with the bytes bound and the
+   shared-memory bound (64 patch reads of 8 bytes a query on the grid at
+   128 bytes a clock an SM, at the card's top SM clock), and on the
+   covering launch the runs body's time on x, y and the result alone
+   (every query moved off the grid);
 11b. piff_block (in .smoke_work/piff/): the bench survey with each
    observation's PSF written as a Piff file as tests/test_piff.py:115-127
    writes them (survey_fixture_torch.write_piff_files: per SCA the cube's
@@ -181,7 +196,7 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    ``pyimcom_tpu_torch.imdestripe.main(cfg, maxiter=5)`` on the card (object
    mask and WCS gain on): the host map build and upload seconds, peak device
    memory, seconds per CG iteration, the cost before and after, the K3 / K4
-   launches and the plan kernel's (two a pair), K4's launches by route and
+   launches and the plan kernel's (one a pair), K4's launches by route and
    its tiles off the planned route (none), one cost-and-gradient's
    device time and its kernels by name from one torch.profiler trace; the
    kernel route of the
@@ -192,8 +207,9 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    alone on the first pair (against their plain versions, their bounds,
    grid_sample and its input gradient as the library yardstick, and the
    earlier revisions' K4 where built, timed in turns with it; K4's plan --
-   r, bytes, the plan kernel's build ms beside its plain version's, the
-   plan held to that version word for word --, two launches bit for bit,
+   r, bytes, the plan kernel's build ms beside its plain version's and,
+   where built, commit 379dcb5's plan kernel's in turns, the plan held to
+   both word for word --, two launches bit for bit,
    its registers and its tiles off the plan against predict_off_plan_tiles;
    the off-plan body once on the library's work, a 1-D stream, against the
    plain version, its tiles off the plan as predicted; what the plans cost
@@ -359,6 +375,13 @@ PARENTS = {
     "bilinear_tiled": ("28a3190",
                       "55eb7ac10a8b81e32cbea6ea1f437220d6eac1f364890a34ea38f7e9f249fb66",
                       ("bilinear_scatter_adjoint", "bilinear_scatter_adjoint_f32")),
+    # K4's plan kernel of commit 379dcb5: a rows pass, a read-back of the most
+    # bands of a tile, a columns pass and a read-back of the counts, both
+    # position forms
+    "bilinear_plan": ("379dcb5",
+                      "f7e7fc06358d6e3c1682b8bdcf8eb0142f146feaaca757b7d45b373c14ceed04",
+                      ("bilinear_adjoint_plan_rows", "bilinear_adjoint_plan_rows_f32",
+                       "bilinear_adjoint_plan_cols", "bilinear_adjoint_plan_cols_f32")),
 }
 PEAK_BYTES_S, PEAK_F64_S = 3.35e12, 67e12               # H100 SXM data sheet
 # one tap set of each family (Horner in fh^2: 19 operations a pair of taps,
@@ -480,13 +503,15 @@ def k2_bound(mode, combined, xt, ks, imeta, dmeta, tiles, n2f, inv_scale, floor_
 
 
 def k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=0, reps=20,
-              kern="D5512"):
+              kern="D5512", segments=None):
     """K1 of family `kern` on one launch's inputs (on the card; `lattice_row`
-    as its caller passed it): its device time, its runs of 32 queries, its
-    error against the plain version, the plain version's time,
-    the bounds (images, x, y and the result once; QUERY_FLOP a query on the
-    grid), and the earlier revision's K1 (D5512) on the same inputs where
-    built."""
+    and the canvas hint `segments` as its caller passed them): its device
+    time, its runs of 32 queries, its error against the plain version, the
+    plain version's time, the bounds (images, x, y and the result once;
+    QUERY_FLOP a query on the grid), and the earlier revision's K1 (D5512)
+    on the same inputs where built; with a canvas hint also the body that
+    takes runs of 32 queries on the same launch (`runs_ms`, in turns with
+    the canvas body; the two held equal bit for bit)."""
     from pyimcom_tpu_torch.ops import interp_cuda as ic
     from pyimcom_tpu_torch.ops.interp import KERNEL_FAMILIES
 
@@ -495,11 +520,20 @@ def k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=0, reps=20
     Nq = x.shape[1]
     fx, fy = torch.floor(x), torch.floor(y)
     on = int(((fx >= lo) & (fx < nx - hi) & (fy >= lo) & (fy < ny - hi)).sum())
-    got = ic.interp_dense(images, x, y, kern, lattice_row=lattice_row)
+    got = ic.interp_dense(images, x, y, kern, lattice_row=lattice_row, segments=segments)
     want = ic.interp_dense_plain(images, x, y, kern)
     torch.cuda.synchronize()
     runs = (R * -(-lattice_row // 8) * -(-(Nq // lattice_row) // 4) if lattice_row
             else R * -(-Nq // 32))
+    extra = {}
+    if segments is not None:
+        t = in_turns(torch, {
+            "canvas": lambda: ic.interp_dense(images, x, y, kern, segments=segments),
+            "runs": lambda: ic.interp_dense(images, x, y, kern)}, reps)
+        extra = dict(canvas_tiles=len(segments.tiles), segments=len(segments.segments),
+                     bit_identical_to_runs=bool(torch.equal(got, ic.interp_dense(
+                         images, x, y, kern))), ms=t["canvas"], runs_ms=t["runs"])
+        assert extra["bit_identical_to_runs"], extra
     rec = dict(kern=kern, R=R, Nq=Nq, image=[ny, nx], lattice_row=lattice_row, on_grid=on,
                runs=runs, max_abs_err=rel_err(torch, got, want),
                ms=median_ms(torch, lambda: ic.interp_dense(
@@ -507,6 +541,7 @@ def k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=0, reps=20
                plain_ms=median_ms(torch, lambda: ic.interp_dense_plain(images, x, y, kern), 3),
                **bounds(8 * (images.numel() + 3 * x.numel()), QUERY_FLOP[kern] * on, floor_ms),
                launch_floor_ms=floor_ms)
+    rec.update(extra)
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     assert rec["max_abs_err"] < TOL, rec
     if parent is not None and kern == "D5512":
@@ -681,12 +716,17 @@ def parent_entry(name, entry):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # the tiled body's entries (both forms) take the query grid, not a count
     tiled = (p, p, i, i, p, p, i, i, p, p, p)
+    plan_rows = (p, p, i, i, i, i, p, p, p, p, p)
+    plan_cols = (p, p, i, i, i, i, p, p, i, p, p, p, p)
     argtypes = {("interp_d5512", "interp_d5512_dense"): (p, i, i, i, p, p, ll, p, p),
                 ("bilinear", "bilinear_scatter_adjoint"): (p, p, i, i, p, p, ll, p, p),
                 ("interp_d5512_pr12", "sweep_d5512_scatter"): interp_cuda._K2_ARGS,
                 ("interp_d5512_pr12", "sweep_g4460_scatter"): interp_cuda._K2_ARGS,
                 ("bilinear_tiled", "bilinear_scatter_adjoint"): tiled,
-                ("bilinear_tiled", "bilinear_scatter_adjoint_f32"): tiled}
+                ("bilinear_tiled", "bilinear_scatter_adjoint_f32"): tiled,
+                **{("bilinear_plan", f"bilinear_adjoint_plan_{k}{sfx}"): a
+                   for k, a in (("rows", plan_rows), ("cols", plan_cols))
+                   for sfx in ("", "_f32")}}
     fn = getattr(ctypes.CDLL(str(parent_src(name).with_name(f"lib{name}_parent.so"))), entry)
     fn.argtypes = argtypes[name, entry]
     fn.restype = ctypes.c_int
@@ -739,6 +779,21 @@ def sass_atomics(lib, match):
     return out
 
 
+def clip_segments(hint, n):
+    """K1's canvas hint (interp_cuda.CanvasSegments) of the first `n` of its
+    queries, or None without one."""
+    from pyimcom_tpu_torch.ops import interp_cuda
+
+    if hint is None:
+        return None
+    seg = np.asarray(hint.segments, np.int64)
+    seg = seg[seg[:, 2] < n].copy()
+    seg[:, 3] = np.minimum(seg[:, 3], n - seg[:, 2])
+    seg = seg.astype(np.int32)
+    return interp_cuda.CanvasSegments(seg, interp_cuda.canvas_tiles(seg, hint.step),
+                                      hint.transpose, hint.step)
+
+
 class capture_k1:
     """While active, keep the first K1 launch of each caller named in
     `callers` (its images, x and y, its family and its lattice row) in
@@ -777,6 +832,7 @@ class capture_k1:
                 self.launches[key] = dict(images=images.clone(), x=x[:, :n].clone(),
                                           y=y[:, :n].clone(), kern=kern,
                                           lattice_row=kw.get("lattice_row", 0),
+                                          segments=clip_segments(kw.get("segments"), n),
                                           queries_of_launch=x.shape[1])
             return orig(images, x, y, kern, **kw)
 
@@ -800,7 +856,8 @@ def k1_main_path(torch, dev, key, cap, floor_ms, parent):
     images, x, y = (cap[k].to(dev) for k in ("images", "x", "y"))
     n, kern = cap["lattice_row"], cap["kern"]
     rec = {"block": block, "caller": caller, "queries_of_launch": cap["queries_of_launch"],
-           **k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=n, kern=kern)}
+           **k1_record(torch, dev, images, x, y, floor_ms, parent, lattice_row=n, kern=kern,
+                       segments=cap.get("segments"))}
     if n:
         rec["runs_of_32_ms"] = median_ms(torch, lambda: ic.interp_dense(images, x, y, kern), 20)
     return rec
@@ -987,10 +1044,55 @@ class capture_destripe:
 
 
 def same_plan(a, b):
-    """Whether two K4 plans (bilinear_cuda.AdjointPlan) are word for word
-    the same."""
+    """Whether two K4 plans (bilinear_cuda.AdjointPlan, checked here) are
+    word for word the same."""
+    a.check(), b.check()
     return (all(getattr(a, k).equal(getattr(b, k)) for k in ("rows", "ptr", "spans"))
             and (a.pairs, a.window, a.shape, a.grid) == (b.pairs, b.window, b.shape, b.grid))
+
+
+# the plan kernel of commit 379dcb5 where built: {position dtype: (its rows
+# entry, its columns entry)}, set by main()
+PARENT_PLAN = {}
+
+
+def parent_plan(torch, fns, x, y, shape):
+    """K4's plan of positions x, y (a 2-D grid) by the plan kernel of commit
+    379dcb5 (`fns`: its rows and columns entries of their dtype), as that
+    commit's build_adjoint_plan ran it: the rows entry, a read-back of the
+    most bands of a tile, the columns entry and a read-back of the counts.
+    Returns (rows, ptr, spans, incidences, window)."""
+    rows_fn, cols_fn = fns
+    dev, (ny, nx), (qny, qnx) = x.device, shape, x.shape
+    T = -(-ny // 32) * -(-nx // 32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows, ptr = torch.empty((T, 2), **i32), torch.empty(T + 1, **i32)
+    meta = torch.empty(4, dtype=torch.int64, device=dev)
+    scratch = torch.empty(2 * T, **i32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = rows_fn(x.data_ptr(), y.data_ptr(), qny, qnx, ny, nx, scratch.data_ptr(),
+                  rows.data_ptr(), ptr.data_ptr(), meta.data_ptr(), stream)
+    assert err == 0, err
+    _pairs, nbt, bands, _window = meta.tolist()
+    spans = torch.empty(bands, **i32)
+    if nbt:
+        scratch = torch.empty(2 * T * nbt, **i32)
+        err = cols_fn(x.data_ptr(), y.data_ptr(), qny, qnx, ny, nx, rows.data_ptr(),
+                      ptr.data_ptr(), nbt, scratch.data_ptr(), spans.data_ptr(),
+                      meta.data_ptr(), stream)
+        assert err == 0, err
+    pairs, _nbt, _bands, window = meta.tolist()
+    return rows, ptr, spans, pairs, window
+
+
+def in_turns(torch, calls, reps):
+    """Median device ms of each of `calls` ({name: fn}), timed in turns:
+    reps // 2 calls of each in order, then as many in reverse order."""
+    times = {k: [] for k in calls}
+    for order in (list(calls), list(reversed(calls))):
+        for k in order:
+            times[k] += device_times(torch, calls[k], max(reps // 2, 1))
+    return {k: statistics.median(ts) for k, ts in times.items()}
 
 
 def k4_planned(torch, dev, v, x, y, gain, shape, plan, want, parents=None, reps=20):
@@ -1016,10 +1118,19 @@ def k4_planned(torch, dev, v, x, y, gain, shape, plan, want, parents=None, reps=
                predicted_off_plan_tiles=bc.predict_off_plan_tiles(x, y, shape),
                tile=[bc.PLAN_TILE, bc.PLAN_TILE], band_rows=bc.PLAN_BAND, plan_r=plan.r,
                plan_bytes=plan.nbytes, plan_pairs=plan.pairs, plan_window=plan.window,
-               plan_build_ms=median_ms(torch, lambda: bc.build_adjoint_plan(x, y, shape), 5),
                plan_build_plain_ms=median_ms(
                    torch, lambda: bc.build_adjoint_plan_plain(x, y, shape), 1),
                plan_equals_plain=same_plan(plan, bc.build_adjoint_plan_plain(x, y, shape)))
+    # the plan kernel, beside commit 379dcb5's in turns where built (its
+    # plan held to this one word for word)
+    builds = {"plan_build": lambda: bc.build_adjoint_plan(x, y, shape)}
+    if x.dtype in PARENT_PLAN:
+        fns = PARENT_PLAN[x.dtype]
+        old = parent_plan(torch, fns, x, y, shape)
+        rec["plan_379dcb5_equal"] = (all(a.equal(b) for a, b in zip(
+            old[:3], (plan.rows, plan.ptr, plan.spans))) and old[3:] == (plan.pairs, plan.window))
+        builds["plan_build_379dcb5"] = lambda: parent_plan(torch, fns, x, y, shape)
+    rec.update({f"{k}_ms": t for k, t in in_turns(torch, builds, 10).items()})
     del got, again
     calls = {"": lambda: bc.bilinear_scatter_adjoint(v, x, y, shape, gain, plan=plan)}
     out_p = torch.empty(shape, dtype=torch.float64, device=dev)
@@ -1031,14 +1142,10 @@ def k4_planned(torch, dev, v, x, y, gain, shape, plan, want, parents=None, reps=
         torch.cuda.synchronize()
         rec[f"{name}_max_abs_err"] = rel_err(torch, out_p, want)
         calls[name] = call
-    times = {k: [] for k in calls}
-    for order in (list(calls), list(reversed(calls))):
-        for k in order:
-            times[k] += device_times(torch, calls[k], reps // 2)
-    for k, ts in times.items():
-        rec[f"{k}_ms" if k else "ms"] = statistics.median(ts)
+    for k, t in in_turns(torch, calls, reps).items():
+        rec[f"{k}_ms" if k else "ms"] = t
     assert rec["max_abs_err"] < TOL and rec["repeat_bit_identical"], rec
-    assert rec["plan_equals_plain"], rec
+    assert rec["plan_equals_plain"] and rec.get("plan_379dcb5_equal", True), rec
     assert rec["off_plan_tiles"] == rec["predicted_off_plan_tiles"] == 0, rec
     for name in parents or {}:
         assert rec[f"{name}_max_abs_err"] < TOL, (name, rec)
@@ -1074,6 +1181,7 @@ def plan_kernel_record(k4, x, floor_ms):
     the plan once (its integer work is a few operations a query)."""
     assert k4["plan_equals_plain"], k4
     return dict(ms=k4["plan_build_ms"], plain_ms=k4["plan_build_plain_ms"], max_abs_err=0.0,
+                plan_379dcb5_ms=k4.get("plan_build_379dcb5_ms"),
                 position_dtype=str(x.dtype).replace("torch.", ""), queries=x.numel(),
                 plan_bytes=k4["plan_bytes"],
                 **bounds(2 * x.element_size() * x.numel() + k4["plan_bytes"], 0, floor_ms))
@@ -1353,8 +1461,8 @@ def phase_destripe(torch, dev, floor_ms, parent_k4, k4_build, parent_tiled=None)
     prob = cap.problem
     dc = prob.device_cost
     assert len(dc.pairs) == 6 and dc.imgs.shape == (3, 4088, 4088), (dc.pairs, dc.imgs.shape)
-    # a plan a pair, by the plan kernel (two passes)
-    assert launches["bilinear_adjoint_plan"] == 2 * len(dc.pairs), launches
+    # a plan a pair, by the plan kernel (one launch)
+    assert launches["bilinear_adjoint_plan"] == len(dc.pairs), launches
     assert launches["bilinear_adjoint_plan.f32"] == 0, launches
     plans = {"r": [pl.r for pl in dc.plans], "bytes": [pl.nbytes for pl in dc.plans],
              "pair_f32_map_bytes": 2 * 4 * dc.ny * dc.nx}
@@ -1520,7 +1628,7 @@ def phase_destripe_storage(torch, dev, prob, p_rand, floor_ms, parent_tiled=None
         form = ".f32" if "f32" in name else ""
         # a plan a pair, by the plan kernel's form for these maps
         plan_launches = bilinear_cuda.launches["bilinear_adjoint_plan" + form]
-        assert plan_launches == 2 * P, (name, bilinear_cuda.launches)
+        assert plan_launches == P, (name, bilinear_cuda.launches)
         if form:
             f32_launches["bilinear_adjoint_plan.f32"] += plan_launches
         resident = torch.cuda.memory_allocated(dev) - before
@@ -2393,6 +2501,7 @@ def phase_psfsplit_loop(torch, dev, k1_caps, floor_ms, parent):
                                                 max_queries=1 << 22):
         assert imsubtract._cli([str(cfg0_path), str(sca), "--device", "cuda"]) == 0
     task_launches = dict(interp_cuda.launches)
+    task_routes = dict(interp_cuda.dense_routes)
     first = cap.exposures[0]
     orig = np.asarray(fits_read(first["result"].replace("_subI", ""))[0].data, np.float64)
     sub = np.asarray(fits_read(first["result"])[0].data, np.float64)
@@ -2426,7 +2535,7 @@ def phase_psfsplit_loop(torch, dev, k1_caps, floor_ms, parent):
            "IMSBITER": [int(outs[k]["OLDCFG"].header["IMSBITER"]) for k in ("it0", "it1")],
            "iteration_after_update": it, "history_iteration0": hist[0]["iteration"],
            "quality": quality, "SL1_pixel_twice": sl1_pixel_twice,
-           "task_launches": task_launches,
+           "task_launches": task_launches, "task_k1_routes": task_routes,
            "launches": {"it0": launches0, "it1": launches1},
            "stamps": [len(blk0.stamp_stats), len(blk1.stamp_stats)]}
     emit(rec)
@@ -2448,6 +2557,9 @@ def phase_psfsplit_loop(torch, dev, k1_caps, floor_ms, parent):
     assert quality["it1"]["VAR"] < max(1.05 * quality["it0"]["VAR"], 1e-5), quality
     assert len(cap.exposures) >= 1 and all(e["k1_launches"] > 0 for e in cap.exposures), rec
     assert task_launches["interp_g4460_dense"] > 0, task_launches
+    # every K1<8> launch of the wing canvases takes the canvas body
+    assert task_routes == {"runs": 0, "canvas": task_launches["interp_g4460_dense"]}, \
+        task_routes
     assert all(n == 0 for k, n in task_launches.items() if k != "interp_g4460_dense"), \
         task_launches
     k1 = k1_main_path(torch, dev, "psfsplit/psf_sampling", k1_caps.pop("psfsplit/psf_sampling"),
@@ -2581,6 +2693,169 @@ def phase_g4460_kernels(torch, dev, k1_caps, plan, floor_ms, parent_k2):
     k2 = k2_main_path(torch, dev, "g4460_bench_group_1", plan, floor_ms, parent_k2)
     emit({"phase": "g4460_kernels", "criterion": TOL, "K1": k1, "K2": k2})
     return k1, k2
+
+
+# the production wing canvas (PERF.md section 4): a 4088^2 SCA at
+# oversampling 3 with the binned kernels' pad (A = 12324, 0.11" / 3 a
+# point) over mosaic blocks of 2560^2 at 0.0390625" padded by BLOCK_PAD to
+# 2572^2; a canvas point steps WING_SCALE block pixels
+WING_A, WING_N, WING_PAD = 12324, 2560, 6
+WING_SCALE = (0.11 / 3) / 0.0390625
+WING_SLICE = 1 << 22            # queries of a launch held to the plain version
+
+
+def wing_queries(torch, dev, roll, origin, N, centre):
+    """The canvas points that the block of N^2 pixels at `origin` (mosaic
+    pixels) reaches, made on the card: the WING_A^2 canvas mapped into the
+    mosaic by a roll of `roll` degrees and a scale of WING_SCALE about
+    `centre`, its points inside (-5.5, N + 4.5) in the block's pixels
+    (CanvasGeometry.on_block's rule), as build_wing_canvas hands them to K1:
+    x, y (1, Nq) in the padded block, row-major, and their canvas-row
+    segments (interp_cuda.CanvasSegments, from each row's first column and
+    count: the footprint is convex).  None where no point falls inside."""
+    from pyimcom_tpu_torch.ops import interp_cuda
+
+    th = np.deg2rad(roll)
+    c, s_ = np.cos(th) * WING_SCALE, np.sin(th) * WING_SCALE
+    h = (WING_A - 1) / 2.0
+    # the canvas box that can reach the block (the inverse map of its corners)
+    corners = np.array([[-6.0, -6.0], [N + 5.0, -6.0], [-6.0, N + 5.0], [N + 5.0, N + 5.0]])
+    d = corners + np.asarray(origin, float) - np.asarray(centre, float)
+    u = (c * d[:, 0] + s_ * d[:, 1]) / WING_SCALE ** 2 + h
+    w = (-s_ * d[:, 0] + c * d[:, 1]) / WING_SCALE ** 2 + h
+    c0, c1 = max(int(np.floor(u.min())) - 1, 0), min(int(np.ceil(u.max())) + 2, WING_A)
+    r0, r1 = max(int(np.floor(w.min())) - 1, 0), min(int(np.ceil(w.max())) + 2, WING_A)
+    if c1 <= c0 or r1 <= r0:
+        return None
+    f64 = dict(dtype=torch.float64, device=dev)
+    uu = torch.arange(c0, c1, **f64)[None, :] - h
+    ww = torch.arange(r0, r1, **f64)[:, None] - h
+    xb = c * uu - s_ * ww + (centre[0] - origin[0])
+    yb = s_ * uu + c * ww + (centre[1] - origin[1])
+    inside = (xb > -5.5) & (xb < N + 4.5) & (yb > -5.5) & (yb < N + 4.5)
+    cnt = inside.sum(1)
+    if int(cnt.sum()) == 0:
+        return None
+    ii = inside.to(torch.int8)
+    first = ii.argmax(1)
+    last = ii.shape[1] - 1 - ii.flip(1).argmax(1)
+    live = cnt > 0
+    assert bool(((last - first + 1 == cnt) | ~live).all()), "a row of two segments"
+    rows = torch.nonzero(live).reshape(-1)
+    n = cnt[rows]
+    seg = torch.stack([rows + r0, first[rows] + c0, torch.cumsum(n, 0) - n, n], 1)
+    seg = seg.cpu().numpy().astype(np.int32)
+    x = (xb[inside] + WING_PAD).reshape(1, -1)
+    y = (yb[inside] + WING_PAD).reshape(1, -1)
+    return x, y, interp_cuda.CanvasSegments(seg, interp_cuda.canvas_tiles(seg, WING_SCALE),
+                                            abs(np.sin(th)) > abs(np.cos(th)), WING_SCALE)
+
+
+def wing_launch(torch, dev, image, q, floor_ms, f_sm_hz, reps=10, streams_only=False):
+    """One wing-canvas launch of K1<8> (image (1, n, n) and the points q of
+    wing_queries): the canvas body once through interp2d_dense, as
+    build_wing_canvas calls it; its time and that of the body of runs of 32
+    queries in turns; the two equal bit for bit on the whole launch; the
+    canvas body within TOL of the plain version on the first WING_SLICE
+    queries; the bytes bound (image, x, y and the result once) and the
+    shared-memory bound (64 eight-byte patch reads a query on the grid at
+    128 bytes a clock an SM, 132 SMs at `f_sm_hz`); with `streams_only`
+    also the runs body on the same queries moved off the grid (x, y read,
+    zeros written, no image read)."""
+    from pyimcom_tpu_torch.ops import interp, interp_cuda as ic
+
+    x, y, hint = q
+    _R, ny, nx = image.shape
+    Nq = x.shape[1]
+    before = ic.dense_routes["canvas"]
+    got = interp.interp2d_dense(image, x, y, "G4460", segments=hint)
+    assert ic.dense_routes["canvas"] == before + 1, ic.dense_routes
+    runs = ic.interp_dense(image, x, y, "G4460")
+    k = min(Nq, WING_SLICE)
+    want = ic.interp_dense_plain(image, x[:, :k], y[:, :k], "G4460")
+    fx, fy = torch.floor(x), torch.floor(y)
+    on = int(((fx >= 3) & (fx < nx - 4) & (fy >= 3) & (fy < ny - 4)).sum())
+    rec = dict(Nq=Nq, image=[ny, nx], on_grid=on, tiles=len(hint.tiles),
+               segments=len(hint.segments), bit_identical_to_runs=bool(torch.equal(got, runs)),
+               max_abs_err=rel_err(torch, got[:, :k], want), checked_queries=k)
+    del runs, want
+    calls = {"canvas": lambda: ic.interp_dense(image, x, y, "G4460", segments=hint),
+             "runs": lambda: ic.interp_dense(image, x, y, "G4460")}
+    t = in_turns(torch, calls, reps)
+    rec.update(ms=t["canvas"], runs_ms=t["runs"],
+               **bounds(8 * (image.numel() + 3 * Nq), QUERY_FLOP["G4460"] * on, floor_ms),
+               smem_bound_ms=on * 512 / (128 * 132 * f_sm_hz) * 1e3)
+    if streams_only:
+        xo = x + 1e7
+        rec["runs_streams_only_ms"] = median_ms(torch, lambda: ic.interp_dense(
+            image, xo, y, "G4460"), reps)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    assert rec["bit_identical_to_runs"] and rec["max_abs_err"] < TOL, rec
+    return rec
+
+
+def phase_wing_canvas_production(torch, dev, floor_ms):
+    """K1<8>'s wing-canvas launches at production size, made on the card
+    (wing_queries; seeded images from a torch.Generator on the card): one
+    production block (2560^2 padded to 2572^2, at the canvas's centre) at
+    rolls 0, 45 and 90 degrees; all the launches of one layer at 0 degrees, each
+    block of the 2560-pixel grid that the canvas reaches; and one block
+    covering the whole canvas (WING_A^2 queries, its ~1.07 GB image).
+    Each launch as wing_launch records it (the canvas body beside the body
+    of runs of 32 queries in turns).  Prints its line; returns (its
+    record, the canvas body's launches counted, the worst error)."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    f_sm = float(smi.split()[0]) * 1e6 if smi.strip() else 1.98e9
+    gen = torch.Generator(device=dev).manual_seed(20261018)
+
+    def image(n):
+        return torch.randn((1, n, n), generator=gen, dtype=torch.float64, device=dev)
+
+    side = WING_N + 2 * WING_PAD
+    # the canvas's centre in mosaic pixels, off the block grid's lines
+    centre = (3 * WING_N + 1021.3, 3 * WING_N + 733.7)
+    mid = (3 * WING_N, 3 * WING_N)
+    rec = {"phase": "wing_canvas_production", "canvas": WING_A, "block": WING_N,
+           "padded_block": side, "scale": WING_SCALE, "sm_clock_hz": f_sm,
+           "criterion": TOL, "slice": WING_SLICE}
+    img = image(side)
+    for roll in (0, 45, 90):
+        rec[f"production_block_{roll}"] = wing_launch(
+            torch, dev, img, wing_queries(torch, dev, roll, mid, WING_N, centre), floor_ms, f_sm)
+    layer = []
+    for iy in range(8):
+        for ix in range(8):
+            q = wing_queries(torch, dev, 0, (ix * WING_N, iy * WING_N), WING_N, centre)
+            if q is not None:
+                layer.append(wing_launch(torch, dev, image(side), q, floor_ms, f_sm, reps=4))
+            del q
+    rec["layer_0"] = dict(
+        launches=len(layer), Nq=sum(r["Nq"] for r in layer),
+        **{k: sum(r[k] for r in layer) for k in ("ms", "runs_ms", "bound_ms", "roofline_ms",
+                                                 "smem_bound_ms")},
+        max_abs_err=max(r["max_abs_err"] for r in layer),
+        bit_identical_to_runs=all(r["bit_identical_to_runs"] for r in layer))
+    del img
+    torch.cuda.empty_cache()
+    # one block covering the canvas: its side the canvas's reach, plus the pad
+    n_cov = int(np.ceil(WING_SCALE * (WING_A - 1))) + 1
+    corner = (centre[0] - WING_SCALE * (WING_A - 1) / 2, centre[1] - WING_SCALE * (WING_A - 1) / 2)
+    q = wing_queries(torch, dev, 0, corner, n_cov, centre)
+    rec["covering_0"] = wing_launch(torch, dev, image(n_cov + 2 * WING_PAD), q, floor_ms, f_sm,
+                                    streams_only=True)
+    del q
+    torch.cuda.empty_cache()
+    # the launches driven through interp2d_dense (each took the canvas body)
+    n_canvas = rec["canvas_launches"] = 4 + len(layer)
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    assert rec["covering_0"]["Nq"] == WING_A * WING_A, rec["covering_0"]
+    assert rec["layer_0"]["Nq"] >= WING_A * WING_A and rec["layer_0"]["bit_identical_to_runs"]
+    errs = [rec[k]["max_abs_err"] for k in ("production_block_0", "production_block_45",
+                                            "production_block_90", "layer_0", "covering_0")]
+    return rec, n_canvas, max(errs)
 
 
 class capture_first_draw:
@@ -2899,6 +3174,11 @@ def main(argv=None):
     _build.library("bilinear")
     parent = parent_entry("interp_d5512", "interp_d5512_dense")
     parent_k4 = parent_entry("bilinear", "bilinear_scatter_adjoint")
+    for dtype, sfx in ((torch.float64, ""), (torch.float32, "_f32")):
+        fns = tuple(parent_entry("bilinear_plan", f"bilinear_adjoint_plan_{k}{sfx}")
+                    for k in ("rows", "cols"))
+        if None not in fns:
+            PARENT_PLAN[dtype] = fns
     parent_tiled = {form: parent_entry("bilinear_tiled", "bilinear_scatter_adjoint" + sfx)
                    for form, sfx in (("f64", ""), ("f32", "_f32"))}
     if None in parent_tiled.values():
@@ -3101,6 +3381,8 @@ def main(argv=None):
     g_k1, g_k2 = phase_g4460_kernels(torch, dev, k1_caps, g4460_plan, floor_ms, parent_k2)
     del g4460_plan
     assert not k1_caps, sorted(k1_caps)
+    wing, wing_launches, wing_err = phase_wing_canvas_production(torch, dev, floor_ms)
+    torch.cuda.empty_cache()
 
     # ---- 11b. Piff PSF files drawn on the card --------------------------------
     piff_launches, piff_k1, piff_k2, piff_k2_8 = phase_piff_block(
@@ -3150,14 +3432,20 @@ def main(argv=None):
                             "pyimcom_tpu/ops/interp_pallas.py:140",
                             sum(n[f"sweep_d5512_scatter.{mode}"] for n in d5512),
                             max(errs), k2[mode], no_lib))
-    # the G4460 forms: launches of the G4460 bench block and the wing
-    # subtraction task; K1's time is the G4460 block's PSF sampling, K2's
-    # its first group's
-    summary.append(line("interp_g4460_dense", src, "pyimcom_tpu/ops/interp.py:357",
-                        g4460_launches["interp_g4460_dense"]
-                        + task_launches["interp_g4460_dense"],
-                        max(r["max_abs_err"] for r in g_k1.values()),
-                        g_k1["g4460/psf_sampling"], no_lib))
+    # the G4460 forms: launches of the G4460 bench block, the wing
+    # subtraction task and the production wing canvases; K1's time is the
+    # G4460 block's PSF sampling (the production block's canvas launch
+    # beside it), K2's its first group's
+    k1g = line("interp_g4460_dense", src, "pyimcom_tpu/ops/interp.py:357",
+               g4460_launches["interp_g4460_dense"] + task_launches["interp_g4460_dense"]
+               + wing_launches,
+               max([r["max_abs_err"] for r in g_k1.values()] + [wing_err]),
+               g_k1["g4460/psf_sampling"], no_lib)
+    pb = wing["production_block_0"]
+    k1g.update(production_block_ms=pb["ms"], production_block_runs_ms=pb["runs_ms"],
+               production_block_bound_ms=pb["roofline_ms"],
+               production_block_smem_bound_ms=pb["smem_bound_ms"])
+    summary.append(k1g)
     # (its errors those of the production group's rows launched as G4460 and
     # of the launches at 8x of the Piff phase too)
     k2g = {one["mode"]: one for one in g_k2["launches"]}

@@ -36,10 +36,17 @@ Each time is the median of ``--reps`` device times behind a sleep
 that computes the adjoint is held to the plain version (1e-12 of scale)
 and each planned one to a second launch, bit for bit.  One JSON line per
 case and form, after the card's name and power limit: the map's steps at
-the centre, the plan's r, bytes and build time (the plan kernel, each of
-its two C entries alone, and its plain version in torch, which must give
-the same plan), the tiles' staged queries
-(quantiles, chunks), and every variant's time.  Exits 2 without a CUDA GPU.
+the centre, the plan's r, bytes and build time (the plan kernel, and its
+plain version in torch, which must give the same plan), the tiles' staged
+queries
+(quantiles, chunks), and every variant's time.  Beside them the plan
+kernel against ablations of its one pass, timed in turns
+(``plan_kept``; ``plan_every_run_end``: an atomic at every run's start
+and end, as before the neighbouring runs of a tile were merged;
+``plan_no_row_atomics`` and ``plan_no_atomics``: wrong plans, the pass
+without its tiles' row atomics, without any; ``plan_segments_128``:
+warps of 128 queries, not 256; ``plan_ring_128``: a tile's ring of 128
+rows, not 256).  Exits 2 without a CUDA GPU.
 """
 
 import argparse
@@ -70,11 +77,30 @@ VARIANTS = {
 }
 # variants that do not compute the adjoint (they time a part of the body)
 WRONG = ("no_pixel_sums", "loads_only")
+# ablations of the plan kernel (bilinear_adjoint_plan), each a copy of the
+# source built beside the others and timed through the same C entry; those
+# marked wrong give another plan (they time a part of the pass)
+_ROW = "          atomicMin(lo + tk, qr);\n          atomicMax(hi + tk, qr);\n"
+_RING = ("          atomicMin(ring_lo + tk * kRing + rr, c);\n",
+         "        if (end) atomicMax(ring_hi + tk * kRing + rr, c);\n")
+PLAN_VARIANTS = {
+    "plan_kept": [],
+    "plan_every_run_end": [
+        ("const bool start = tk != left[k] && !(k < 2 && left[k < 2 ? k + 2 : k] == tk);",
+         "const bool start = tk != left[k];"),
+        ("const bool end = tk != right[k] && !(k >= 2 && right[k >= 2 ? k - 2 : k] == tk);",
+         "const bool end = tk != right[k];")],
+    "plan_no_row_atomics": [(_ROW, "")],
+    "plan_no_atomics": [(_ROW, ""), (_RING[0], ""), (_RING[1], "")],
+    "plan_segments_128": [("constexpr int kPlanSegQ = 256;", "constexpr int kPlanSegQ = 128;")],
+    "plan_ring_128": [("constexpr int kRing = 256;", "constexpr int kRing = 128;")],
+}
+PLAN_WRONG = ("plan_no_row_atomics", "plan_no_atomics")
 
 
 def source(name):
     s = (REPO / "pyimcom_tpu_torch" / "csrc" / "bilinear.cu").read_text()
-    for old, new in VARIANTS[name]:
+    for old, new in {**VARIANTS, **PLAN_VARIANTS}[name]:
         if old not in s:
             raise RuntimeError(f"variant {name}: the source no longer holds {old!r}")
         s = s.replace(old, new)
@@ -94,7 +120,8 @@ def build(name):
     dll = ctypes.CDLL(str(lib))
     fns = {}
     for entry in ("bilinear_scatter_adjoint", "bilinear_scatter_adjoint_f32",
-                  "bilinear_scatter_adjoint_stream", "bilinear_scatter_adjoint_stream_f32"):
+                  "bilinear_scatter_adjoint_stream", "bilinear_scatter_adjoint_stream_f32",
+                  "bilinear_adjoint_plan", "bilinear_adjoint_plan_f32"):
         fn = getattr(dll, entry)
         fn.argtypes, fn.restype = bc._SIGNATURES[entry], ctypes.c_int
         fns[entry] = fn
@@ -121,35 +148,49 @@ def box_plan(plan):
     t_hi.scatter_reduce_(0, tile, torch.where(empty, -1, hi), "amax")
     packed = t_lo[tile] | (t_hi[tile] << 16)
     spans = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(torch.int32)
-    box = dataclasses.replace(plan, spans=spans.contiguous())
-    return dataclasses.replace(box, window=int(box.tile_windows().sum()))
+    meta = plan.check().meta.clone()
+    box = dataclasses.replace(plan, spans=spans.contiguous(), meta=meta)
+    meta[2] = int(box.tile_windows().sum())
+    return box
 
 
-def plan_entries_ms(torch, cs, bc, x, y, n, plan, reps):
-    """Device ms of the plan kernel's two C entries each alone (the rows
-    pass and the tiles' words; the columns pass and the spans) on these
-    positions, into buffers of `plan`'s sizes, without build_adjoint_plan's
-    read-backs between and after them."""
+def plan_variants(torch, cs, bc, libs, x, y, plan, reps):
+    """Each plan-kernel variant's build of the plan of x, y (a square grid on
+    a square output of the same side), into buffers sized as
+    build_adjoint_plan sizes them, timed in turns: `<variant>_ms`, and
+    whether it gives `plan` word for word (`<variant>_equal`; the
+    variants in PLAN_WRONG do not)."""
+    n = x.shape[0]
+    T = (-(-n // bc.PLAN_TILE)) ** 2
     dev = x.device
-    T = plan.ptr.numel() - 1
-    nbt = int((plan.ptr[1:] - plan.ptr[:-1]).max())
     i32 = dict(dtype=torch.int32, device=dev)
-    rows, ptr = torch.empty((T, 2), **i32), torch.empty(T + 1, **i32)
-    meta = torch.empty(4, dtype=torch.int64, device=dev)
-    s1, s2 = torch.empty(2 * T, **i32), torch.empty(2 * T * nbt, **i32)
-    spans = torch.empty(plan.spans.numel(), **i32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sfx = "_f32" if x.dtype == torch.float32 else ""
+    rec, calls = {}, {}
+    for name, fns in libs.items():
+        ring = 128 if name == "plan_ring_128" else bc.PLAN_RING_ROWS
+        bufs = dict(rows=torch.empty((T, 2), **i32), ptr=torch.empty(T + 1, **i32),
+                    spans=torch.empty(T * -(-min(n, ring) // bc.PLAN_BAND), **i32),
+                    meta=torch.empty(4, dtype=torch.int64, device=dev),
+                    scratch=torch.empty(2 * (T * (ring + 1) + T // bc.PLAN_SCAN_TILES + 1),
+                                        **i32))
 
-    def rows_entry():
-        bc._launch("bilinear_adjoint_plan", x.dtype, dev, x.data_ptr(), y.data_ptr(), n, n, n,
-                   n, s1.data_ptr(), rows.data_ptr(), ptr.data_ptr(), meta.data_ptr(),
-                   route="_rows")
-
-    def cols_entry():
-        bc._launch("bilinear_adjoint_plan", x.dtype, dev, x.data_ptr(), y.data_ptr(), n, n, n,
-                   n, rows.data_ptr(), ptr.data_ptr(), nbt, s2.data_ptr(), spans.data_ptr(),
-                   meta.data_ptr(), route="_cols")
-    return {"plan_rows_entry_ms": cs.median_ms(torch, rows_entry, reps),
-            "plan_cols_entry_ms": cs.median_ms(torch, cols_entry, reps)}
+        def call(fn=fns["bilinear_adjoint_plan" + sfx], b=bufs, name=name):
+            err = fn(x.data_ptr(), y.data_ptr(), n, n, n, n, b["scratch"].data_ptr(),
+                     b["rows"].data_ptr(), b["ptr"].data_ptr(), b["spans"].data_ptr(),
+                     b["meta"].data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"variant {name}: cudaError {err}")
+        call()
+        torch.cuda.synchronize()
+        bands = int(bufs["meta"][1])
+        rec[f"{name}_equal"] = bool(bufs["rows"].equal(plan.rows) and bufs["ptr"].equal(plan.ptr)
+                                    and bufs["spans"][:bands].equal(plan.spans))
+        if name not in PLAN_WRONG and not rec[f"{name}_equal"]:
+            raise RuntimeError(f"variant {name} gives another plan")
+        calls[name] = call
+    rec.update({f"{k}_ms": t for k, t in cs.in_turns(torch, calls, 2 * reps).items()})
+    return rec
 
 
 def first_pair(torch, dev):
@@ -193,8 +234,9 @@ def main():
     from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
 
     OUT.mkdir(exist_ok=True)
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(pool.map(build, VARIANTS))
+    with ThreadPoolExecutor(len(VARIANTS) + len(PLAN_VARIANTS)) as pool:
+        libs = dict(pool.map(build, [*VARIANTS, *PLAN_VARIANTS]))
+    plan_libs = {k: libs.pop(k) for k in PLAN_VARIANTS}
     print(cs.gpu_name_and_power(), flush=True)
     dev = torch.device("cuda", 0)
     n = 4088
@@ -243,7 +285,6 @@ def main():
                        torch, lambda x=x, y=y: bc.build_adjoint_plan_plain(x, y, (n, n)), 1),
                    "plan_equals_plain": cs.same_plan(
                        plan, bc.build_adjoint_plan_plain(x, y, (n, n))),
-                   **plan_entries_ms(torch, cs, bc, x, y, n, plan, args.reps),
                    "box_window_r": box.r, "tiles_staging": staging.numel(),
                    "tile_window_quantiles_10_50_90_99": torch.quantile(
                        staging, torch.tensor([0.1, 0.5, 0.9, 0.99], dtype=torch.float64,
@@ -251,6 +292,7 @@ def main():
                    "tiles_by_chunks": {int(k): int(c) for k, c in zip(*torch.unique(
                        chunks, return_counts=True))},
                    "zero_fill_ms": cs.median_ms(torch, out.zero_, args.reps)}
+            rec.update(plan_variants(torch, cs, bc, plan_libs, x, y, plan, args.reps))
             calls = {}
             for name, fns in libs.items():
                 for pname, p in (("", plan), ("box_window", box)):

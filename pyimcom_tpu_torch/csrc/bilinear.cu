@@ -56,7 +56,7 @@
 // cells (the tile, and one cell above and to the left); a pair map is built
 // once and read unchanged by every CG iteration, so the plan that names
 // them is built once a pair, on the card (the plan kernel near the end of
-// this file, two passes over the positions:
+// this file, one pass over the positions and no host synchronisation:
 // ops/bilinear_cuda.build_adjoint_plan), and reused by every launch: for
 // each tile its first and last query row and, for each band of kBand query
 // rows from the first, the span of columns [lo, hi] that holds
@@ -840,27 +840,56 @@ int blocks_for(long long n) {
 
 // ---- K4's plan, built on the card --------------------------------------------
 // The plan of a (qny, qnx) query grid on the (ny, nx) output (the planned
-// body's note above; ops/bilinear_cuda.build_adjoint_plan), in two C
-// entries of two kernels each, with one read-back between them (nbt, the
-// most bands of a tile, sizes the columns pass) and one at the end (the
-// counts).  The reductions take a lane a query, grid-stride.  A query in
-// bounds adds into the tile of its floor tap's pixel and, where the tap's
-// other pixels fall in another tile, the tile below, right and below-right
-// (plan_tiles: four slots, -1 for none).  Along a row a slot's tile holds
-// for a run of columns (a pair map is near-affine), so a thread reduces only
-// where its slot's tile differs from its left neighbour's (a run's first
-// query) or its right neighbour's (a run's last), as the plain version
-// (build_adjoint_plan_plain) reduces one entry a run: the rows pass takes
-// each tile's first and last query row (32-bit atomicMin / atomicMax) and
-// counts the incidences (a block's sum, one 64-bit atomicAdd a block); one
-// block then packs each tile's words (rows, and ptr by a scan of its band
-// counts) and finds nbt and the bands in all.  The columns pass takes each
-// band's first and last column, and a grid over (tile, band) packs the
-// spans and sums the window.  The positions are read once a pass (a
-// lane's neighbours' tiles come by shuffles); the atomics are a few a run,
-// ~10^6 on a 4088^2 pair against its 1.7 * 10^7 queries; the scratch starts
-// from byte fills (0x7f7f7f7f above any row or column, -1).
-constexpr int kPackThreads = 1024;
+// body's note above; ops/bilinear_cuda.build_adjoint_plan), in one C entry:
+// a fill of the scratch, one pass over the positions and two small kernels
+// over the tiles, with no host synchronisation.  A query in bounds adds
+// into the tile of its floor tap's pixel and, where the tap's other pixels
+// fall in another tile, the tile below, right and below-right (plan_tiles:
+// four slots, -1 for none).  Along a row a slot's tile holds for a run of
+// columns (a pair map is near-affine), so the pass reduces only at a run's
+// first query (its column into the tile's ring entry of this row, and the
+// row into the tile's first and last row) and at its last (its column),
+// as the plain version (build_adjoint_plan_plain) reduces one entry a run.
+// A band's columns are those of its rows, so the pass keeps each tile's
+// columns a row -- in a ring of kRing rows (row mod kRing), since a tile's
+// first row is not known until the pass ends -- and the spans kernel takes
+// a band's span as the extremes of its rows' entries: the plan of the two
+// passes this replaces (commit 379dcb5: rows, a read-back of the most
+// bands of a tile, then columns a band) word for word, reading the
+// positions once.  A tile whose rows span kRing or more (a map shrunk by
+// ~0.2 or more) would wrap its ring: it gets no band and counts as
+// overflowed (meta[3]), which the wrapper checks at its first read-back and
+// raises on (bilinear_cuda.AdjointPlan.check).
+//
+// The pass: a warp takes kPlanSegQ consecutive queries of a row, loads all
+// their positions first (kPlanSegQ / 32 loads of x and of y a lane in
+// flight), and finds each query's left and right neighbours' tiles by
+// shuffles, lane 31's right neighbour from the next 32 (the segment's ends
+// count as a run's ends: a redundant extreme, no divergent reload).  Its
+// atomics are what it costs beyond its loads (k4_variants.py, a synthetic
+// 4088^2 pair at a roll of 0, f64 / f32 positions, H100 80GB HBM3, 700 W):
+// without them it built the plan in 0.131 / 0.095 ms against 0.193 / 0.170
+// with them, without its tiles' row atomics alone in 0.152 / 0.136.  So
+// where a slot-0 (1) run of a tile follows the left neighbour's slot-2 (3)
+// run of the same tile -- a tile's first column, at any roll -- its start
+// is left to that run, and that run's end to it: half the atomics, the
+// same extremes (an atomic at every run's start and end: 0.217 / 0.197).
+// Segments of 128 queries were no faster (0.187 / 0.164 at 0, 0.194 /
+// 0.170 at 45 against 0.189 / 0.170), a ring of 128 rows 0.014 ms faster (a
+// smaller fill) but short of the rows a map shrunk 0.3x spreads a tile
+// over; a block of 8 rows gathering its tiles' rows in a table in shared
+// memory (compare-and-swap, one flush a tile) was slower at every roll.  The counts kernel takes kPlanScan tiles a block: each tile's rows
+// and band count, a block scan of the counts (ptr, local), the block's
+// sum; the spans kernel takes a warp a tile: its first band from the
+// blocks' sums before it, then each band's span from the ring, the window,
+// and the last tile the bands in all.  The scratch starts from byte fills
+// (0x7f7f7f7f above any row or column, -1 below).
+constexpr int kRing = 256;          // rows of a tile's ring (a power of two)
+constexpr int kPlanSegQ = 256;      // queries of a row a warp takes
+constexpr int kPlanScan = 2048;     // tiles of a counts block
+constexpr int kPlanScanPer = kPlanScan / kThreads;
+static_assert((kRing & (kRing - 1)) == 0 && kPlanSegQ % 32 == 0, "ring and segment shape");
+static_assert(kPlanScanPer * kThreads == kPlanScan, "a counts block's tiles");
 
 template <typename Pos>
 __device__ __forceinline__ int plan_tiles(Pos xv, Pos yv, int ny, int nx, int tiles_x,
@@ -877,62 +906,75 @@ __device__ __forceinline__ int plan_tiles(Pos xv, Pos yv, int ny, int nx, int ti
   return 1 + down + right + (down && right);
 }
 
-// The rows pass (kCols false: row_lo, row_hi (T,), pairs) or the columns
-// pass (kCols true: each tile's first row at rows[2t], col_lo, col_hi
-// (T * nbt,)).  A block takes kThreads consecutive queries of a row at a
-// time (grid-stride over the rows' pieces), a lane one query; a lane's left
-// and right neighbours' tiles come from the lanes beside it by shuffles,
-// the warp's edges computing their own.
-template <typename Pos, bool kCols>
+// The pass over the positions: lo = [row_lo (T), ring_lo (T kRing)], hi =
+// [row_hi (T), ring_hi (T kRing)], the incidences added into *pairs.
+template <typename Pos>
 __global__ void __launch_bounds__(kThreads)
     plan_pass_kernel(const Pos* __restrict__ xf, const Pos* __restrict__ yf, int qny, int qnx,
-                     int ny, int nx, int* __restrict__ row_lo, int* __restrict__ row_hi,
-                     unsigned long long* __restrict__ pairs, const int* __restrict__ rows,
-                     int nbt, int* __restrict__ col_lo, int* __restrict__ col_hi) {
+                     int ny, int nx, int T, int* __restrict__ lo, int* __restrict__ hi,
+                     unsigned long long* __restrict__ pairs) {
+  constexpr int kChunks = kPlanSegQ / 32;
   __shared__ int warp_sums[kThreads / 32];
   const int tiles_x = (nx + kOwn - 1) / kOwn, lane = threadIdx.x & 31;
-  const int pieces_x = (qnx + kThreads - 1) / kThreads;
-  const long long pieces = static_cast<long long>(qny) * pieces_x;
+  const int segs_x = (qnx + kPlanSegQ - 1) / kPlanSegQ;
+  const long long segs = static_cast<long long>(qny) * segs_x;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  int* ring_lo = lo + T;
+  int* ring_hi = hi + T;
   int count = 0;
-  for (long long w = blockIdx.x; w < pieces; w += gridDim.x) {
-    const int qr = static_cast<int>(w / pieces_x);
-    const int qc = static_cast<int>(w - static_cast<long long>(qr) * pieces_x) * kThreads +
-                   static_cast<int>(threadIdx.x);
-    const long long q = static_cast<long long>(qr) * qnx + qc;
-    int t[4], tl[4], tr[4];
-    t[0] = t[1] = t[2] = t[3] = -1;
-    if (qc < qnx) count += plan_tiles(xf[q], yf[q], ny, nx, tiles_x, t);
+  for (long long w = blockIdx.x * (kThreads / 32LL) + (threadIdx.x >> 5); w < segs;
+       w += warps) {
+    const int qr = static_cast<int>(w / segs_x);
+    const int c0 = static_cast<int>(w - static_cast<long long>(qr) * segs_x) * kPlanSegQ;
+    const Pos* xr = xf + static_cast<long long>(qr) * qnx;
+    const Pos* yr = yf + static_cast<long long>(qr) * qnx;
+    Pos xv[kChunks], yv[kChunks];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      tl[k] = __shfl_up_sync(0xffffffffu, t[k], 1);
-      tr[k] = __shfl_down_sync(0xffffffffu, t[k], 1);
+    for (int j = 0; j < kChunks; ++j) {
+      const int c = c0 + 32 * j + lane;
+      xv[j] = c < qnx ? xr[c] : Pos(-1);
+      yv[j] = c < qnx ? yr[c] : Pos(-1);
     }
-    if (lane == 0) {
-      if (qc > 0 && qc < qnx)
-        plan_tiles(xf[q - 1], yf[q - 1], ny, nx, tiles_x, tl);
-      else
-        tl[0] = tl[1] = tl[2] = tl[3] = -1;
-    }
-    if (kCols && lane == 31) {
-      if (qc + 1 < qnx)
-        plan_tiles(xf[q + 1], yf[q + 1], ny, nx, tiles_x, tr);
-      else
-        tr[0] = tr[1] = tr[2] = tr[3] = -1;
-    }
+    int t[kChunks][4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (t[k] < 0) continue;
-      if (kCols) {
-        const int key = t[k] * nbt + (qr - rows[2 * t[k]]) / kBand;
-        if (t[k] != tl[k]) atomicMin(col_lo + key, qc);
-        if (t[k] != tr[k]) atomicMax(col_hi + key, qc);
-      } else if (t[k] != tl[k]) {
-        atomicMin(row_lo + t[k], qr);
-        atomicMax(row_hi + t[k], qr);
+    for (int j = 0; j < kChunks; ++j) count += plan_tiles(xv[j], yv[j], ny, nx, tiles_x, t[j]);
+    const int rr = qr & (kRing - 1);
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      // each slot's tile at the query's left and right neighbours (the
+      // segment's ends: -2, a run's end)
+      int left[4], right[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        left[k] = __shfl_up_sync(0xffffffffu, t[j][k], 1);
+        right[k] = __shfl_down_sync(0xffffffffu, t[j][k], 1);
+        const int prev = j > 0 ? __shfl_sync(0xffffffffu, t[j > 0 ? j - 1 : 0][k], 31) : -2;
+        const int next =
+            j + 1 < kChunks ? __shfl_sync(0xffffffffu, t[j + 1 < kChunks ? j + 1 : j][k], 0) : -2;
+        if (lane == 0) left[k] = prev;
+        if (lane == 31) right[k] = next;
+      }
+      const int c = c0 + 32 * j + lane;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int tk = t[j][k];
+        if (tk < 0) continue;
+        // a slot-0 (1) run of a tile that the left neighbour's slot-2 (3)
+        // run of the same tile precedes leaves its first column and its
+        // row to that run; a slot-2 (3) run that the right neighbour's
+        // slot-0 (1) run of the same tile follows leaves its last column
+        // to that run: half the atomics, the same extremes
+        const bool start = tk != left[k] && !(k < 2 && left[k < 2 ? k + 2 : k] == tk);
+        const bool end = tk != right[k] && !(k >= 2 && right[k >= 2 ? k - 2 : k] == tk);
+        if (start) {
+          atomicMin(ring_lo + tk * kRing + rr, c);
+          atomicMin(lo + tk, qr);
+          atomicMax(hi + tk, qr);
+        }
+        if (end) atomicMax(ring_hi + tk * kRing + rr, c);
       }
     }
   }
-  if (kCols) return;
   for (int o = 16; o > 0; o >>= 1) count += __shfl_xor_sync(0xffffffffu, count, o);
   if (lane == 0) warp_sums[threadIdx.x >> 5] = count;
   __syncthreads();
@@ -943,109 +985,113 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block: each tile's words -- rows[2t], rows[2t + 1] its first and last
-// query row ((0, -1) without a query), ptr its first band (an exclusive scan
-// of the band counts, ptr[T] all of them) -- and meta[1] = nbt, meta[2] =
-// the bands in all.  The tiles go in segments of kPackSeg: their band
-// counts read coalesced into shared memory, a thread scanning kPackPer
-// consecutive ones, the starts written back coalesced.
-constexpr int kPackPer = 8, kPackSeg = kPackThreads * kPackPer;
-__global__ void __launch_bounds__(kPackThreads)
-    plan_words_kernel(const int* __restrict__ row_lo, const int* __restrict__ row_hi, int T,
-                      int* __restrict__ rows, int* __restrict__ ptr, long long* __restrict__ meta) {
-  __shared__ int nb_s[kPackSeg];
-  __shared__ int warp_sums[kPackThreads / 32], warp_max[kPackThreads / 32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  int carry = 0, most = 0;
-  for (int s0 = 0; s0 < T; s0 += kPackSeg) {
-    for (int j = t; j < kPackSeg; j += kPackThreads) {
-      const int i = s0 + j;
-      int nb = 0;
-      if (i < T) {
-        const int lo = row_lo[i], hi = row_hi[i];
-        nb = hi >= 0 ? (hi - lo) / kBand + 1 : 0;
-        rows[2 * i] = hi >= 0 ? lo : 0;
-        rows[2 * i + 1] = hi >= 0 ? hi : -1;
-      }
-      nb_s[j] = nb;
-      most = max(most, nb);
-    }
-    __syncthreads();
-    int loc[kPackPer], sum = 0;
+// Each tile's words -- rows[2t], rows[2t + 1] its first and last query row
+// ((0, -1) without a query), ptr[t] its first band among its block's (an
+// exclusive scan of the band counts) -- and the block's bands in bsum[b]; a
+// tile whose rows span kRing or more gets no band and adds one to
+// *overflow.
+__global__ void __launch_bounds__(kThreads)
+    plan_counts_kernel(const int* __restrict__ lo, const int* __restrict__ hi, int T,
+                       int* __restrict__ rows, int* __restrict__ ptr, int* __restrict__ bsum,
+                       unsigned long long* __restrict__ overflow) {
+  __shared__ int warp_sums[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int base = blockIdx.x * kPlanScan + threadIdx.x * kPlanScanPer;
+  int nb[kPlanScanPer], sum = 0, over = 0;
 #pragma unroll
-    for (int k = 0; k < kPackPer; ++k) {
-      loc[k] = nb_s[t * kPackPer + k];
-      sum += loc[k];
-    }
-    int incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += u;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    int run = carry + incl - sum, seg = 0;
-    for (int w = 0; w < kPackThreads / 32; ++w) {
-      if (w < warp) run += warp_sums[w];
-      seg += warp_sums[w];
-    }
-#pragma unroll
-    for (int k = 0; k < kPackPer; ++k) {
-      nb_s[t * kPackPer + k] = run;
-      run += loc[k];
-    }
-    __syncthreads();
-    for (int j = t; j < kPackSeg && s0 + j < T; j += kPackThreads) ptr[s0 + j] = nb_s[j];
-    carry += seg;
-    __syncthreads();  // nb_s and warp_sums are the next segment's
+  for (int k = 0; k < kPlanScanPer; ++k) {
+    const int t = base + k;
+    nb[k] = 0;
+    if (t >= T) continue;
+    const int a = lo[t], b = hi[t];
+    const bool live = b >= 0;
+    rows[2 * t] = live ? a : 0;
+    rows[2 * t + 1] = live ? b : -1;
+    if (live && b - a >= kRing)
+      ++over;
+    else if (live)
+      nb[k] = (b - a) / kBand + 1;
+    sum += nb[k];
   }
-  for (int o = 16; o > 0; o >>= 1) most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
-  if (lane == 0) warp_max[warp] = most;
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
-  if (t == 0) {
-    int m = 0;
-    for (int w = 0; w < kPackThreads / 32; ++w) m = max(m, warp_max[w]);
-    ptr[T] = carry;
-    meta[1] = m;
-    meta[2] = carry;
+  int run = incl - sum, total = 0;
+  for (int w = 0; w < kThreads / 32; ++w) {
+    if (w < warp) run += warp_sums[w];
+    total += warp_sums[w];
   }
+#pragma unroll
+  for (int k = 0; k < kPlanScanPer; ++k) {
+    if (base + k < T) ptr[base + k] = run;
+    run += nb[k];
+  }
+  if (threadIdx.x == 0) bsum[blockIdx.x] = total;
+  for (int o = 16; o > 0; o >>= 1) over += __shfl_xor_sync(0xffffffffu, over, o);
+  if (lane == 0 && over) atomicAdd(overflow, static_cast<unsigned long long>(over));
 }
 
-// Band k of tile t (entry t * nbt + k, k below the tile's band count): its
-// span lo | hi << 16 at spans[ptr[t] + k] (0xffff | 0 without a query), and
-// its staged queries (its rows times its columns) added into *window.
+// A warp a tile: ptr[t] made global (the sums of the counts blocks before
+// its own), each band's span lo | hi << 16 at spans[ptr[t] + k] (0xffff | 0
+// without a query) from the extremes of its rows' ring entries (a lane a
+// row, the band's kBand lanes reduced by shuffles), its staged
+// queries (rows times columns) added into *window; the last tile writes
+// ptr[T] and the bands in all (*bands).
 __global__ void __launch_bounds__(kThreads)
-    plan_spans_kernel(const int* __restrict__ rows, const int* __restrict__ ptr, int T, int nbt,
-                      const int* __restrict__ col_lo, const int* __restrict__ col_hi,
-                      unsigned* __restrict__ spans, unsigned long long* __restrict__ window) {
-  __shared__ long long warp_sums[kThreads / 32];
+    plan_spans_kernel(const int* __restrict__ lo, const int* __restrict__ hi, int T,
+                      const int* __restrict__ rows, int* __restrict__ ptr,
+                      const int* __restrict__ bsum, unsigned* __restrict__ spans,
+                      long long* __restrict__ bands, unsigned long long* __restrict__ window) {
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (t >= T) return;
+  const int b = t / kPlanScan;
+  int before = 0;
+  for (int i = lane; i < b; i += 32) before += bsum[i];
+  for (int o = 16; o > 0; o >>= 1) before += __shfl_xor_sync(0xffffffffu, before, o);
+  const int r0 = rows[2 * t], r1 = rows[2 * t + 1];
+  const int nb = r1 >= 0 && r1 - r0 < kRing ? (r1 - r0) / kBand + 1 : 0;
+  const int p0 = before + ptr[t];
+  const int* ring_lo = lo + T + static_cast<long long>(t) * kRing;
+  const int* ring_hi = hi + T + static_cast<long long>(t) * kRing;
+  // a lane a row, a band the extremes of kBand lanes' rows
+  static_assert(32 % kBand == 0 && kBand == 4, "a band is 4 lanes of a warp");
   long long win = 0;
-  const long long n = static_cast<long long>(T) * nbt;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int t = static_cast<int>(i / nbt);
-    const int k = static_cast<int>(i - static_cast<long long>(t) * nbt);
-    const int p0 = ptr[t];
-    if (k >= ptr[t + 1] - p0) continue;
-    int lo = col_lo[i], hi = col_hi[i];
-    if (hi < 0) {
-      lo = 0xffff;
-      hi = 0;
-    } else {
-      const int first = rows[2 * t] + kBand * k;
-      win += static_cast<long long>(min(first + kBand - 1, rows[2 * t + 1]) - first + 1) *
-             (hi - lo + 1);
+  const int nrows = nb ? r1 - r0 + 1 : 0;
+  for (int base = 0; base < nrows; base += 32) {
+    const int i = base + lane, r = r0 + i;
+    int a = i < nrows ? ring_lo[r & (kRing - 1)] : INT_MAX;
+    int z = i < nrows ? ring_hi[r & (kRing - 1)] : -1;
+#pragma unroll
+    for (int o = 1; o < kBand; o <<= 1) {
+      a = min(a, __shfl_xor_sync(0xffffffffu, a, o));
+      z = max(z, __shfl_xor_sync(0xffffffffu, z, o));
     }
-    spans[p0 + k] = static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+    if ((lane & (kBand - 1)) == 0 && i < nrows) {
+      const int k = i / kBand, first = r0 + kBand * k, last = min(first + kBand - 1, r1);
+      if (z < 0) {
+        a = 0xffff;
+        z = 0;
+      } else {
+        win += static_cast<long long>(last - first + 1) * (z - a + 1);
+      }
+      spans[p0 + k] = static_cast<unsigned>(a) | (static_cast<unsigned>(z) << 16);
+    }
   }
   for (int o = 16; o > 0; o >>= 1) win += __shfl_xor_sync(0xffffffffu, win, o);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = win;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long total = 0;
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
-    if (total) atomicAdd(window, static_cast<unsigned long long>(total));
+  __syncwarp();
+  if (lane == 0) {
+    ptr[t] = p0;
+    if (win) atomicAdd(window, static_cast<unsigned long long>(win));
+    if (t == T - 1) {
+      ptr[T] = p0 + nb;
+      *bands = p0 + nb;
+    }
   }
 }
 
@@ -1057,43 +1103,34 @@ int resident_blocks(long long n) {
   return std::min(blocks_for(n), 8 * std::max(nsm, 1));
 }
 
-// The rows pass and the words: scratch (2, T) int32, meta (4,) int64 (the
-// incidences, nbt, the bands, the window), both filled here.
+// The plan: scratch (2, T (kRing + 1) + T / kPlanScan + 1) int32 (the rows
+// and rings, the counts blocks' sums), rows (T, 2), ptr (T + 1) and spans
+// (at least T ceil(min(qny, kRing) / kBand)) int32 written (the plan's),
+// meta (4,) int64 written: the incidences, the bands, the window and the
+// tiles that overflowed their ring.
 template <typename Pos>
-int plan_rows(const Pos* xf, const Pos* yf, int qny, int qnx, int ny, int nx, int* scratch,
-              int* rows, int* ptr, long long* meta, void* stream) {
+int plan(const Pos* xf, const Pos* yf, int qny, int qnx, int ny, int nx, int* scratch, int* rows,
+         int* ptr, unsigned* spans, long long* meta, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int T = ((ny + kOwn - 1) / kOwn) * ((nx + kOwn - 1) / kOwn);
-  const long long n = static_cast<long long>(qny) * qnx;
-  cudaMemsetAsync(scratch, 0x7f, sizeof(int) * T, s);
-  cudaMemsetAsync(scratch + T, 0xff, sizeof(int) * T, s);
+  if (T <= 0 || static_cast<long long>(T) * kRing >= INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long ring = static_cast<long long>(T) * (kRing + 1);
+  const int nblk = (T + kPlanScan - 1) / kPlanScan;
+  int* lo = scratch;
+  int* hi = scratch + ring;
+  int* bsum = hi + ring;
+  cudaMemsetAsync(lo, 0x7f, sizeof(int) * ring, s);
+  cudaMemsetAsync(hi, 0xff, sizeof(int) * ring, s);
   cudaMemsetAsync(meta, 0, 4 * sizeof(long long), s);
-  if (n > 0)
-    plan_pass_kernel<Pos, false><<<resident_blocks(n), kThreads, 0, s>>>(
-        xf, yf, qny, qnx, ny, nx, scratch, scratch + T,
-        reinterpret_cast<unsigned long long*>(meta), nullptr, 0, nullptr, nullptr);
-  plan_words_kernel<<<1, kPackThreads, 0, s>>>(scratch, scratch + T, T, rows, ptr, meta);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The columns pass and the spans: scratch (2, T * nbt) int32, filled here;
-// the window added into meta[3].
-template <typename Pos>
-int plan_cols(const Pos* xf, const Pos* yf, int qny, int qnx, int ny, int nx, const int* rows,
-              const int* ptr, int nbt, int* scratch, unsigned* spans, long long* meta,
-              void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int T = ((ny + kOwn - 1) / kOwn) * ((nx + kOwn - 1) / kOwn);
-  const long long n = static_cast<long long>(qny) * qnx, m = static_cast<long long>(T) * nbt;
-  if (m <= 0) return static_cast<int>(cudaGetLastError());
-  cudaMemsetAsync(scratch, 0x7f, sizeof(int) * m, s);
-  cudaMemsetAsync(scratch + m, 0xff, sizeof(int) * m, s);
-  if (n > 0)
-    plan_pass_kernel<Pos, true><<<resident_blocks(n), kThreads, 0, s>>>(
-        xf, yf, qny, qnx, ny, nx, nullptr, nullptr, nullptr, rows, nbt, scratch, scratch + m);
-  plan_spans_kernel<<<resident_blocks(m), kThreads, 0, s>>>(
-      rows, ptr, T, nbt, scratch, scratch + m, spans,
-      reinterpret_cast<unsigned long long*>(meta + 3));
+  auto* m = reinterpret_cast<unsigned long long*>(meta);
+  const long long segs = static_cast<long long>(qny) * ((qnx + kPlanSegQ - 1) / kPlanSegQ);
+  if (segs > 0)
+    plan_pass_kernel<Pos><<<resident_blocks(segs * 32), kThreads, 0, s>>>(
+        xf, yf, qny, qnx, ny, nx, T, lo, hi, m);
+  plan_counts_kernel<<<nblk, kThreads, 0, s>>>(lo, hi, T, rows, ptr, bsum, m + 3);
+  plan_spans_kernel<<<(T + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(
+      lo, hi, T, rows, ptr, bsum, spans, meta + 1, m + 2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1193,45 +1230,25 @@ int bilinear_scatter_adjoint_stream_f32(const double* values, const double* gain
                                stream);
 }
 
-// K4's plan, the rows pass and the tiles' words.  xf, yf f64 on a (qny,
-// qnx) query grid, row-major; for the T = ceil(ny / 32) ceil(nx / 32) tiles
-// of the (ny, nx) output: scratch (2, T) int32, rows (T, 2) and ptr (T + 1)
-// int32 written (the plan's); meta (4,) int64 written: the (tile, query)
-// incidences, nbt (the most bands of a tile), the bands in all, and 0 for
-// the window.  Returns cudaGetLastError() after the launches.
-int bilinear_adjoint_plan_rows(const double* xf, const double* yf, int qny, int qnx, int ny,
-                               int nx, int* scratch, int* rows, int* ptr, long long* meta,
-                               void* stream) {
-  return plan_rows<double>(xf, yf, qny, qnx, ny, nx, scratch, rows, ptr, meta, stream);
+// K4's plan of f64 positions xf, yf on a (qny, qnx) query grid, row-major,
+// for the T = ceil(ny / 32) ceil(nx / 32) tiles of the (ny, nx) output:
+// scratch (2 (T (256 + 1) + T / 2048 + 1)) int32; rows (T, 2), ptr (T + 1)
+// and spans (at least T ceil(min(qny, 256) / 4)) int32 written, the plan;
+// meta (4,) int64 written: the (tile, query) incidences, the bands, the
+// window and the tiles whose rows span 256 or more (none: the plan is
+// whole).  Enqueues its work on `stream` and returns cudaGetLastError()
+// without waiting for it.
+int bilinear_adjoint_plan(const double* xf, const double* yf, int qny, int qnx, int ny, int nx,
+                          int* scratch, int* rows, int* ptr, unsigned* spans, long long* meta,
+                          void* stream) {
+  return plan<double>(xf, yf, qny, qnx, ny, nx, scratch, rows, ptr, spans, meta, stream);
 }
 
-// The rows pass on float32 positions; everything else as
-// bilinear_adjoint_plan_rows.
-int bilinear_adjoint_plan_rows_f32(const float* xf, const float* yf, int qny, int qnx, int ny,
-                                   int nx, int* scratch, int* rows, int* ptr, long long* meta,
-                                   void* stream) {
-  return plan_rows<float>(xf, yf, qny, qnx, ny, nx, scratch, rows, ptr, meta, stream);
-}
-
-// K4's plan, the columns pass and the spans: rows, ptr and nbt = meta[1]
-// from the rows pass; scratch (2, T nbt) int32; spans (meta[2],) int32
-// written (the plan's); the staged queries added into meta[3].  Returns
-// cudaGetLastError() after the launches.
-int bilinear_adjoint_plan_cols(const double* xf, const double* yf, int qny, int qnx, int ny,
-                               int nx, const int* rows, const int* ptr, int nbt, int* scratch,
-                               unsigned* spans, long long* meta, void* stream) {
-  return plan_cols<double>(xf, yf, qny, qnx, ny, nx, rows, ptr, nbt, scratch, spans, meta,
-                           stream);
-}
-
-// The columns pass on float32 positions; everything else as
-// bilinear_adjoint_plan_cols.
-int bilinear_adjoint_plan_cols_f32(const float* xf, const float* yf, int qny, int qnx, int ny,
-                                   int nx, const int* rows, const int* ptr, int nbt,
-                                   int* scratch, unsigned* spans, long long* meta,
-                                   void* stream) {
-  return plan_cols<float>(xf, yf, qny, qnx, ny, nx, rows, ptr, nbt, scratch, spans, meta,
-                          stream);
+// The plan of float32 positions; everything else as bilinear_adjoint_plan.
+int bilinear_adjoint_plan_f32(const float* xf, const float* yf, int qny, int qnx, int ny,
+                              int nx, int* scratch, int* rows, int* ptr, unsigned* spans,
+                              long long* meta, void* stream) {
+  return plan<float>(xf, yf, qny, qnx, ny, nx, scratch, rows, ptr, spans, meta, stream);
 }
 
 }  // extern "C"

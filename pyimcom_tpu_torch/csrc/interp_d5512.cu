@@ -57,8 +57,9 @@
 //   K2 and the plain version.
 // * The patches are read through L1 / L2, not staged: staging the box of a
 //   run's patches in shared memory with cp.async cost at least what it saved
-//   on every captured launch, at every budget from 2 to 20 KB a warp and
-//   for boxes of a block's run, of a warp's run and of a lattice patch.
+//   on every captured launch of PSF sampling and injection, at every budget
+//   from 2 to 20 KB a warp and for boxes of a block's run, of a warp's run
+//   and of a lattice patch.
 //
 // Also measured and not kept: four neighbouring queries a thread walking
 // their shared patch rows once (45 reads a query: 255 registers, lanes four
@@ -67,6 +68,49 @@
 // conflict-free (slower: no 16-byte copies, larger windows); two or four
 // runs a warp (T = 256, 512) with their x and y loaded ahead; fewer
 // registers for more warps (spills).
+//
+// K1 on a canvas lattice (interp_canvas_kernel), the split-PSF wing
+// canvas.  Its launches are the opposite of PSF sampling's: the points are
+// a lattice clipped to a mosaic block's footprint, nearly all on the grid,
+// ~0.94 block pixels apart (each sample read by ~70 queries), and a
+// production block's padded image (2572^2 f64, 52.9 MB) outgrows the 50 MB
+// L2 (the covering block's, 1.07 GB, twenty times).  The caller knows the
+// lattice (CanvasGeometry keeps each block's canvas-row segments,
+// interp_cuda.CanvasSegments), which scattered runs of 32 threw away: a
+// run was a slanted line of the block image, its lanes on other cache
+// lines at every roll.  What held the runs body there (chip_smoke.py's
+// wing_canvas_production, H100 80GB HBM3, 700 W): on the covering launch x,
+// y and the result alone took 1.39 ms of its 3.69 (every query moved off
+// the grid), the patch reads the rest; and it lost most where a warp's 32
+// points run across the image's rows: a production block took 0.241 ms at
+// a roll of 0, 0.379 at 45 and 0.456 at 90.  So a CTA takes a 32 x 32 tile
+// of the lattice (the host's canvas_tiles, from the segments; smaller
+// where the points lie so far apart that a tile's window would outgrow
+// kCanvasWindow), loads its
+// points' positions into shared memory, reduces their floors to a window,
+// stages the window with bulk copies on an mbarrier and computes every
+// query from shared memory: 64 eight-byte reads a query, in K1's order, so
+// the result is the runs body's bit for bit.  What bounds it: those reads,
+// 512 bytes a query at 128 bytes a clock an SM -- 2.32 ms for the covering
+// launch's 151.9M queries at 1.98 GHz against its bytes bound of 1.41 --
+// and the CTA's chain of segments, positions, reduction and staged window,
+// which only the 4 CTAs an SM overlap: without its compute the body still
+// took 0.120 / 0.122 / 0.162 ms of its 0.201 / 0.260 / 0.220 on a
+// production block at 0 / 45 / 90 degrees (the runs body 0.242 / 0.377 /
+// 0.449; k1_variants.py, H100 80GB HBM3, 700 W).  It gains least where
+// that chain is not hidden: on the covering launch (its windows read from
+// HBM; 3.77 against 3.69 ms in chip_smoke.py's run) and on config 3's
+// 14400-point canvas (22 tiles; 0.0141 against 0.0087, a loss).  Measured
+// and not kept (k1_variants.py, same card and block, ms at 0 / 45 / 90): 3
+// CTAs an SM with 80 registers 0.231 / 0.298 / 0.245; 2 CTAs with 128
+// registers, no spill, 0.296 / 0.371 / 0.307; the tile's queries one at a
+// time 0.243 / 0.307 / 0.266; no staging (the tile's patches through L1 /
+// L2) 0.298 / 0.437 / 0.321; the first design (warps of 8 x 4 points, rows
+// 64 bytes apart, the positions in registers: 136 bytes of spills) 0.340
+// at 0 (chip_smoke.py); a persistent CTA an SM walking 32 x 64 tiles through
+// two buffers, 8 warps preparing the next tile while 24 computed, slower
+// than this body at every roll, the covering launch too (its workers'
+// compute could not keep up with one CTA's warps).
 //
 // K2 (sweep_pool_kernel, sweep_b_kernel).  What bounds it on this card.  A
 // pool query reads an 8 x 8 (G4460) or 10 x 10 (D5512) patch -- 512 or 800
@@ -1237,6 +1281,190 @@ sweep_b_kernel(double* __restrict__ dst, int dst_len, const double* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1 on a canvas lattice
+// ---------------------------------------------------------------------------
+
+// The canvas body's launch shape: a CTA of kCanvasThreads threads takes a
+// tile of kCanvasRows x kCanvasCols canvas points, kCanvasPer a thread, in
+// kCanvasPer steps of 8 rows (of 8 columns where the tile is transposed);
+// a half-warp takes 16 neighbouring points of one canvas row (of one
+// column, transposed: the host picks the lattice direction that runs
+// closer to the image's rows), so that its patch reads fall on 16
+// neighbouring samples of one window row, and window rows start 8 doubles
+// (mod 16) apart, so that those of a half-warp along a diagonal fall on
+// distinct banks too.  kCanvasSmem bytes of shared memory a CTA, so that
+// kCanvasMinBlocks CTAs an SM overlap one another's staging and compute:
+// the mbarrier, the window reduction, each row's first segment, the
+// segments of the tile, the tile's positions (x, then y, a slot a point),
+// and the window (kCanvasWindow doubles).
+constexpr int kCanvasThreads = 256;
+constexpr int kCanvasRows = 32, kCanvasCols = 32;
+constexpr int kCanvasSegs = 64;                   // most segments a tile (the planner's cut)
+constexpr int kCanvasPer = kCanvasRows * kCanvasCols / kCanvasThreads;
+constexpr int kCanvasMinBlocks = 4;
+constexpr int kCanvasSmem = 57344;
+constexpr int kCanvasXY = 16 + 16 + 4 * kCanvasRows + 16 * kCanvasSegs;
+constexpr int kCanvasHead = kCanvasXY + 16 * kCanvasRows * kCanvasCols;
+constexpr int kCanvasWindow = (kCanvasSmem - kCanvasHead) / 8;
+static_assert(kCanvasPer * kCanvasThreads == kCanvasRows * kCanvasCols &&
+                  kCanvasRows == 32 && kCanvasCols == 32 && kCanvasThreads == 256 &&
+                  kCanvasPer == 4,
+              "a half-warp 16 points of a row, a step 8 rows of 32");
+static_assert(kCanvasXY % 16 == 0 && kCanvasHead % 16 == 0, "16-byte aligned regions");
+
+// The step-`i` point of this thread: its row and column in the tile.
+__device__ __forceinline__ void canvas_point(int i, bool transpose, int* r, int* c) {
+  const int w = static_cast<int>(threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  const int along = 16 * (w & 1) + (lane & 15), across = 8 * i + 2 * (w >> 1) + (lane >> 4);
+  *r = transpose ? along : across;
+  *c = transpose ? across : along;
+}
+
+// The floors (fx, fy) of this block's queries on the grid (positions sx,
+// sy: a slot a point), reduced to their extremes in red[0..3] (min fx, max
+// fx, min fy, max fy; INT_MAX ... where there is none); ends with a barrier.
+template <int TAPS>
+__device__ __forceinline__ void canvas_extremes(const int* q, const double* sx,
+                                                const double* sy, int ny, int nx, int* red) {
+  if (threadIdx.x < 4) red[threadIdx.x] = (threadIdx.x & 1) ? INT_MIN : INT_MAX;
+  __syncthreads();
+  int e[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};
+#pragma unroll
+  for (int i = 0; i < kCanvasPer; ++i) {
+    if (q[i] < 0) continue;
+    const int slot = i * kCanvasThreads + threadIdx.x;
+    const double fxd = floor(sx[slot]), fyd = floor(sy[slot]);
+    if (!on_grid<TAPS>(fxd, fyd, ny, nx)) continue;
+    const int fx = static_cast<int>(fxd), fy = static_cast<int>(fyd);
+    e[0] = min(e[0], fx);
+    e[1] = max(e[1], fx);
+    e[2] = min(e[2], fy);
+    e[3] = max(e[3], fy);
+  }
+  for (int o = 16; o; o >>= 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int v = __shfl_xor_sync(0xffffffffu, e[j], o);
+      e[j] = (j & 1) ? max(e[j], v) : min(e[j], v);
+    }
+  }
+  if ((threadIdx.x & 31) == 0 && e[0] != INT_MAX) {
+    atomicMin(red, e[0]);
+    atomicMax(red + 1, e[1]);
+    atomicMin(red + 2, e[2]);
+    atomicMax(red + 3, e[3]);
+  }
+  __syncthreads();
+}
+
+// Query (qx, qy): 0 off the grid, else its patch from the staged window `w`
+// (win non-null) or read through L1 / L2 (in 16-byte pairs where `pairs`),
+// in K1's order sum_a wy[a] (sum_b wx[b] img).
+template <int TAPS>
+__device__ __forceinline__ double canvas_value(double qx, double qy, const double* win,
+                                               const Window& w, const double* __restrict__ img,
+                                               int ny, int nx, bool pairs) {
+  constexpr int lo = Family<TAPS>::kLo;
+  const double fxd = floor(qx), fyd = floor(qy);
+  if (!on_grid<TAPS>(fxd, fyd, ny, nx)) return 0.0;
+  double wxt[TAPS], wyt[TAPS];
+  taps<TAPS>(qx - fxd - 0.5, wxt);
+  taps<TAPS>(qy - fyd - 0.5, wyt);
+  const int fx = static_cast<int>(fxd), fy = static_cast<int>(fyd);
+  if (win != nullptr)
+    return patch_sum<TAPS>(win + w.shift + (fy - lo - w.y0) * w.pitch + (fx - lo - w.x0),
+                           w.pitch, wxt, wyt, LoadShared());
+  return pairs ? patch_sum_pairs<TAPS>(img, nx, fx, fy, wxt, wyt)
+               : patch_sum<TAPS>(img + (fy - lo) * nx + (fx - lo), nx, wxt, wyt, LoadGlobal());
+}
+
+// One CTA a tile of the canvas lattice (tiles (T, 5) int32: its first
+// segment s0, its segments ns, its first canvas row, its first column and
+// its columns, at most kCanvasCols).  A
+// segment (seg (S, 4) int32) is a run of consecutive columns of one canvas
+// row: [row, first column, its first query, its queries]; a tile's segments
+// are those of its rows, in row and column order.  The CTA finds each of its
+// points' query from the segments, loads x and y into shared memory,
+// reduces the floors of the queries on the grid to a window and stages it
+// into shared memory with bulk copies on an mbarrier (a warp a share of its
+// rows), then computes every query from the window.  The host cuts tiles
+// small enough for their windows to fit kCanvasWindow (canvas_tiles, from
+// the lattice's step); a window that still outgrows it reads its patches
+// through L1 / L2, as does every query where `stage` is false (an image
+// not on 16 bytes).
+template <int TAPS>
+__global__ void __launch_bounds__(kCanvasThreads, kCanvasMinBlocks)
+interp_canvas_kernel(const double* __restrict__ img, int ny, int nx,
+                     const double* __restrict__ x, const double* __restrict__ y,
+                     const int* __restrict__ seg, const int* __restrict__ tiles, bool stage,
+                     bool transpose, double* __restrict__ out) {
+  constexpr int lo = Family<TAPS>::kLo;
+  extern __shared__ __align__(16) char smem[];
+  auto* bar = reinterpret_cast<unsigned long long*>(smem);
+  int* red = reinterpret_cast<int*>(smem + 16);
+  int* rowseg = reinterpret_cast<int*>(smem + 32);
+  int* sseg = rowseg + kCanvasRows;
+  double* sx = reinterpret_cast<double*>(smem + kCanvasXY);
+  double* sy = sx + kCanvasRows * kCanvasCols;
+  double* win = reinterpret_cast<double*>(smem + kCanvasHead);
+  const int t = threadIdx.x, warp = t >> 5;
+  const int* td = tiles + 5 * static_cast<long long>(blockIdx.x);
+  const int s0 = td[0], ns = td[1], row0 = td[2], c0 = td[3], ncols = td[4];
+  if (t < kCanvasRows) rowseg[t] = -1;
+  if (t == 0) mbar_init(bar, kCanvasThreads / 32);
+  __syncthreads();
+  for (int j = t; j < ns; j += kCanvasThreads) {
+    const int* s = seg + 4 * (static_cast<long long>(s0) + j);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sseg[4 * j + k] = s[k];
+    if (j == 0 || s[-4] != s[0]) rowseg[s[0] - row0] = j;
+  }
+  __syncthreads();
+
+  // each point's query (-1: none); its position into its slot
+  int q[kCanvasPer];
+#pragma unroll
+  for (int i = 0; i < kCanvasPer; ++i) {
+    int r, c;
+    canvas_point(i, transpose, &r, &c);
+    q[i] = -1;
+    if (c >= ncols) r = -1;
+    c += c0;
+    for (int j = r >= 0 ? rowseg[r] : -1; j >= 0 && j < ns && sseg[4 * j] == row0 + r; ++j) {
+      const int first = sseg[4 * j + 1];
+      if (c >= first && c < first + sseg[4 * j + 3]) {
+        q[i] = sseg[4 * j + 2] + (c - first);
+        break;
+      }
+    }
+    const int slot = i * kCanvasThreads + t;
+    sx[slot] = q[i] >= 0 ? x[q[i]] : 0.0;
+    sy[slot] = q[i] >= 0 ? y[q[i]] : 0.0;
+  }
+
+  canvas_extremes<TAPS>(q, sx, sy, ny, nx, red);
+  Window w{0, 0, 0, 0, 0, 0};
+  bool staged = false;
+  if (red[0] != INT_MAX && stage) {
+    w = make_window(red[0], red[1], red[2], red[3], lo, TAPS, 0, ny, nx, 0, 1);
+    if ((nx & 1) == 0) w.pitch += (24 - (w.pitch & 15)) & 15;
+    staged = window_doubles(w) <= kCanvasWindow;
+  }
+  if (staged) {
+    stage_window_bulk(win, img, 0, ny, nx, w, bar, warp, kCanvasThreads / 32);
+    mbar_wait(bar, 0);
+  }
+  const bool pairs = (nx & 1) == 0 && (reinterpret_cast<uintptr_t>(img) & 15) == 0;
+#pragma unroll
+  for (int i = 0; i < kCanvasPer; ++i) {
+    if (q[i] < 0) continue;
+    const int slot = i * kCanvasThreads + t;
+    out[q[i]] = canvas_value<TAPS>(sx[slot], sy[slot], staged ? win : nullptr, w, img, ny, nx,
+                                   pairs);
+  }
+}
+
 // Within `budget` bytes: the largest run (at most kBRun) whose tap sets,
 // floors, head and i1 fit beside two buffers and one i1's window, the
 // window taking the rest; run 0 where one i1 does not fit.
@@ -1311,6 +1539,20 @@ int launch_dense(const double* images, int R, int ny, int nx, const double* x,
 }
 
 template <int TAPS>
+int launch_canvas(const double* images, int ny, int nx, const double* x, const double* y,
+                  const int* seg, const int* tiles, int ntiles, int transpose, double* out,
+                  void* stream) {
+  if (ntiles <= 0) return static_cast<int>(cudaGetLastError());
+  cudaFuncSetAttribute(interp_canvas_kernel<TAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kCanvasSmem);
+  const bool stage = (reinterpret_cast<uintptr_t>(images) & 15) == 0;
+  interp_canvas_kernel<TAPS><<<ntiles, kCanvasThreads, kCanvasSmem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      images, ny, nx, x, y, seg, tiles, stage, transpose != 0, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TAPS>
 int launch_sweep(double* dst, int dst_len, const double* combined, int K, int ny, int nx,
                  const double* xt, const double* yt, int L, const int* ks, const int* imeta,
                  const int* dmeta, const int* tiles, int ntiles, double inv_scale,
@@ -1359,6 +1601,27 @@ int interp_d5512_dense(const double* images, int R, int ny, int nx, const double
 int interp_g4460_dense(const double* images, int R, int ny, int nx, const double* x,
                        const double* y, long long nq, int n, double* out, void* stream) {
   return launch_dense<8>(images, R, ny, nx, x, y, nq, n, out, stream);
+}
+
+// K1 on a canvas lattice: one image (ny, nx), x / y / out (nq,) f64,
+// contiguous, on the device of `stream`; seg (S, 4) int32, the queries'
+// segments [canvas row, first column, first query, queries] in row and
+// column order, covering the queries once; tiles (ntiles, 5) int32 [first
+// segment, segments, first row, first column, columns] of at most 64
+// segments, 32 rows and 32 columns each (interp_cuda.canvas_tiles);
+// transpose: a half-warp takes 16 points of a canvas column, not of a row.
+// Returns cudaGetLastError() after the launch.
+int interp_d5512_dense_canvas(const double* image, int ny, int nx, const double* x,
+                              const double* y, const int* seg, const int* tiles, int ntiles,
+                              int transpose, double* out, void* stream) {
+  return launch_canvas<10>(image, ny, nx, x, y, seg, tiles, ntiles, transpose, out, stream);
+}
+
+// The same with the 8-tap G4460 family.
+int interp_g4460_dense_canvas(const double* image, int ny, int nx, const double* x,
+                              const double* y, const int* seg, const int* tiles, int ntiles,
+                              int transpose, double* out, void* stream) {
+  return launch_canvas<8>(image, ny, nx, x, y, seg, tiles, ntiles, transpose, out, stream);
 }
 
 // dst (dst_len,) f64, updated in place; combined (K, ny, nx) f64; xt / yt (L,)

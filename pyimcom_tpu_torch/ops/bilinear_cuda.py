@@ -61,21 +61,21 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _GATHER_ARGS = (_p, _p, _i, _i, _p, _p, _ll, _p, _i, _p)
 _PLANNED_ARGS = (_p, _p, _i, _i, _p, _p, _i, _i, _p, _p, _p, _p, _i, _p)
 _STREAM_ARGS = (_p, _p, _i, _i, _p, _p, _i, _i, _p, _p, _p)
-_PLAN_ROWS_ARGS = (_p, _p, _i, _i, _i, _i, _p, _p, _p, _p, _p)
-_PLAN_COLS_ARGS = (_p, _p, _i, _i, _i, _i, _p, _p, _i, _p, _p, _p, _p)
+_PLAN_ARGS = (_p, _p, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p)
 _SIGNATURES = {"bilinear_gather": _GATHER_ARGS, "bilinear_gather_f32": _GATHER_ARGS,
                "bilinear_scatter_adjoint": _PLANNED_ARGS,
                "bilinear_scatter_adjoint_f32": _PLANNED_ARGS,
                "bilinear_scatter_adjoint_stream": _STREAM_ARGS,
                "bilinear_scatter_adjoint_stream_f32": _STREAM_ARGS,
-               "bilinear_adjoint_plan_rows": _PLAN_ROWS_ARGS,
-               "bilinear_adjoint_plan_rows_f32": _PLAN_ROWS_ARGS,
-               "bilinear_adjoint_plan_cols": _PLAN_COLS_ARGS,
-               "bilinear_adjoint_plan_cols_f32": _PLAN_COLS_ARGS}
+               "bilinear_adjoint_plan": _PLAN_ARGS, "bilinear_adjoint_plan_f32": _PLAN_ARGS}
 # K4's plan, as csrc/bilinear.cu reads it: output pixels a side of a tile,
 # query rows a band, and the widest query grid (columns are 16-bit); the
 # window queries the kernel stages at a time (kChunk)
 PLAN_TILE, PLAN_BAND, PLAN_MAX_COLS, PLAN_CHUNK = 32, 4, 65535, 1280
+# the most query rows a tile's queries may span (the plan kernel keeps a
+# tile's columns a row in a ring of this many rows, kRing), and the tiles a
+# block of its counts pass takes (kPlanScan)
+PLAN_RING_ROWS, PLAN_SCAN_TILES = 256, 2048
 # query rows of positions one step of build_adjoint_plan reads
 PLAN_BUILD_ROWS = 256
 # the off-plan body's tiling: (rows, columns) of queries a tile of a grid
@@ -152,9 +152,14 @@ class AdjointPlan:
     left), as ``rows[t]`` = its first and last query row and, for each band
     k of PLAN_BAND query rows from the first, ``spans[ptr[t] + k]`` = lo |
     hi << 16, the band's columns (lo > hi: none); a tile without a query has
-    no band, rows (0, -1).  `pairs` counts the (tile, query) incidences,
-    `window` the queries the kernel stages (each band's rows times its
-    span); ``r`` = window / pairs.
+    no band, rows (0, -1).  `meta` (4,) int64 on the plan's device holds
+    the counts: `pairs` (the (tile, query) incidences), `bands`, `window`
+    (the queries the kernel stages: each band's rows times its span) and
+    the tiles whose rows span PLAN_RING_ROWS or more (0 in a whole plan);
+    ``r`` = window / pairs.  The plan kernel writes them on the card without
+    waiting, so a plan built there is checked, and its `spans` (sized for
+    the most bands the grid allows) cut to its bands, at the first read of
+    a count (:meth:`check`).
     """
 
     rows: torch.Tensor
@@ -162,8 +167,37 @@ class AdjointPlan:
     spans: torch.Tensor
     shape: tuple
     grid: tuple
-    pairs: int
-    window: int
+    meta: torch.Tensor
+
+    def check(self) -> "AdjointPlan":
+        """Read the counts back (once), raise ValueError if a tile's rows
+        overflowed the kernel's ring (its plan would miss queries), and cut
+        `spans` to the plan's bands; returns the plan."""
+        if "_counts" not in self.__dict__:
+            self._settle(self.meta.tolist())
+        return self
+
+    def _settle(self, meta) -> None:
+        pairs, bands, window, over = (int(v) for v in meta)
+        if over:
+            raise ValueError(f"K4's plan: the queries of {over} tiles span {PLAN_RING_ROWS} "
+                             f"query rows or more (a map shrunk about 5x or more); no plan "
+                             f"covers them")
+        if self.spans.numel() > bands:
+            object.__setattr__(self, "spans", self.spans[:bands].clone())
+        self.__dict__["_counts"] = (pairs, bands, window)
+
+    @property
+    def pairs(self) -> int:
+        return self.check()._counts[0]
+
+    @property
+    def bands(self) -> int:
+        return self.check()._counts[1]
+
+    @property
+    def window(self) -> int:
+        return self.check()._counts[2]
 
     @property
     def r(self) -> float:
@@ -171,7 +205,8 @@ class AdjointPlan:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.rows, self.ptr, self.spans))
+        """Bytes of the plan's words: rows, ptr and its bands' spans."""
+        return 4 * (self.rows.numel() + self.ptr.numel() + self.bands)
 
     def tile_windows(self) -> torch.Tensor:
         """The queries the kernel stages for each tile (int64, T)."""
@@ -264,6 +299,11 @@ def build_adjoint_plan_plain(xf: torch.Tensor, yf: torch.Tensor, shape) -> Adjoi
         pairs += (t < T).sum()
     row_lo, row_hi = row_lo[:T], row_hi[:T]
     live = row_hi >= 0
+    over = int((live & (row_hi - row_lo >= PLAN_RING_ROWS)).sum())
+    if over:
+        raise ValueError(f"K4's plan: the queries of {over} tiles span {PLAN_RING_ROWS} "
+                         f"query rows or more (a map shrunk about 5x or more); no plan "
+                         f"covers them")
     nb = torch.where(live, (row_hi - row_lo) // PLAN_BAND + 1, 0)
     nbt = int(nb.max()) if T else 0
     # each band's columns
@@ -292,44 +332,47 @@ def build_adjoint_plan_plain(xf: torch.Tensor, yf: torch.Tensor, shape) -> Adjoi
     window = int((band_rows * torch.where(empty, 0, hi - lo + 1)).sum())
     rows = torch.stack([torch.where(live, row_lo, 0), torch.where(live, row_hi, -1)], 1)
     ptr = torch.cat([nb.new_zeros(1), torch.cumsum(nb, 0)])
+    meta = torch.tensor([int(pairs), spans.numel(), window, 0], dtype=torch.int64, device=dev)
     return AdjointPlan(rows=rows.to(torch.int32).contiguous(), ptr=ptr.to(torch.int32),
-                       spans=spans.contiguous(), shape=(ny, nx), grid=(qny, qnx),
-                       pairs=int(pairs), window=window)
+                       spans=spans.contiguous(), shape=(ny, nx), grid=(qny, qnx), meta=meta)
 
 
 def build_adjoint_plan(xf: torch.Tensor, yf: torch.Tensor, shape) -> AdjointPlan:
     """K4's plan (:class:`AdjointPlan`) of the positions xf, yf (f64, or
     both f32, contiguous; a 2-D query grid: :func:`planned_route`) on a
-    (ny, nx) = `shape` output.  On a CUDA tensor the plan kernel's two C
-    entries (``bilinear_adjoint_plan_rows``: each tile's rows and ptr, then
-    ``_cols``: the spans), with the most bands of a tile read back between
-    them and the counts at the end; on a CPU tensor its plain version,
-    :func:`build_adjoint_plan_plain`, which gives the same plan."""
+    (ny, nx) = `shape` output.  On a CUDA tensor the plan kernel's one C
+    entry (``bilinear_adjoint_plan``: a pass over the positions and two over
+    the tiles), enqueued without waiting: no host synchronisation, the
+    counts read back (and the plan checked) at their first use; on a CPU
+    tensor its plain version, :func:`build_adjoint_plan_plain`, which gives
+    the same plan."""
     if xf.device.type == "cpu":
         return build_adjoint_plan_plain(xf, yf, shape)
     (ny, nx), (qny, qnx), T, _tiles_x = _plan_grid(xf, shape)
     dev = xf.device
     _check_pair((ny, nx), xf, yf, None, dev)
+    if T * PLAN_RING_ROWS >= 2 ** 31:
+        raise ValueError(f"K4's plan of {T} tiles outgrows the plan kernel's int32 rings")
     i32 = dict(dtype=torch.int32, device=dev)
     rows, ptr = torch.empty((T, 2), **i32), torch.empty(T + 1, **i32)
-    # the incidences, the most bands of a tile, the bands, the window
+    spans = torch.empty(T * -(-min(qny, PLAN_RING_ROWS) // PLAN_BAND), **i32)
     meta = torch.empty(4, dtype=torch.int64, device=dev)
-    scratch = torch.empty(2 * T, **i32)
+    scratch = torch.empty(2 * (T * (PLAN_RING_ROWS + 1) + T // PLAN_SCAN_TILES + 1), **i32)
     _launch("bilinear_adjoint_plan", xf.dtype, dev, xf.data_ptr(), yf.data_ptr(), qny, qnx, ny,
-            nx, scratch.data_ptr(), rows.data_ptr(), ptr.data_ptr(), meta.data_ptr(),
-            route="_rows")
-    _pairs, nbt, bands, _window = meta.tolist()
-    if T * nbt >= 2 ** 31 or bands >= 2 ** 31:
-        raise ValueError(f"K4's plan of {T} tiles of up to {nbt} bands outgrows int32")
-    spans = torch.empty(bands, **i32)
-    if nbt:
-        scratch = torch.empty(2 * T * nbt, **i32)
-        _launch("bilinear_adjoint_plan", xf.dtype, dev, xf.data_ptr(), yf.data_ptr(), qny, qnx,
-                ny, nx, rows.data_ptr(), ptr.data_ptr(), nbt, scratch.data_ptr(),
-                spans.data_ptr(), meta.data_ptr(), route="_cols")
-    pairs, _nbt, _bands, window = meta.tolist()
+            nx, scratch.data_ptr(), rows.data_ptr(), ptr.data_ptr(), spans.data_ptr(),
+            meta.data_ptr())
     return AdjointPlan(rows=rows, ptr=ptr, spans=spans, shape=(ny, nx), grid=(qny, qnx),
-                       pairs=pairs, window=window)
+                       meta=meta)
+
+
+def check_plans(plans) -> None:
+    """:meth:`AdjointPlan.check` of every plan in `plans` (None skipped)
+    whose counts were not read yet, with one read-back for all of them."""
+    todo = [p for p in plans if p is not None and "_counts" not in p.__dict__]
+    if todo:
+        for p, meta in zip(todo, torch.stack([p.meta.to(todo[0].meta.device)
+                                              for p in todo]).tolist()):
+            p._settle(meta)
 
 
 def _check_plan(plan, shape, grid, dev) -> None:
@@ -447,7 +490,8 @@ def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.T
                                                        device=dev)
     if planned:
         if plan is None:
-            plan = build_adjoint_plan(xf, yf, (ny, nx))
+            # built for this call alone: checked before it is used
+            plan = build_adjoint_plan(xf, yf, (ny, nx)).check()
         result = out if out is not None else torch.empty((ny, nx), dtype=torch.float64,
                                                          device=dev)
         _launch("bilinear_scatter_adjoint", xf.dtype, dev, values.data_ptr(), _ptr(g_eff), ny,

@@ -16,8 +16,9 @@ hit counts, the valid pixels and, on a CUDA device, K4's plan of each pair
 (which queries add into each 32 x 32 tile of the target's grid; ~1 MB a
 4088^2 pair, built by the plan kernel and kept on the device whatever the
 maps' storage) depend on the maps alone, so they are computed once, when
-the module is built, in the one walk over the pairs that counts the hits.
-On the CPU the plain adjoint runs, which takes no plan.
+the module is built, in the one walk over the pairs that counts the hits
+(the plan kernel waits for nothing; the plans are checked at the first
+cost read back).  On the CPU the plain adjoint runs, which takes no plan.
 
 The pair maps (each pair's positions, two (ny, nx) planes) are stored at
 ``map_dtype`` "f64" or "f32" (the JAX package's PYIMCOM_DESTRIPE_MAP_DTYPE:
@@ -50,7 +51,7 @@ from .bilinear import (
     bilinear_scatter_adjoint,
     in_bounds,
 )
-from .bilinear_cuda import build_adjoint_plan
+from .bilinear_cuda import build_adjoint_plan, check_plans
 
 # the storage of the pair maps: their dtype, and where they live
 MAP_DTYPES = {"f64": torch.float64, "f32": torch.float32}
@@ -384,8 +385,13 @@ class DestripeCost(torch.nn.Module):
 
     def cost(self, params) -> float:
         with torch.no_grad():
-            return float(self(self._params(params)))
+            eps = float(self(self._params(params)))
+        check_plans(self.plans)
+        return eps
 
     def cost_and_grad(self, params):
         eps, g = self.value_and_grad(self._params(params))
-        return float(eps), g.cpu().numpy()
+        eps = float(eps)
+        # the plans were built without waiting: checked at this first read-back
+        check_plans(self.plans)
+        return eps, g.cpu().numpy()

@@ -193,7 +193,8 @@ def grid_interp(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
 
 def interp2d_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                   kern: str = "D5512", *, lattice_row: int = 0) -> torch.Tensor:
+                   kern: str = "D5512", *, lattice_row: int = 0,
+                   segments=None) -> torch.Tensor:
     """
     Interpolate a batch of images at per-image query sets: images (R, ny,
     nx), x, y (R, Nq) -> (R, Nq); 0 off-grid.
@@ -203,13 +204,18 @@ def interp2d_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     (10 or 8 taps); a CPU tensor runs its plain gather version.
     `lattice_row` > 0 tells K1 that each image's queries are a lattice in
     row-major order with rows of that many points (it groups neighbouring
-    points; the result is the same).
+    points; the result is the same).  `segments`
+    (:class:`interp_cuda.CanvasSegments`) tells it that one image's queries
+    are points of a canvas lattice, laid out in those segments (it takes
+    them a tile of the lattice at a time; the result is the same).  The
+    plain version ignores both.
     """
     from . import interp_cuda
 
     check_kern(kern)
     if images.is_cuda:
-        return interp_cuda.interp_dense(images, x, y, kern, lattice_row=lattice_row)
+        return interp_cuda.interp_dense(images, x, y, kern, lattice_row=lattice_row,
+                                        segments=segments)
     if images.device.type != "cpu":
         raise ValueError(f"interp2d_dense: unsupported device {images.device}")
     return interp_cuda.interp_dense_plain(images, x, y, kern)

@@ -9,7 +9,11 @@ and the star and galaxy injection, whose queries are lattices in row-major
 order: a warp takes a run of 32 queries (8 x 4 neighbouring lattice points
 where the caller gives the lattice's row length, else 32 consecutive
 queries), a lane one query, and reads each patch row in 16-byte pairs
-through L1 / L2.
+through L1 / L2.  Where the caller gives the canvas-row segments of its
+queries (:class:`CanvasSegments`: the split-PSF wing canvas, whose points
+are a lattice clipped to a block's footprint), K1 takes its canvas body
+instead: a block a 32 x 32 tile of the lattice, its window of the image
+staged in shared memory with bulk copies, each query read from there.
 
 K2 ``sweep_scatter`` (``sweep_d5512_scatter.pool`` / ``.B``) replaces that
 kernel's outer-difference-query variant, fused with the scatters of
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -59,18 +64,24 @@ K2 = {"D5512": "sweep_d5512_scatter", "G4460": "sweep_g4460_scatter"}
 # and B forms are two kernels)
 launches = {name: 0 for kern in K1 for name in
             (K1[kern], f"{K2[kern]}.pool", f"{K2[kern]}.B")}
+# K1's launches by body: runs of 32 queries, or tiles of a canvas lattice
+# (the `segments` hint)
+dense_routes = {"runs": 0, "canvas": 0}
 
 _p, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _K1_ARGS = (_p, _i, _i, _i, _p, _p, _ll, _i, _p, _p)
 _K2_ARGS = (_p, _i, _p, _i, _i, _i, _p, _p, _i, _p, _p, _p, _p, _i, _d, _d, _i, _i, _i, _i,
             _p, _p)
+_CANVAS_ARGS = (_p, _i, _i, _p, _p, _p, _p, _i, _i, _p, _p)
 _SIGNATURES = {**{name: _K1_ARGS for name in K1.values()},
+               **{name + "_canvas": _CANVAS_ARGS for name in K1.values()},
                **{name: _K2_ARGS for name in K2.values()}}
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, dense_routes):
+        for k in counts:
+            counts[k] = 0
 
 
 def _cfunc(name: str):
@@ -106,8 +117,159 @@ def _launch(name: str, count: str, device: torch.device, *args) -> None:
 # K1: dense scattered-point interpolation
 # --------------------------------------------------------------------------
 
+# K1's canvas body: tiles of at most CANVAS_TILE_ROWS x CANVAS_TILE_COLS
+# canvas points and CANVAS_TILE_SEGS segments, each with a window of at
+# most CANVAS_WINDOW doubles staged (csrc/interp_d5512.cu, kCanvasRows,
+# kCanvasCols, kCanvasSegs, kCanvasWindow)
+CANVAS_TILE_ROWS, CANVAS_TILE_COLS, CANVAS_TILE_SEGS = 32, 32, 64
+CANVAS_WINDOW = 4972
+
+
+@dataclass(frozen=True)
+class CanvasSegments:
+    """
+    The layout hint of K1's canvas body for queries that are points of a
+    canvas lattice (host NumPy, int32): `segments` (S, 4), each a run of
+    consecutive columns of one canvas row holding consecutive queries --
+    [row, first column, first query, queries] -- in row and column order,
+    the queries in the same order; `tiles` (T, 5), the body's tiles
+    [first segment, segments, first row, first column, columns]
+    (:func:`canvas_tiles`) for lattice points `step` image samples apart;
+    `transpose`: the lattice's columns run closer to the image's rows than
+    its rows do (a warp then takes points of a column, so that its patch
+    reads fall along an image row).
+    """
+
+    segments: np.ndarray
+    tiles: np.ndarray
+    transpose: bool = False
+    step: float = 1.0
+    _on: dict = field(default_factory=dict, init=False, compare=False, repr=False)
+
+    def tables(self, device: torch.device, nq: int):
+        """The segments and tiles as int32 tensors on `device`, uploaded once
+        a device (a block's geometry serves every layer), after checking
+        once that they lay out `nq` queries (ValueError otherwise)."""
+        got = self._on.get(device)
+        if got is None or got[0] != nq:
+            _check_segments(self, nq)
+            got = self._on[device] = (nq, *(
+                torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+                for a in (self.segments, self.tiles)))
+        return got[1:]
+
+
+def lattice_segments(idx, width: int) -> np.ndarray:
+    """The segments (S, 4) int32 [row, first column, first query, queries]
+    of queries at the flat, strictly increasing indices `idx` of a lattice
+    `width` points wide: a segment a run of consecutive columns of one row
+    (a row of a convex footprint is one segment; a row the footprint
+    crosses twice, two)."""
+    idx = np.asarray(idx, np.int64).ravel()
+    if idx.size == 0:
+        return np.zeros((0, 4), np.int32)
+    if np.any(np.diff(idx) <= 0):
+        raise ValueError("lattice_segments needs strictly increasing indices")
+    row, col = np.divmod(idx, int(width))
+    first = np.flatnonzero(np.r_[True, (np.diff(row) != 0) | (np.diff(col) != 1)])
+    count = np.diff(np.r_[first, idx.size])
+    return np.stack([row[first], col[first], first, count], 1).astype(np.int32)
+
+
+def canvas_shape(step: float) -> tuple[int, int]:
+    """The (rows, columns) of K1's canvas tiles for lattice points `step`
+    image samples apart: CANVAS_TILE_ROWS x CANVAS_TILE_COLS, the columns
+    and then the rows halved (down to 8) while the window of such a tile
+    at the worst roll -- sides of step (rows + columns) / sqrt(2) samples,
+    the 8 taps, a row's pad and pitch -- would outgrow CANVAS_WINDOW."""
+    rows, cols = CANVAS_TILE_ROWS, CANVAS_TILE_COLS
+
+    def window(r, c):
+        side = step * (r + c) / math.sqrt(2) + 10
+        return side * (side + 16)
+
+    while window(rows, cols) > CANVAS_WINDOW and max(rows, cols) > 8:
+        if cols > 8:
+            cols //= 2
+        else:
+            rows //= 2
+    return rows, cols
+
+
+def canvas_tiles(segments, step: float = 1.0) -> np.ndarray:
+    """K1's canvas tiles (T, 5) int32 [first segment, segments, first row,
+    first column, columns] of `segments` (:func:`lattice_segments`) on a
+    lattice of points `step` image samples apart: the rows in bands of the
+    tile rows of :func:`canvas_shape` from the first (halved while a band
+    holds more than CANVAS_TILE_SEGS segments; a row holding more is cut
+    into groups of that many), each band's columns in tiles of its columns
+    from the band's first; tiles that hold no query are left out.  Every
+    query falls in exactly one tile."""
+    seg = np.asarray(segments, np.int64).reshape(-1, 4)
+    rows, cols = canvas_shape(step)
+    out = []
+
+    def band(s0, s1, r0, nrows):
+        if s1 <= s0:
+            return
+        if s1 - s0 > CANVAS_TILE_SEGS:
+            if nrows > 1:
+                h = nrows // 2
+                sm = s0 + int(np.searchsorted(seg[s0:s1, 0], r0 + h))
+                band(s0, sm, r0, h)
+                band(sm, s1, r0 + h, nrows - h)
+            else:
+                for g in range(s0, s1, CANVAS_TILE_SEGS):
+                    band(g, min(g + CANVAS_TILE_SEGS, s1), r0, 1)
+            return
+        lo = seg[s0:s1, 1]
+        hi = lo + seg[s0:s1, 3]
+        c0 = np.arange(lo.min(), hi.max(), cols)
+        full = ((lo[None, :] < c0[:, None] + cols) & (hi[None, :] > c0[:, None])).any(1)
+        for c in c0[full]:
+            out.append((s0, s1 - s0, r0, int(c), cols))
+
+    if len(seg):
+        row = seg[:, 0]
+        for r0 in range(int(row[0]), int(row[-1]) + 1, rows):
+            s0, s1 = np.searchsorted(row, [r0, r0 + rows])
+            if s1 > s0:
+                band(int(s0), int(s1), r0, rows)
+    return np.asarray(out, np.int32).reshape(-1, 5)
+
+
+def canvas_segments(idx, width: int, x=None, y=None) -> CanvasSegments:
+    """The canvas hint (:class:`CanvasSegments`) of queries at the flat,
+    strictly increasing lattice indices `idx` of a lattice `width` wide;
+    with their image positions `x`, `y` (host arrays in the same order), its
+    orientation: transposed where a step along a lattice row moves further
+    in the image's y than in its x."""
+    seg = lattice_segments(idx, width)
+    transpose, step = False, 1.0
+    if x is not None and y is not None:
+        run = seg[seg[:, 3] >= 2]
+        if len(run):
+            q = int(run[len(run) // 2, 2])
+            dx, dy = abs(float(x[q + 1] - x[q])), abs(float(y[q + 1] - y[q]))
+            transpose, step = bool(dy > dx), math.hypot(dx, dy)
+    return CanvasSegments(seg, canvas_tiles(seg, step), transpose, step)
+
+
+def _check_segments(hint: CanvasSegments, nq: int) -> None:
+    seg = np.asarray(hint.segments)
+    if seg.ndim != 2 or seg.shape[1] != 4 or np.asarray(hint.tiles).shape[1:] != (5,):
+        raise ValueError("segments must be (S, 4) and tiles (T, 5)")
+    count = seg[:, 3].astype(np.int64)
+    if (np.any(count <= 0) or int(count.sum()) != nq
+            or np.any(seg[:, 2] != np.cumsum(count) - count)
+            or np.any(np.diff(seg[:, 0]) < 0)):
+        raise ValueError(f"the segments do not lay out the {nq} queries once, in row "
+                         f"order")
+
+
 def interp_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                 kern: str = "D5512", *, lattice_row: int = 0) -> torch.Tensor:
+                 kern: str = "D5512", *, lattice_row: int = 0,
+                 segments: CanvasSegments | None = None) -> torch.Tensor:
     """
     K1 of the family `kern`: images (R, ny, nx), x, y (R, Nq), f64 CUDA ->
     (R, Nq), 0 off-grid.
@@ -115,8 +277,11 @@ def interp_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     A warp takes a run of 32 queries of one image: 32 consecutive ones, or,
     where the caller says that each image's queries are a lattice in
     row-major order with rows of `lattice_row` points (which must divide
-    Nq), 8 x 4 neighbouring points of it.  The result does not depend on
-    the layout.
+    Nq), 8 x 4 neighbouring points of it.  Where the caller gives the
+    queries' `segments` on a canvas lattice (:class:`CanvasSegments`; one
+    image), the canvas body runs instead: a block a tile of the lattice,
+    its window of the image staged in shared memory.  The result does not
+    depend on the layout.
     """
     _interp.check_kern(kern)
     dev = images.device
@@ -132,11 +297,24 @@ def interp_dense(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if ny * nx >= 2 ** 31:
         raise ValueError("K1 indexes an image with int32: it must hold fewer than 2**31 "
                          "samples")
+    if segments is not None:
+        if R != 1 or lattice_row:
+            raise ValueError("the canvas hint takes one image and no lattice_row")
+        if x.shape[1] >= 2 ** 31:
+            raise ValueError("the canvas body indexes the queries with int32")
+        seg, tiles = segments.tables(dev, x.shape[1])
     out = torch.empty(x.shape, dtype=torch.float64, device=dev)
     if out.numel() == 0:
         return out
+    if segments is not None:
+        _launch(K1[kern] + "_canvas", K1[kern], dev, images.data_ptr(), ny, nx,
+                x.data_ptr(), y.data_ptr(), seg.data_ptr(), tiles.data_ptr(), len(tiles),
+                int(segments.transpose), out.data_ptr())
+        dense_routes["canvas"] += 1
+        return out
     _launch(K1[kern], K1[kern], dev, images.data_ptr(), R, ny, nx,
             x.data_ptr(), y.data_ptr(), x.shape[1], int(lattice_row), out.data_ptr())
+    dense_routes["runs"] += 1
     return out
 
 

@@ -40,6 +40,7 @@ import torch
 
 from ..device import DTYPE, resolve_device
 from ..ops.interp import interp2d_dense
+from ..ops.interp_cuda import canvas_segments
 
 # guard samples around a block for the G4460 resample
 # (pyimcom_tpu/splitpsf/imsubtract.py:179-185)
@@ -90,11 +91,14 @@ def _put(a, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), dtype=DTYPE, device=device)
 
 
-def _interp_scattered(image2d: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
+def _interp_scattered(image2d: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
+                      segments=None) -> torch.Tensor:
     """Interpolate one padded image at scattered points: the wing resample
     uses the 8x8 G4460 family (the reference's unconditional iG4460C call,
-    imsubtract.py:652), K1 in its 8-tap form on the card."""
-    return interp2d_dense(image2d[None], qx[None], qy[None], "G4460")[0]
+    imsubtract.py:652), K1 in its 8-tap form on the card; `segments`, where
+    the points lie on a canvas lattice, is K1's layout hint
+    (interp_cuda.CanvasSegments)."""
+    return interp2d_dense(image2d[None], qx[None], qy[None], "G4460", segments=segments)[0]
 
 
 def subtract_wings_from_exposure(exposure_image, exposure_wcs, mosaic_image,
@@ -157,9 +161,11 @@ class CanvasGeometry:
     and, per mosaic block, the points within the block's interpolation
     reach with their positions in the padded block.  Computed once per
     exposure and shared by its layers (the JAX package recomputes them per
-    layer, with the same values); it holds no device memory, so one
-    geometry serves any device.  Host memory: 24 bytes a canvas point, and
-    20 (int32 index, f64 x and y) a point that a block reaches.
+    layer, with the same values); of device memory it holds only its
+    blocks' K1 tables (segments and tiles, a few hundred KB a block,
+    uploaded once a device), so one geometry serves any device.  Host
+    memory: 24 bytes a canvas point, and 20 (int32 index, f64 x and y) a
+    point that a block reaches.
     """
 
     def __init__(self, exposure_wcs, x_canvas: np.ndarray):
@@ -174,9 +180,11 @@ class CanvasGeometry:
         self._blocks = {}
 
     def on_block(self, key, bwcs, N: int):
-        """(flat canvas indices, x, y in the block padded by BLOCK_PAD) of
-        the points that the (N, N) block `key` reaches, host arrays; None if
-        there are none."""
+        """(flat canvas indices, x, y in the block padded by BLOCK_PAD, the
+        points' canvas-row segments) of the points that the (N, N) block
+        `key` reaches, host arrays; None if there are none.  The segments
+        (interp_cuda.CanvasSegments: each a run of consecutive canvas
+        columns of one row, and K1's tiles of them) are K1's layout hint."""
         k = (key, N)
         if k not in self._blocks:
             xb, yb = _chunked(bwcs.world2pix, self.ra, self.dec)
@@ -184,8 +192,9 @@ class CanvasGeometry:
             idx = np.flatnonzero(inside)
             if self.A * self.A < 2 ** 31:
                 idx = idx.astype(np.int32)
+            qx, qy = xb[idx] + BLOCK_PAD, yb[idx] + BLOCK_PAD
             self._blocks[k] = None if idx.size == 0 else (
-                idx, xb[idx] + BLOCK_PAD, yb[idx] + BLOCK_PAD)
+                idx, qx, qy, canvas_segments(idx, self.A, qx, qy))
         return self._blocks[k]
 
 
@@ -218,10 +227,10 @@ def build_wing_canvas(geometry: CanvasGeometry, block_reader, nblock: int, overl
             pts = geometry.on_block((ix, iy), bwcs, N)
             if pts is None:
                 continue
-            idx, qx, qy = pts
+            idx, qx, qy, segments = pts
             w = tukey_window_1d(N, 2 * overlap)
             pad = _put(np.pad(data * w[:, None] * w[None, :], BLOCK_PAD), dev)
-            vals = _interp_scattered(pad, _put(qx, dev), _put(qy, dev))
+            vals = _interp_scattered(pad, _put(qx, dev), _put(qy, dev), segments)
             H.index_add_(0, torch.as_tensor(idx, device=dev), vals * _put(geometry.area[idx], dev))
     return H.reshape(A, A)
 

@@ -12,6 +12,8 @@ The kernels compute in f64 with another summation order (and fused
 multiply-adds) than the plain versions; they agree to 1e-12 of scale.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -443,24 +445,59 @@ def test_k4_matches_plain_on_rotated_grids(cuda, roll, weighted):
 
 @pytest.mark.parametrize("roll", [0, 15, 45, 90])
 def test_k4_plan_kernel_matches_plain(cuda, roll):
-    """The plan kernel (two passes, counted as two launches) gives the plain
-    builder's plan word for word, in both position forms, on a ragged
-    rolled grid with NaN, infinite and off-grid positions, on a map scaled
-    by 0.3 (many bands a tile) and on a grid with no query in bounds."""
+    """The plan kernel (one pass over the positions, counted as one launch)
+    gives the plain builder's plan word for word once checked, in both
+    position forms, on a ragged rolled grid with NaN, infinite and off-grid
+    positions, on a map scaled by 0.3 (many bands a tile), on a grid with no
+    query in bounds and on a grid wider than a warp's 256 queries."""
     img, _gain, x64, y64, _v = _grid_case(cuda, 60 + roll, roll)
     _img, _gain, xs, ys, _v = _grid_case(cuda, 61, roll, ny=45, nx=40, scale=0.3)
-    cases = [(x64, y64, img.shape), (xs, ys, (45, 40)), (x64 + 1e4, y64, img.shape)]
+    _img, _gain, xw, yw, _v = _grid_case(cuda, 62, roll, qny=80, qnx=700, ny=300, nx=520)
+    cases = [(x64, y64, img.shape), (xs, ys, (45, 40)), (x64 + 1e4, y64, img.shape),
+             (xw, yw, (300, 520))]
     for x, y, shape in cases:
         for xx, yy in ((x, y), (x.float(), y.float())):
             key = "bilinear_adjoint_plan" + (".f32" if xx.dtype == torch.float32 else "")
             bilinear_cuda.reset_launch_counts()
             got = bilinear_cuda.build_adjoint_plan(xx, yy, shape)
             want = bilinear_cuda.build_adjoint_plan_plain(xx, yy, shape)
-            assert bilinear_cuda.launches[key] == (2 if want.window else 1)
+            assert bilinear_cuda.launches[key] == 1
+            got.check()
             for name in ("rows", "ptr", "spans"):
                 assert torch.equal(getattr(got, name), getattr(want, name)), (roll, name)
-            assert (got.pairs, got.window, got.shape, got.grid) == (
-                want.pairs, want.window, want.shape, want.grid)
+            assert (got.pairs, got.window, got.bands, got.shape, got.grid) == (
+                want.pairs, want.window, want.bands, want.shape, want.grid)
+
+
+def test_k4_plan_builds_without_host_sync(cuda):
+    """Building a plan on the card, in both position forms, waits for
+    nothing on the host: it passes under torch's sync debug mode "error"
+    (a read-back, .item() or .tolist(), would raise), and the plan is then
+    the plain builder's."""
+    img, _gain, x, y, _v = _grid_case(cuda, 63, 30)
+    for xx, yy in ((x, y), (x.float(), y.float())):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = bilinear_cuda.build_adjoint_plan(xx, yy, img.shape)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = bilinear_cuda.build_adjoint_plan_plain(xx, yy, img.shape)
+        got.check()
+        for name in ("rows", "ptr", "spans"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_k4_plan_of_a_shrunk_map_raises_when_checked(cuda):
+    """A map shrunk 0.1x spreads a tile's queries over more query rows than
+    the plan kernel's ring: the build enqueues, its check raises, and so
+    does K4 called without a plan (it checks the plan it builds)."""
+    img, _gain, x, y, v = _grid_case(cuda, 64, 30, qny=400, qnx=60, ny=64, nx=64, scale=0.1)
+    plan = bilinear_cuda.build_adjoint_plan(x, y, img.shape)
+    with pytest.raises(ValueError, match="rows or more"):
+        plan.check()
+    with pytest.raises(ValueError, match="rows or more"):
+        bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape)
 
 
 @pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
@@ -566,7 +603,7 @@ def test_destripe_cost_cuda_matches_cpu(cuda):
     bilinear_cuda.reset_launch_counts()
     gpu = DestripeCost(imgs, gains, masks, pairs, xf, yf, device=cuda, **kw)
     # a plan a pair on the card, by the plan kernel; none on the CPU
-    assert bilinear_cuda.launches["bilinear_adjoint_plan"] == 2 * len(pairs)
+    assert bilinear_cuda.launches["bilinear_adjoint_plan"] == len(pairs)
     assert cpu.plans == [None] * len(pairs) and None not in gpu.plans
     p = rng.normal(scale=0.01, size=S * cpu.np_each)
     bilinear_cuda.reset_launch_counts()
@@ -623,13 +660,13 @@ def test_k3_k4_f32_forms_match_plain(cuda, kind, weighted):
     got3 = bilinear_cuda.bilinear_gather(img, x, y, g, out=v.clone())
     got4 = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)
     n_off = bilinear_cuda.off_plan_tiles(cuda)
-    # a grid's plan built in the call: the plan kernel's two passes
+    # a grid's plan built in the call: one launch of the plan kernel
     planned = bilinear_cuda.planned_route(*bilinear_cuda.query_grid(x))
     assert bilinear_cuda.launches == {"bilinear_gather": 0, "bilinear_scatter_adjoint": 0,
                                       "bilinear_gather.f32": 1,
                                       "bilinear_scatter_adjoint.f32": 1,
                                       "bilinear_adjoint_plan": 0,
-                                      "bilinear_adjoint_plan.f32": 2 * planned}
+                                      "bilinear_adjoint_plan.f32": int(planned)}
     assert _rel(got3, bilinear.bilinear_gather_plain(img, x, y, g) + v) < TOL
     assert _rel(got4, bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)) < TOL
     assert torch.equal(got3, bilinear_cuda.bilinear_gather(img, x.double(), y.double(), g,
@@ -874,6 +911,116 @@ def test_k1_g4460_matches_plain(cuda, kind, lattice):
         assert int((want != 0).sum()) > 0
         assert _rel(got, want) < TOL
         assert torch.equal(got == 0, want == 0)
+
+
+def canvas_case(roll, scale=0.93867, side=90, A=120, seed=0, hole=False):
+    """A block's points on a wing canvas, as CanvasGeometry.on_block picks
+    them: an A x A canvas mapped into a side x side block (padded by 6 on
+    every side: the image is (side + 12)^2) rolled by `roll` degrees and
+    scaled, its points inside (-5.5, side + 4.5) kept, with their positions
+    in the padded block; `hole` takes a slab out of the footprint (rows of
+    two segments) and leaves a row of single points (many segments a
+    tile).  Returns (image (1, n, n), x, y (1, Nq), CanvasSegments)."""
+    rng = np.random.default_rng(seed)
+    th = np.deg2rad(roll)
+    gy, gx = np.mgrid[0:A, 0:A].astype(np.float64)
+    u, w = gx - A / 2 + 0.3, gy - A / 2 - 0.2
+    xb = scale * (np.cos(th) * u - np.sin(th) * w) + side / 2
+    yb = scale * (np.sin(th) * u + np.cos(th) * w) + side / 2
+    inside = (xb > -5.5) & (xb < side + 4.5) & (yb > -5.5) & (yb < side + 4.5)
+    if hole:
+        inside[A // 3:A // 2, A // 3:A // 2 + 5] = False
+        inside[A // 2 + 3, :] = False
+        inside[A // 2 + 3, ::3] = True
+    idx = np.flatnonzero(inside)
+    n = side + 12
+    img = rng.normal(size=(1, n, n))
+    x, y = xb.ravel()[idx] + 6, yb.ravel()[idx] + 6
+    return img, x[None], y[None], interp_cuda.canvas_segments(idx, A, x, y)
+
+
+def _canvas_against_runs(cuda, img, x, y, hint, kern="G4460", image=None):
+    """The canvas body (counted as a K1 launch and a canvas route) against
+    today's body, bit for bit, and the plain version (TOL)."""
+    img, x, y = (torch.as_tensor(np.ascontiguousarray(a), device=cuda) for a in (img, x, y))
+    if image is not None:
+        img = image(img)
+    interp_cuda.reset_launch_counts()
+    got = interp.interp2d_dense(img, x, y, kern, segments=hint)
+    assert interp_cuda.launches[interp_cuda.K1[kern]] == 1
+    assert interp_cuda.dense_routes == {"runs": 0, "canvas": 1}
+    runs = interp_cuda.interp_dense(img, x, y, kern)
+    want = interp_cuda.interp_dense_plain(img, x, y, kern)
+    assert int((want != 0).sum()) > 0
+    assert torch.equal(got, runs)
+    assert _rel(got, want) < TOL
+    return got
+
+
+@pytest.mark.parametrize("roll", [0, 30, 45, 90, 135])
+def test_k1_canvas_body_matches_runs_and_plain(cuda, roll):
+    """K1<8>'s canvas body on a block's canvas points at five rolls (the
+    footprint's edges off the grid), with NaN and far-off queries mixed in,
+    on even and odd image rows, with the half-warps along the lattice's
+    rows and along its columns: bit for bit today's body, within TOL of the
+    plain version; D5512 takes the same body."""
+    for side in (90, 91):
+        img, x, y, hint = canvas_case(roll, side=side, seed=roll + side)
+        if roll % 45 or roll % 90 == 0:                   # 45, 135: a tie either way
+            assert hint.transpose == (roll == 90)
+        x[0, ::97] = np.nan
+        y[0, 5::89] = 1e9
+        for h in (hint, dataclasses.replace(hint, transpose=not hint.transpose)):
+            _canvas_against_runs(cuda, img, x, y, h)
+    img, x, y, hint = canvas_case(roll, seed=7)
+    _canvas_against_runs(cuda, img, x, y, hint, kern="D5512")
+
+
+def test_k1_canvas_body_split_rows_and_many_segments(cuda):
+    """A footprint with a hole (rows of two segments) and a row of single
+    points (a tile of more segments than one band may hold: the planner
+    halves it), and an image not on 16 bytes (no staging: every patch read
+    through L1 / L2)."""
+    img, x, y, hint = canvas_case(20, hole=True, seed=3)
+    assert np.bincount(hint.segments[:, 0]).max() > 30
+    _canvas_against_runs(cuda, img, x, y, hint)
+
+    def unaligned(im):
+        buf = torch.empty(im.numel() + 1, dtype=im.dtype, device=im.device)
+        out = buf[1:].view(im.shape)
+        out.copy_(im)
+        return out
+
+    _canvas_against_runs(cuda, img, x, y, hint, image=unaligned)
+
+
+@pytest.mark.parametrize("roll", [0, 45])
+def test_k1_canvas_window_splits_its_tile(cuda, roll):
+    """Points 3 samples apart: a 32 x 32 tile's window would outgrow the
+    CTA's budget, so the planner cuts the tiles to 16 x 8 points, whose
+    windows fit; tiles of 32 x 32 points given anyway read their patches
+    through L1 / L2."""
+    img, x, y, hint = canvas_case(roll, scale=3.0, side=400, A=150, seed=11 + roll)
+    assert set(hint.tiles[:, 4]) == {8}
+    _canvas_against_runs(cuda, img, x, y, hint)
+    whole = dataclasses.replace(hint, tiles=interp_cuda.canvas_tiles(hint.segments))
+    assert set(whole.tiles[:, 4]) == {32}
+    _canvas_against_runs(cuda, img, x, y, whole)
+
+
+def test_k1_canvas_hint_checks(cuda):
+    """The hint takes one image, no lattice_row, and segments that lay out
+    the queries once."""
+    img, x, y, hint = canvas_case(10)
+    img, x, y = (torch.as_tensor(a, device=cuda) for a in (img, x, y))
+    with pytest.raises(ValueError):
+        interp_cuda.interp_dense(img, x, y, "G4460", segments=hint, lattice_row=2)
+    with pytest.raises(ValueError):
+        interp_cuda.interp_dense(img, x[:, 1:].contiguous(), y[:, 1:].contiguous(), "G4460",
+                                 segments=hint)
+    with pytest.raises(ValueError):
+        interp_cuda.interp_dense(img.expand(2, -1, -1).contiguous(), x.expand(2, -1).contiguous(),
+                                 y.expand(2, -1).contiguous(), "G4460", segments=hint)
 
 
 def test_k1_g4460_valid_range_edges(cuda):

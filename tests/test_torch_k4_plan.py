@@ -136,6 +136,115 @@ def test_plan_complete_and_tight(kind, dtype):
         assert pairs > 5000 and plan.r < 1.3
 
 
+def _ring_plan(x, y, shape, seg_q=256):
+    """The plan kernel's one pass, mirrored in NumPy (csrc/bilinear.cu,
+    plan_pass_kernel, plan_counts_kernel, plan_spans_kernel): each query's
+    four slot tiles; along each row, in segments of `seg_q` queries whose
+    ends count as run ends, a run's first column into the tile's ring entry
+    of the row (row mod PLAN_RING_ROWS) and the row into the tile's first
+    and last row, its last column into the ring's other side (a slot-0 or
+    1 run's start left to the slot-2 or 3 run of its tile just before it,
+    a slot-2 or 3 run's end to the slot-0 or 1 run just after); then each
+    tile's band count (none where its rows span the ring: overflowed), the
+    scan, and each band's span from the extremes of its rows' entries.
+    Returns (rows, ptr, spans, pairs, window, overflowed tiles)."""
+    ny, nx = shape
+    R = bc.PLAN_RING_ROWS
+    qny, qnx = x.shape
+    tx_n = -(-nx // TILE)
+    T = -(-ny // TILE) * tx_n
+    big = 0x7F7F7F7F
+    row_lo, row_hi = np.full(T, big, np.int64), np.full(T, -1, np.int64)
+    ring_lo, ring_hi = np.full((T, R), big, np.int64), np.full((T, R), -1, np.int64)
+    with np.errstate(invalid="ignore"):
+        fx, fy = np.floor(x.double().numpy()), np.floor(y.double().numpy())
+        inb = (fx >= 0) & (fx < nx - 1) & (fy >= 0) & (fy < ny - 1)
+    ix, iy = np.where(inb, fx, 0).astype(np.int64), np.where(inb, fy, 0).astype(np.int64)
+    ty0, tx0, ty1, tx1 = iy // TILE, ix // TILE, (iy + 1) // TILE, (ix + 1) // TILE
+    down, right = ty1 != ty0, tx1 != tx0
+    slots = [np.where(keep, ty * tx_n + tx, -1) for ty, tx, keep in (
+        (ty0, tx0, inb), (ty1, tx0, inb & down), (ty0, tx1, inb & right),
+        (ty1, tx1, inb & down & right))]
+    pairs = int(sum((t >= 0).sum() for t in slots))
+    cols = np.arange(qnx)
+    lefts, rights = [], []
+    for t in slots:
+        left = np.concatenate([np.full((qny, 1), -2), t[:, :-1]], 1)
+        rgt = np.concatenate([t[:, 1:], np.full((qny, 1), -2)], 1)
+        left[:, cols % seg_q == 0] = -2
+        rgt[:, (cols + 1) % seg_q == 0] = -2
+        lefts.append(left)
+        rights.append(rgt)
+    for k, t in enumerate(slots):
+        left, rgt = lefts[k], rights[k]
+        # a slot-0 (1) run after the left neighbour's slot-2 (3) run of its
+        # tile leaves its start to it; a slot-2 (3) run before the right
+        # neighbour's slot-0 (1) run of its tile leaves its end to it
+        skip_st = lefts[k + 2] == t if k < 2 else np.zeros_like(t, bool)
+        skip_en = rights[k - 2] == t if k >= 2 else np.zeros_like(t, bool)
+        for qr in range(qny):
+            tr = t[qr]
+            st = (tr >= 0) & (tr != left[qr]) & ~skip_st[qr]
+            en = (tr >= 0) & (tr != rgt[qr]) & ~skip_en[qr]
+            np.minimum.at(ring_lo[:, qr % R], tr[st], cols[st])
+            np.minimum.at(row_lo, tr[st], qr)
+            np.maximum.at(row_hi, tr[st], qr)
+            np.maximum.at(ring_hi[:, qr % R], tr[en], cols[en])
+    live = row_hi >= 0
+    over = live & (row_hi - row_lo >= R)
+    nb = np.where(live & ~over, (row_hi - row_lo) // BAND + 1, 0)
+    ptr = np.concatenate([[0], np.cumsum(nb)])
+    spans, window = [], 0
+    for t in range(T):
+        for k in range(nb[t]):
+            first = row_lo[t] + BAND * k
+            last = min(first + BAND - 1, row_hi[t])
+            rr = np.arange(first, last + 1) % R
+            a, z = ring_lo[t, rr].min(), ring_hi[t, rr].max()
+            if z < 0:
+                a, z = 0xFFFF, 0
+            else:
+                window += (last - first + 1) * (z - a + 1)
+            spans.append(int(a) | (int(z) << 16))
+    rows = np.stack([np.where(live, row_lo, 0), np.where(live, row_hi, -1)], 1)
+    spans = np.asarray(spans, np.int64)
+    return rows, ptr, np.where(spans >= 2 ** 31, spans - 2 ** 32, spans), pairs, window, \
+        int(over.sum())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_one_pass_ring_build_gives_the_plan(kind):
+    """The plan kernel's one pass over the positions (a tile's columns a
+    row in a ring, bands from the ring; mirrored by _ring_plan) gives the
+    plain builder's plan word for word, in segments of 256 queries and, to
+    cut runs at many more places, of 7."""
+    x, y, *_ = _case(kind, "f64")
+    want = bc.build_adjoint_plan_plain(x, y, (NY, NX))
+    for seg_q in (256, 7):
+        rows, ptr, spans, pairs, window, over = _ring_plan(x, y, (NY, NX), seg_q)
+        assert over == 0
+        np.testing.assert_array_equal(rows, want.rows.numpy())
+        np.testing.assert_array_equal(ptr, want.ptr.numpy())
+        np.testing.assert_array_equal(spans, want.spans.numpy())
+        assert (pairs, window) == (want.pairs, want.window)
+        assert int(want.meta[1]) == len(spans) == want.bands
+
+
+def test_plan_of_a_shrunk_map_raises():
+    """A map shrunk 0.1x puts a tile's queries over more rows than the
+    kernel's ring holds: the ring build flags those tiles and gives them no
+    band, and the plain builder raises, as the kernel's plan does when it is
+    checked."""
+    th = np.deg2rad(30)
+    yy, xx = np.mgrid[0:400, 0:60].astype(float)
+    xf = torch.as_tensor(0.1 * (np.cos(th) * xx - np.sin(th) * yy) + 30.3)
+    yf = torch.as_tensor(0.1 * (np.sin(th) * xx + np.cos(th) * yy) + 5.2)
+    *_rest, over = _ring_plan(xf, yf, (64, 64))
+    assert over > 0
+    with pytest.raises(ValueError, match="rows or more"):
+        bc.build_adjoint_plan_plain(xf, yf, (64, 64))
+
+
 def _jax_adjoint(x, y, values, gain, shape):
     """The JAX package's adjoint under x64 (the weighted gather's image
     cotangent with a gain); a NaN position taken off the grid."""
