@@ -216,7 +216,14 @@ metadetection ``pyimcom_tpu_torch.meta.distortimage.MetaMosaic``:
    and save on the main path's K4 work, plan_economy); k4_synthetic: K4
    on a synthetic 4088^2 pair rolled by 0 and 45 degrees (k4_variants.py's
    inputs), both position forms, against its plain version, itself and,
-   where built, commit 28a3190's body, in turns; and the
+   where built, commit 28a3190's body, in turns; K4 on the same pixels
+   shrunk 0.1x, both forms, whose plan overflows the plan kernel's ring
+   (without a plan and over it: the off-plan body, its tiles off the plan
+   as predicted, against the plain version, timed beside the planned body
+   at 0 degrees), and a DestripeCost holding that map among ordinary ones
+   (one plan read-back at its build, none in a gradient; value_and_grad
+   against its plain route); X7, wcsutil.stg_projection_torch, on the
+   grid's 4088^2 points on the card against the CPU (x7); and the
    bench block coadded from the clean, striped and destriped inputs (each
    with its own input directory and layer cache): 16 stamps, finite maps,
    U/C medians equal to 1e-6, the destriped science nearer the clean one
@@ -1048,7 +1055,8 @@ def same_plan(a, b):
     word for word the same."""
     a.check(), b.check()
     return (all(getattr(a, k).equal(getattr(b, k)) for k in ("rows", "ptr", "spans"))
-            and (a.pairs, a.window, a.shape, a.grid) == (b.pairs, b.window, b.shape, b.grid))
+            and (a.pairs, a.window, a.over, a.shape, a.grid)
+            == (b.pairs, b.window, b.over, b.shape, b.grid))
 
 
 # the plan kernel of commit 379dcb5 where built: {position dtype: (its rows
@@ -1108,6 +1116,7 @@ def k4_planned(torch, dev, v, x, y, gain, shape, plan, want, parents=None, reps=
     `<name>_ms`)."""
     from pyimcom_tpu_torch.ops import bilinear_cuda as bc
 
+    assert bc.plan_route(plan) == "planned", plan.over
     bc.reset_off_plan_tiles()
     got = bc.bilinear_scatter_adjoint(v, x, y, shape, gain, plan=plan)
     again = bc.bilinear_scatter_adjoint(v, x, y, shape, gain, plan=plan)
@@ -1115,7 +1124,7 @@ def k4_planned(torch, dev, v, x, y, gain, shape, plan, want, parents=None, reps=
     rec = dict(max_abs_err=rel_err(torch, got, want),
                repeat_bit_identical=bool(torch.equal(got, again)),
                off_plan_tiles=bc.off_plan_tiles(dev),
-               predicted_off_plan_tiles=bc.predict_off_plan_tiles(x, y, shape),
+               predicted_off_plan_tiles=bc.predict_off_plan_tiles(x, y, shape, plan),
                tile=[bc.PLAN_TILE, bc.PLAN_TILE], band_rows=bc.PLAN_BAND, plan_r=plan.r,
                plan_bytes=plan.nbytes, plan_pairs=plan.pairs, plan_window=plan.window,
                plan_build_plain_ms=median_ms(
@@ -1298,12 +1307,165 @@ def bilinear_records(torch, dev, dc, floor_ms, parent_k4, k4_build, parent_tiled
     return k3, k4_rec, plan_kernel_record(k4_rec, x, floor_ms)
 
 
+def tap_pixels(torch, x, y, shape):
+    """(the in-bounds queries at (x, y), the distinct pixels of a (ny, nx) =
+    `shape` grid that their 2 x 2 taps cover)."""
+    from pyimcom_tpu_torch.ops import bilinear
+
+    inb = bilinear.in_bounds(x, y, shape)
+    x0, y0 = torch.floor(x[inb]).long(), torch.floor(y[inb]).long()
+    hit = torch.zeros(shape, dtype=torch.bool, device=x.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            hit[y0 + dy, x0 + dx] = True
+    return int(inb.sum()), int(hit.sum())
+
+
+def k4_shrunk(torch, dev, v, x, y, gain, shape, floor_ms, planned_ms, reps):
+    """K4 on a map shrunk 0.1x (a tile's queries over more query rows than
+    the plan kernel's ring): its plan overflows, so K4 without a plan and
+    over that plan each take the off-plan body (bilinear_cuda.plan_route):
+    the launches by route, the tiles off the plan against
+    predict_off_plan_tiles, the errors against the plain version, and the
+    device ms over its plan (its output's zero fill with it) beside the
+    planned body's on the 0-degree pair (`planned_roll0_ms`).  Bytes: the
+    values and positions of every query, each output pixel written once
+    (8 B), and the gain read at each pixel the queries tap (`tap_pixels`)."""
+    from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
+
+    plan = bc.build_adjoint_plan(x, y, shape)
+    want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, shape, gain)
+    predicted = bc.predict_off_plan_tiles(x, y, shape, plan)
+    routes0, off0 = dict(bc.adjoint_routes), bc.off_plan_tiles(dev)
+    got = bc.bilinear_scatter_adjoint(v, x, y, shape, gain)
+    off_no_plan = bc.off_plan_tiles(dev) - off0
+    over = bc.bilinear_scatter_adjoint(v, x, y, shape, gain, plan=plan)
+    off_over = bc.off_plan_tiles(dev) - off0 - off_no_plan
+    routes = {k: bc.adjoint_routes[k] - routes0[k] for k in routes0}
+    n_in, taps = tap_pixels(torch, x, y, shape)
+    rec = dict(queries=x.numel(), in_bounds=n_in, tap_pixels=taps, plan_over=plan.over,
+               plan_route=bc.plan_route(plan), launches=routes,
+               off_plan_tiles=[off_no_plan, off_over], predicted_off_plan_tiles=predicted,
+               max_abs_err=rel_err(torch, got, want),
+               max_abs_err_over_plan=rel_err(torch, over, want),
+               ms=median_ms(torch, lambda: bc.bilinear_scatter_adjoint(v, x, y, shape, gain,
+                                                                       plan=plan), reps),
+               planned_roll0_ms=planned_ms, reps=reps,
+               plain_ms=median_ms(torch, lambda: bilinear.bilinear_scatter_adjoint_plain(
+                   v, x, y, shape, gain), 3),
+               **bounds((8 + 2 * x.element_size()) * x.numel() + 8 * shape[0] * shape[1]
+                        + 8 * taps, ADJOINT_FLOP * n_in, floor_ms))
+    assert rec["plan_route"] == "stream" and rec["plan_over"] > 0, rec
+    assert routes == {"planned": 0, "stream": 2}, rec
+    assert off_no_plan == off_over == predicted > 0, rec
+    assert rec["max_abs_err"] < TOL and rec["max_abs_err_over_plan"] < TOL, rec
+    return rec
+
+
+def shrunk_destripe(torch, dev, v, gain, maps, shrunk):
+    """A DestripeCost of two SCAs from the phase's tensors (images v and
+    its transpose, gains `gain` and its transpose, float64 maps on the
+    card): pair (0, 1) on the map `maps`, pair (1, 0) on the shrunk map
+    `shrunk`.  Its plans' read-back (every plan's counts read at the build,
+    none in a gradient, which runs under torch's sync debug mode "error"),
+    each pair's route, K4's launches by route and tiles off the plan in one
+    value_and_grad, and that against value_and_grad(plain=True): cost to
+    rtol 1e-12, gradient to rtol 1e-9 and atol 1e-12."""
+    from pyimcom_tpu_torch.ops import bilinear_cuda as bc, destripe_device
+
+    host = lambda t: t.cpu().numpy()                       # noqa: E731
+    t0 = time.perf_counter()
+    dc = destripe_device.DestripeCost(
+        host(torch.stack([v, v.t()])), host(torch.stack([gain, gain.t()])), None,
+        [(0, 1), (1, 0)], [host(maps[0]), host(shrunk[0])], [host(maps[1]), host(shrunk[1])],
+        amp_cols=128, device=dev)
+    build_s = time.perf_counter() - t0
+    read_at_build = all("_counts" in pl.__dict__ for pl in dc.plans)
+    p = torch.as_tensor(np.random.default_rng(16).normal(scale=0.01, size=2 * dc.np_each),
+                        device=dev)
+    routes0, off0 = dict(bc.adjoint_routes), bc.off_plan_tiles(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        e_k, g_k = dc.value_and_grad(p)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    routes = {k: bc.adjoint_routes[k] - routes0[k] for k in routes0}
+    off = bc.off_plan_tiles(dev) - off0
+    e_p, g_p = dc.value_and_grad(p, plain=True)
+    rec = dict(pairs=dc.pairs, image=[dc.ny, dc.nx], build_s=build_s,
+               plans_read_at_build=read_at_build,
+               pair_routes=[bc.plan_route(pl) for pl in dc.plans], launches=routes,
+               off_plan_tiles=off,
+               predicted_off_plan_tiles=bc.predict_off_plan_tiles(*shrunk, (dc.ny, dc.nx),
+                                                                  dc.plans[1]),
+               cost_rel=abs(float(e_k - e_p)) / abs(float(e_p)),
+               grad_max_excess=float(((g_k - g_p).abs() - 1e-9 * g_p.abs()).max()),
+               grad_scale=float(g_p.abs().max()))
+    assert read_at_build and rec["pair_routes"] == ["planned", "stream"], rec
+    assert routes == {"planned": 1, "stream": 1}, rec
+    assert off == rec["predicted_off_plan_tiles"] > 0, rec
+    assert rec["cost_rel"] < 1e-12 and rec["grad_max_excess"] <= 1e-12, rec
+    return rec
+
+
+# X7's projection: tests/test_wcs.py's block projection (CTR 60.0504, -3.8,
+# LONPOLE 240, 0.04" a pixel), centred on a 4088^2 grid; the bound on (x, y)
+# between two forms of it: one float64 epsilon of an angle over the pixel
+# scale in radians (world2pix divides its angles' rounding by it: a one-ulp
+# difference of a trigonometric function, torch's CPU and CUDA ones, comes
+# to ~1e-10 px at this scale), as tests/test_torch_wcs.py's pix_tol
+X7_CRVAL, X7_LONPOLE, X7_SCALE = (60.0504, -3.8), 240.0, 0.04 / 3600
+X7_DEG_TOL = 1e-12
+X7_PIX_TOL = float(max(1e-10, np.finfo(np.float64).eps / np.deg2rad(X7_SCALE)))
+
+
+def x7_record(torch, dev, n, floor_ms, reps=10):
+    """X7, wcsutil.stg_projection_torch, on the n^2 pixel centres of an n^2
+    grid on the card against the same call on CPU float64 tensors: pix2world
+    (max |d ra| as an angle and |d dec|, degrees) and world2pix of the CPU's
+    (ra, dec) (max |d x|, |d y|, pixels); each one's device ms with its bytes
+    bound (16 B in and 16 B out a point)."""
+    from pyimcom_tpu_torch.wcsutil import stg_projection_torch
+
+    c = (n - 1) / 2.0
+    p2w, w2p = stg_projection_torch(X7_CRVAL, (c, c), (-X7_SCALE, X7_SCALE), X7_LONPOLE)
+    yy, xx = torch.meshgrid(torch.arange(n, dtype=torch.float64, device=dev),
+                            torch.arange(n, dtype=torch.float64, device=dev), indexing="ij")
+    xx, yy = xx.contiguous(), yy.contiguous()
+    ra, dec = p2w(xx, yy)
+    t0 = time.perf_counter()
+    ra_c, dec_c = p2w(xx.cpu(), yy.cpu())
+    x_c, y_c = w2p(ra_c, dec_c)
+    cpu_s = time.perf_counter() - t0
+    ra_cd, dec_cd = ra_c.to(dev), dec_c.to(dev)
+    x_d, y_d = w2p(ra_cd, dec_cd)
+    d_ra = float(((ra - ra_cd + 180.0) % 360.0 - 180.0).abs().max())
+    rec = dict(points=n * n, crval=list(X7_CRVAL), lonpole=X7_LONPOLE, scale_deg=X7_SCALE,
+               max_abs_err_deg=max(d_ra, float((dec - dec_cd).abs().max())),
+               max_abs_err_px=max(float((x_d - x_c.to(dev)).abs().max()),
+                                  float((y_d - y_c.to(dev)).abs().max())),
+               roundtrip_px=max(float((x_d - xx).abs().max()), float((y_d - yy).abs().max())),
+               deg_bound=X7_DEG_TOL, px_bound=X7_PIX_TOL, cpu_s=cpu_s,
+               finite=bool(torch.isfinite(ra).all() and torch.isfinite(x_d).all()),
+               pix2world_ms=median_ms(torch, lambda: p2w(xx, yy), reps),
+               world2pix_ms=median_ms(torch, lambda: w2p(ra_cd, dec_cd), reps), reps=reps,
+               route="plain torch (no hand kernel, no library call)",
+               **bounds(32 * n * n, 0, floor_ms))
+    assert rec["finite"] and rec["max_abs_err_deg"] < X7_DEG_TOL, rec
+    assert rec["max_abs_err_px"] < X7_PIX_TOL and rec["roundtrip_px"] < 1e-8, rec
+    return rec
+
+
 def phase_k4_synthetic(torch, dev, floor_ms, parent_tiled, reps=10):
     """K4 on k4_variants.py's synthetic 4088^2 pair (the target's pixels
     rolled by 0 and 45 degrees about the centre and shifted; seeded values
     and a gain in [0.5, 2] made on the card), with float64 positions and
     their float32 rounding, over the plan of each: k4_planned's record
-    beside commit 28a3190's body (both forms) where built, and its bounds."""
+    beside commit 28a3190's body (both forms) where built, and its bounds;
+    then the same pixels shrunk 0.1x and rolled by 30 degrees, both forms,
+    whose plan overflows (k4_shrunk), a DestripeCost holding that map
+    (shrunk_destripe), and X7 on the grid's 4088^2 points (x7_record)."""
     from pyimcom_tpu_torch.ops import bilinear, bilinear_cuda as bc
 
     n = 4088
@@ -1313,11 +1475,12 @@ def phase_k4_synthetic(torch, dev, floor_ms, parent_tiled, reps=10):
     yy, xx = torch.meshgrid(torch.arange(n, dtype=torch.float64, device=dev) - n / 2,
                             torch.arange(n, dtype=torch.float64, device=dev) - n / 2,
                             indexing="ij")
-    out = {}
+    out, maps = {}, {}
     for roll in (0, 45):
         th = np.deg2rad(roll)
         x64 = (np.cos(th) * xx - np.sin(th) * yy + n / 2 + 300.3).contiguous()
         y64 = (np.sin(th) * xx + np.cos(th) * yy + n / 2 - 200.7).contiguous()
+        maps[roll] = (x64, y64)
         for form, (x, y) in (("f64", (x64, y64)), ("f32", (x64.float(), y64.float()))):
             fn = (parent_tiled or {}).get(form)
             plan = bc.build_adjoint_plan(x, y, (n, n))
@@ -1332,6 +1495,15 @@ def phase_k4_synthetic(torch, dev, floor_ms, parent_tiled, reps=10):
                                 ADJOINT_FLOP * n_in, floor_ms))
             out[f"roll{roll}/{form}"] = rec
             del want
+    th = np.deg2rad(30)
+    shrunk = ((0.1 * (np.cos(th) * xx - np.sin(th) * yy) + n / 2 + 0.3).contiguous(),
+              (0.1 * (np.sin(th) * xx + np.cos(th) * yy) + n / 2 - 0.7).contiguous())
+    for form, (x, y) in (("f64", shrunk), ("f32", (shrunk[0].float(), shrunk[1].float()))):
+        out[f"shrunk0.1/{form}"] = k4_shrunk(torch, dev, v, x, y, gain, (n, n), floor_ms,
+                                             out[f"roll0/{form}"]["ms"], reps)
+    out["shrunk0.1/destripe_cost"] = shrunk_destripe(torch, dev, v, gain, maps[0], shrunk)
+    del maps, shrunk
+    out["x7"] = x7_record(torch, dev, n, floor_ms, reps)
     emit({"phase": "k4_synthetic", "criterion": TOL, "image": [n, n], **out})
     return out
 

@@ -858,8 +858,9 @@ int blocks_for(long long n) {
 // bands of a tile, then columns a band) word for word, reading the
 // positions once.  A tile whose rows span kRing or more (a map shrunk by
 // ~0.2 or more) would wrap its ring: it gets no band and counts as
-// overflowed (meta[3]), which the wrapper checks at its first read-back and
-// raises on (bilinear_cuda.AdjointPlan.check).
+// overflowed (meta[3]); the wrapper reads the count at its first read-back
+// and runs K4 over such a plan's positions by the off-plan body
+// (bilinear_cuda.plan_route).
 //
 // The pass: a warp takes kPlanSegQ consecutive queries of a row, loads all
 // their positions first (kPlanSegQ / 32 loads of x and of y a lane in

@@ -24,15 +24,17 @@ output, which stages the queries the plan names for it and writes each of
 its pixels once, with no f64 atomic and its sums in a fixed order (two
 launches give the same bits).  :func:`build_adjoint_plan` builds the plan
 on the card with the plan kernel of the same file (``bilinear_adjoint_plan``:
-two C entries a plan, each a pass over the positions and its packing,
+one C entry a plan, one pass over the positions and two over the tiles,
 counted under that name) and on a CPU tensor with its plain version
 (:func:`build_adjoint_plan_plain`); a caller that launches K4 many times on
 one map (the destripe cost) builds it once and passes it; a call without
 one builds it.  A 1-D stream (or a grid wider than
-``PLAN_MAX_COLS`` columns) has no plan and takes the earlier tiled body, which counts
-its tiles in :func:`off_plan_tiles`; :func:`predict_off_plan_tiles`
-computes the same count in plain torch.  ``adjoint_routes`` counts K4's
-launches by route.
+``PLAN_MAX_COLS`` columns) has no plan, and a plan whose tiles' queries
+overflowed the plan kernel's ring (a map shrunk ~5x or more) covers only
+part of them (:func:`plan_route`): both take the earlier tiled body, which
+takes any positions and counts its tiles in :func:`off_plan_tiles`;
+:func:`predict_off_plan_tiles` computes the same count in plain torch.
+``adjoint_routes`` counts K4's launches by route.
 """
 
 from __future__ import annotations
@@ -138,8 +140,9 @@ def query_grid(xf: torch.Tensor) -> tuple[int, int]:
 
 
 def planned_route(qny: int, qnx: int) -> bool:
-    """Whether K4 takes a (qny, qnx) query grid over a plan: a grid of more
-    than one row and at most PLAN_MAX_COLS columns."""
+    """Whether a (qny, qnx) query grid has a K4 plan: a grid of more than
+    one row and at most PLAN_MAX_COLS columns (K4 runs over the plan where
+    :func:`plan_route` says so)."""
     return qny > 1 and qnx <= PLAN_MAX_COLS
 
 
@@ -155,11 +158,13 @@ class AdjointPlan:
     no band, rows (0, -1).  `meta` (4,) int64 on the plan's device holds
     the counts: `pairs` (the (tile, query) incidences), `bands`, `window`
     (the queries the kernel stages: each band's rows times its span) and
-    the tiles whose rows span PLAN_RING_ROWS or more (0 in a whole plan);
-    ``r`` = window / pairs.  The plan kernel writes them on the card without
-    waiting, so a plan built there is checked, and its `spans` (sized for
-    the most bands the grid allows) cut to its bands, at the first read of
-    a count (:meth:`check`).
+    `over`, the tiles whose rows span PLAN_RING_ROWS or more: such a tile
+    keeps its rows but has no band, so a plan with one (overflowed) misses
+    its queries and K4 takes the off-plan body instead (:func:`plan_route`);
+    ``r`` = window / pairs.  The plan kernel writes the counts on the card
+    without waiting, so a plan built there reads them back, and cuts its
+    `spans` (sized for the most bands the grid allows) to its bands, at the
+    first read of a count (:meth:`check`).
     """
 
     rows: torch.Tensor
@@ -170,22 +175,19 @@ class AdjointPlan:
     meta: torch.Tensor
 
     def check(self) -> "AdjointPlan":
-        """Read the counts back (once), raise ValueError if a tile's rows
-        overflowed the kernel's ring (its plan would miss queries), and cut
-        `spans` to the plan's bands; returns the plan."""
+        """Read the counts back (once) and cut `spans` to the plan's bands;
+        returns the plan."""
         if "_counts" not in self.__dict__:
             self._settle(self.meta.tolist())
         return self
 
     def _settle(self, meta) -> None:
-        pairs, bands, window, over = (int(v) for v in meta)
-        if over:
-            raise ValueError(f"K4's plan: the queries of {over} tiles span {PLAN_RING_ROWS} "
-                             f"query rows or more (a map shrunk about 5x or more); no plan "
-                             f"covers them")
-        if self.spans.numel() > bands:
-            object.__setattr__(self, "spans", self.spans[:bands].clone())
-        self.__dict__["_counts"] = (pairs, bands, window)
+        """Keep the counts `meta` (pairs, bands, window, over) and cut
+        `spans` to the bands (a copy: the kernel's buffer is left whole)."""
+        counts = tuple(int(v) for v in meta)
+        if self.spans.numel() > counts[1]:
+            object.__setattr__(self, "spans", self.spans[:counts[1]].clone())
+        self.__dict__["_counts"] = counts
 
     @property
     def pairs(self) -> int:
@@ -198,6 +200,10 @@ class AdjointPlan:
     @property
     def window(self) -> int:
         return self.check()._counts[2]
+
+    @property
+    def over(self) -> int:
+        return self.check()._counts[3]
 
     @property
     def r(self) -> float:
@@ -275,7 +281,8 @@ def build_adjoint_plan_plain(xf: torch.Tensor, yf: torch.Tensor, shape) -> Adjoi
     torch on their device: two passes over the positions, PLAN_BUILD_ROWS
     query rows a step (each tile's first and last row, then each band's
     columns), each reducing one entry a run of a row's queries with one key
-    (:func:`_runs`)."""
+    (:func:`_runs`).  A tile whose rows span PLAN_RING_ROWS or more gets no
+    band and counts in `over`, as in the kernel's plan."""
     (ny, nx), (qny, qnx), T, tiles_x = _plan_grid(xf, shape)
     x, y = xf.reshape(qny, qnx), yf.reshape(qny, qnx)
     dev = x.device
@@ -299,20 +306,17 @@ def build_adjoint_plan_plain(xf: torch.Tensor, yf: torch.Tensor, shape) -> Adjoi
         pairs += (t < T).sum()
     row_lo, row_hi = row_lo[:T], row_hi[:T]
     live = row_hi >= 0
-    over = int((live & (row_hi - row_lo >= PLAN_RING_ROWS)).sum())
-    if over:
-        raise ValueError(f"K4's plan: the queries of {over} tiles span {PLAN_RING_ROWS} "
-                         f"query rows or more (a map shrunk about 5x or more); no plan "
-                         f"covers them")
-    nb = torch.where(live, (row_hi - row_lo) // PLAN_BAND + 1, 0)
+    # a tile whose rows span the kernel's ring keeps its rows, but no band
+    over = live & (row_hi - row_lo >= PLAN_RING_ROWS)
+    nb = torch.where(live & ~over, (row_hi - row_lo) // PLAN_BAND + 1, 0)
     nbt = int(nb.max()) if T else 0
     # each band's columns
     col_lo = torch.full((T * nbt + 1,), big, dtype=torch.int64, device=dev)
     col_hi = torch.full((T * nbt + 1,), -1, dtype=torch.int64, device=dev)
     for r0 in steps if nbt else ():
         t, qr, qc = step(r0)
-        keep = t < T
-        tt = torch.where(keep, t, 0)
+        tt = torch.where(t < T, t, 0)
+        keep = (t < T) & ~over[tt]
         band_key = torch.where(keep, tt * nbt + (qr - row_lo[tt]) // PLAN_BAND, T * nbt)
         for k in range(4):
             # a run lies in one row, its columns increasing
@@ -332,7 +336,8 @@ def build_adjoint_plan_plain(xf: torch.Tensor, yf: torch.Tensor, shape) -> Adjoi
     window = int((band_rows * torch.where(empty, 0, hi - lo + 1)).sum())
     rows = torch.stack([torch.where(live, row_lo, 0), torch.where(live, row_hi, -1)], 1)
     ptr = torch.cat([nb.new_zeros(1), torch.cumsum(nb, 0)])
-    meta = torch.tensor([int(pairs), spans.numel(), window, 0], dtype=torch.int64, device=dev)
+    meta = torch.tensor([int(pairs), spans.numel(), window, int(over.sum())],
+                        dtype=torch.int64, device=dev)
     return AdjointPlan(rows=rows.to(torch.int32).contiguous(), ptr=ptr.to(torch.int32),
                        spans=spans.contiguous(), shape=(ny, nx), grid=(qny, qnx), meta=meta)
 
@@ -343,7 +348,7 @@ def build_adjoint_plan(xf: torch.Tensor, yf: torch.Tensor, shape) -> AdjointPlan
     (ny, nx) = `shape` output.  On a CUDA tensor the plan kernel's one C
     entry (``bilinear_adjoint_plan``: a pass over the positions and two over
     the tiles), enqueued without waiting: no host synchronisation, the
-    counts read back (and the plan checked) at their first use; on a CPU
+    counts read back at their first use (:meth:`AdjointPlan.check`); on a CPU
     tensor its plain version, :func:`build_adjoint_plan_plain`, which gives
     the same plan."""
     if xf.device.type == "cpu":
@@ -375,6 +380,13 @@ def check_plans(plans) -> None:
             p._settle(meta)
 
 
+def plan_route(plan: AdjointPlan) -> str:
+    """K4's route over `plan` (its counts read back if they were not):
+    "planned" where the plan covers every query, "stream" (the off-plan
+    body) where a tile's queries overflowed the plan kernel's ring."""
+    return "stream" if plan.over else "planned"
+
+
 def _check_plan(plan, shape, grid, dev) -> None:
     if not isinstance(plan, AdjointPlan):
         raise TypeError(f"plan must be an AdjointPlan, got {type(plan).__name__}")
@@ -385,16 +397,23 @@ def _check_plan(plan, shape, grid, dev) -> None:
         _check(getattr(plan, name), f"plan.{name}", torch.int32, dev, getattr(plan, name).dim())
 
 
-def predict_off_plan_tiles(xf: torch.Tensor, yf: torch.Tensor, shape) -> int:
+def predict_off_plan_tiles(xf: torch.Tensor, yf: torch.Tensor, shape,
+                           plan: AdjointPlan | None = None) -> int:
     """The K4 tiles these positions give the off-plan body, in plain torch
-    (any device): none on a planned grid (:func:`planned_route`); else each
-    of its tiles (1 x 1024 queries of one row, 32 x 32 of a grid) that holds
-    a query in bounds."""
+    (any device): none on a planned grid whose plan (`plan`, the caller's
+    plan of these positions, else :func:`build_adjoint_plan_plain`'s) takes
+    the planned route (:func:`plan_route`); else each of its tiles (1 x 1024
+    queries of one row, 32 x 32 of a grid) that holds a query in bounds."""
     from .bilinear import in_bounds
 
     qny, qnx = query_grid(xf)
-    if planned_route(qny, qnx) or xf.numel() == 0:
+    if xf.numel() == 0:
         return 0
+    if planned_route(qny, qnx):
+        if plan is None:
+            plan = build_adjoint_plan_plain(xf, yf, shape)
+        if plan_route(plan) == "planned":
+            return 0
     th, tw = ADJOINT_ROW_TILE if qny == 1 else ADJOINT_TILE
     ty, tx = -(-qny // th), -(-qnx // tw)
     full = torch.zeros((ty * th, tx * tw), dtype=torch.bool, device=xf.device)
@@ -460,9 +479,11 @@ def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.T
     xf, yf (f64, or both f32), one shape, CUDA -> (ny, nx) = `shape` f64,
     each in-bounds value added into its four taps with K3's weights (and
     gain).  On a planned grid (:func:`planned_route`) over `plan`
-    (:func:`build_adjoint_plan` of these positions and `shape`; built here
-    if not given), each output pixel written once, its sum in a fixed
-    order; else by the off-plan body, with atomics, in no fixed order.  With
+    (:func:`build_adjoint_plan` of these positions and `shape`; built and
+    read back here if not given) where it covers every query
+    (:func:`plan_route`), each output pixel written once, its sum in a fixed
+    order; else (a 1-D stream, a grid too wide for a plan, a plan that
+    overflowed) by the off-plan body, with atomics, in no fixed order.  With
     `out` ((ny, nx) f64) the contributions are added into it in place, and
     it is returned.
     """
@@ -488,10 +509,10 @@ def bilinear_scatter_adjoint(values: torch.Tensor, xf: torch.Tensor, yf: torch.T
     if xf.numel() == 0:
         return out if out is not None else torch.zeros((ny, nx), dtype=torch.float64,
                                                        device=dev)
-    if planned:
-        if plan is None:
-            # built for this call alone: checked before it is used
-            plan = build_adjoint_plan(xf, yf, (ny, nx)).check()
+    if planned and plan is None:
+        # built for this call alone (plan_route reads its counts back)
+        plan = build_adjoint_plan(xf, yf, (ny, nx))
+    if planned and plan_route(plan) == "planned":
         result = out if out is not None else torch.empty((ny, nx), dtype=torch.float64,
                                                          device=dev)
         _launch("bilinear_scatter_adjoint", xf.dtype, dev, values.data_ptr(), _ptr(g_eff), ny,

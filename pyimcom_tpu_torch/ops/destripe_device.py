@@ -17,8 +17,10 @@ hit counts, the valid pixels and, on a CUDA device, K4's plan of each pair
 4088^2 pair, built by the plan kernel and kept on the device whatever the
 maps' storage) depend on the maps alone, so they are computed once, when
 the module is built, in the one walk over the pairs that counts the hits
-(the plan kernel waits for nothing; the plans are checked at the first
-cost read back).  On the CPU the plain adjoint runs, which takes no plan.
+(the plan kernel waits for nothing; one read-back at the end of the build
+takes every plan's counts).  A pair whose plan overflowed (a map shrunk ~5x
+or more: bilinear_cuda.plan_route) runs K4's off-plan body on every
+gradient.  On the CPU the plain adjoint runs, which takes no plan.
 
 The pair maps (each pair's positions, two (ny, nx) planes) are stored at
 ``map_dtype`` "f64" or "f32" (the JAX package's PYIMCOM_DESTRIPE_MAP_DTYPE:
@@ -261,6 +263,12 @@ class DestripeCost(torch.nn.Module):
     params (S * n_params,); ``value_and_grad`` gives both on the device,
     ``cost`` and ``cost_and_grad`` take and return numpy as the JAX
     package's ``DeviceDestripe`` does.
+
+    On a CUDA device two gradients at the same params are the same bits
+    where every pair's K4 runs over its plan; a pair whose plan overflowed
+    takes K4's off-plan body, whose atomics add in no fixed order, so its
+    gradient matches the plain route within the destripe bounds (cost rtol
+    1e-12, gradient rtol 1e-9, atol 1e-12), not bit for bit.
     """
 
     def __init__(self, imgs, g_eff, masks, pairs, xf, yf, amp_cols=None,
@@ -311,6 +319,8 @@ class DestripeCost(torch.nn.Module):
         for p, x, y in walk:
             cnt[self.pairs[p][0]] += in_bounds(x, y, (ny, nx))
             self.plans.append(_pair_plan(x, y, (ny, nx)))
+        # every plan's counts, and so its route, in one read-back
+        check_plans(self.plans)
         valid = cnt > 0
         mask = put(masks, torch.bool) if masks is not None else torch.ones_like(valid)
         self.register_buffer("cnt", torch.where(valid, cnt, 1.0))
@@ -385,13 +395,8 @@ class DestripeCost(torch.nn.Module):
 
     def cost(self, params) -> float:
         with torch.no_grad():
-            eps = float(self(self._params(params)))
-        check_plans(self.plans)
-        return eps
+            return float(self(self._params(params)))
 
     def cost_and_grad(self, params):
         eps, g = self.value_and_grad(self._params(params))
-        eps = float(eps)
-        # the plans were built without waiting: checked at this first read-back
-        check_plans(self.plans)
-        return eps, g.cpu().numpy()
+        return float(eps), g.cpu().numpy()

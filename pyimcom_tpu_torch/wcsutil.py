@@ -3,7 +3,8 @@ World coordinate systems (self-contained; no astropy).
 
 The port's copy of ``pyimcom_tpu/wcsutil.py``, so that the port imports
 nothing of the JAX package; keep the two in step.  The JAX form of the
-output projection (``stg_projection_jax``) is not copied.
+output projection (``stg_projection_jax``) has the port's own form,
+:func:`stg_projection_torch`, on float64 torch tensors.
 
 Implements the FITS celestial WCS chain (Calabretta & Greisen 2002) for the
 projections the coaddition pipeline uses:
@@ -17,7 +18,8 @@ projections the coaddition pipeline uses:
   inverse AP/BP or Newton iteration), for L2-like products
   (reference wcsutil.py:459-592 approximates GWCS this way).
 
-All transforms are vectorized numpy on the host.
+All transforms are vectorized numpy on the host; :func:`stg_projection_torch`
+gives a closed form of the output projection for device code.
 
 Conventions: pixel coordinates are 0-indexed throughout the package
 (`origin=0` in the astropy sense); angles in degrees.
@@ -530,3 +532,49 @@ def make_block_wcs(cfg, ibx: int, iby: int) -> WCS:
                crpix=(crpix1 - 1.0, crpix2 - 1.0),  # internal 0-indexed
                cd=np.diag([-cfg.dtheta, cfg.dtheta]),
                lonpole=cfg.lonpole)
+
+
+def stg_projection_torch(crval, crpix, cdelt, lonpole):
+    """
+    Closed-form stereographic pixel<->world maps for device code, the JAX
+    package's ``stg_projection_jax`` term for term on torch tensors.
+
+    Returns (pix2world, world2pix), both mapping float64 tensors (any shape)
+    in degrees, computed on the device of the tensors they are given.
+    """
+    import math
+
+    import torch
+
+    ap, dp, pp = crval[0] * DEG, crval[1] * DEG, lonpole * DEG
+
+    def pix2world(x, y):
+        xi = cdelt[0] * (x - crpix[0]) * DEG
+        eta = cdelt[1] * (y - crpix[1]) * DEG
+        R = torch.hypot(xi, eta)
+        dphi = torch.atan2(xi, -eta) - pp
+        colat = 2.0 * torch.atan(R / 2.0)
+        st, ct = torch.cos(colat), torch.sin(colat)
+        zc = st * math.sin(dp) + ct * math.cos(dp) * torch.cos(dphi)
+        xc = st * math.cos(dp) - ct * math.sin(dp) * torch.cos(dphi)
+        yc = -ct * torch.sin(dphi)
+        dec = torch.atan2(zc, torch.hypot(xc, yc))
+        ra = ap + torch.atan2(yc, xc)
+        return torch.remainder(ra / DEG, 360.0), dec / DEG
+
+    def world2pix(ra, dec):
+        ra = ra * DEG
+        dec = dec * DEG
+        zn = (torch.sin(dec) * math.sin(dp)
+              + torch.cos(dec) * math.cos(dp) * torch.cos(ra - ap))
+        xn = (torch.sin(dec) * math.cos(dp)
+              - torch.cos(dec) * math.sin(dp) * torch.cos(ra - ap))
+        yn = -torch.cos(dec) * torch.sin(ra - ap)
+        colat = torch.atan2(torch.hypot(xn, yn), zn)
+        phi = pp + torch.atan2(yn, xn)
+        R = 2.0 * torch.tan(colat / 2.0)
+        xi = R * torch.sin(phi)
+        eta = -R * torch.cos(phi)
+        return xi / DEG / cdelt[0] + crpix[0], eta / DEG / cdelt[1] + crpix[1]
+
+    return pix2world, world2pix

@@ -488,16 +488,40 @@ def test_k4_plan_builds_without_host_sync(cuda):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
-def test_k4_plan_of_a_shrunk_map_raises_when_checked(cuda):
+@pytest.mark.parametrize("pos", ["f64", "f32"])
+def test_k4_shrunk_map_takes_the_off_plan_body(cuda, pos):
     """A map shrunk 0.1x spreads a tile's queries over more query rows than
-    the plan kernel's ring: the build enqueues, its check raises, and so
-    does K4 called without a plan (it checks the plan it builds)."""
-    img, _gain, x, y, v = _grid_case(cuda, 64, 30, qny=400, qnx=60, ny=64, nx=64, scale=0.1)
+    the plan kernel's ring: its plan (the kernel's, the plain builder's
+    word for word) counts those tiles as overflowed, and K4 without a plan
+    and over that plan takes the off-plan body, one stream launch each (the
+    plan built in the call: one plan kernel launch), its tiles off the plan
+    as predicted, within TOL of the plain version, fresh and into an
+    output, with and without a gain."""
+    img, gain, x, y, v = _grid_case(cuda, 64, 30, qny=400, qnx=60, ny=64, nx=64, scale=0.1)
+    if pos == "f32":
+        x, y = x.float(), y.float()
     plan = bilinear_cuda.build_adjoint_plan(x, y, img.shape)
-    with pytest.raises(ValueError, match="rows or more"):
-        plan.check()
-    with pytest.raises(ValueError, match="rows or more"):
-        bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape)
+    want_plan = bilinear_cuda.build_adjoint_plan_plain(x, y, img.shape)
+    assert bilinear_cuda.plan_route(plan) == "stream" and plan.over == want_plan.over > 0
+    for name in ("rows", "ptr", "spans"):
+        assert torch.equal(getattr(plan, name), getattr(want_plan, name)), name
+    n_off = bilinear_cuda.predict_off_plan_tiles(x, y, img.shape)
+    assert n_off > 0
+    suffix = ".f32" if pos == "f32" else ""
+    base = torch.randn(img.shape, dtype=torch.float64, device=cuda)
+    for g in (None, gain):
+        want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, img.shape, g)
+        bilinear_cuda.reset_launch_counts()
+        bilinear_cuda.reset_off_plan_tiles()
+        got = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g)
+        into = bilinear_cuda.bilinear_scatter_adjoint(v, x, y, img.shape, g, plan=plan,
+                                                      out=base.clone())
+        assert bilinear_cuda.adjoint_routes == {"planned": 0, "stream": 2}
+        assert bilinear_cuda.launches["bilinear_scatter_adjoint" + suffix] == 2
+        assert bilinear_cuda.launches["bilinear_adjoint_plan" + suffix] == 1
+        assert bilinear_cuda.off_plan_tiles(cuda) == 2 * n_off
+        assert _rel(got, want) < TOL
+        assert _rel(into, base + want) < TOL
 
 
 @pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
@@ -801,6 +825,65 @@ def test_destripe_problem_memmap_on_the_card(cuda):
     want_cost, want_grad = base.cost_and_grad(p)
     np.testing.assert_allclose(cost, want_cost, rtol=1e-12)
     np.testing.assert_allclose(grad, want_grad, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("map_dtype, map_store", [("f64", "device"), ("f32", "host")])
+def test_destripe_cost_with_a_shrunk_pair_on_the_card(cuda, tmp_path, monkeypatch, map_dtype,
+                                                      map_store):
+    """A DestripeCost holding one pair shrunk 0.1x (its plan overflows)
+    among five ordinary ones, its maps f64 on the card or f32 in memory-
+    mapped files streamed from the host: the build reads every plan's
+    counts back once (check_plans) and a gradient reads none (it runs under
+    torch's sync debug mode "error"); value_and_grad matches the plain
+    route within cost rtol 1e-12, gradient rtol 1e-9, atol 1e-12, with the
+    shrunk pair's K4 off the plan (its tiles as predicted, read from the
+    pair's uploaded maps where streamed) and the others' over their plans,
+    and cost_and_grad gives the same numbers."""
+    from pyimcom_tpu_torch.imdestripe import to_memmap
+    from pyimcom_tpu_torch.ops import destripe_device
+
+    rng, imgs, gains, masks, pairs, xf, yf = _destripe_case(n=320, seed=28)
+    shrunk = 2
+    yy, xx = np.mgrid[0:320, 0:320].astype(float)
+    th = np.deg2rad(30)
+    xf[shrunk] = 0.1 * (np.cos(th) * xx - np.sin(th) * yy) + 100.3
+    yf[shrunk] = 0.1 * (np.sin(th) * xx + np.cos(th) * yy) + 100.2
+    if map_store == "host":
+        xf = [to_memmap(a.astype(np.float32), str(tmp_path), f"x{p}") for p, a in enumerate(xf)]
+        yf = [to_memmap(a.astype(np.float32), str(tmp_path), f"y{p}") for p, a in enumerate(yf)]
+    calls = []
+
+    def counted(plans):
+        calls.append(len(plans))
+        bilinear_cuda.check_plans(plans)
+
+    monkeypatch.setattr(destripe_device, "check_plans", counted)
+    dc = DestripeCost(imgs, gains, masks, pairs, xf, yf, amp_cols=32, col_boundary_const=2.0,
+                      device=cuda, map_dtype=map_dtype, map_store=map_store)
+    assert calls == [len(pairs)]
+    routes = [bilinear_cuda.plan_route(pl) for pl in dc.plans]
+    assert routes == ["stream" if p == shrunk else "planned" for p in range(len(pairs))]
+    maps = (dc.xf[shrunk], dc.yf[shrunk])
+    n_off = bilinear_cuda.predict_off_plan_tiles(maps[0].to(cuda), maps[1].to(cuda), (320, 320))
+    assert n_off > 0
+    p = torch.as_tensor(rng.normal(scale=0.01, size=3 * dc.np_each), device=cuda)
+    bilinear_cuda.reset_launch_counts()
+    bilinear_cuda.reset_off_plan_tiles()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        e, g = dc.value_and_grad(p)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bilinear_cuda.adjoint_routes == {"planned": len(pairs) - 1, "stream": 1}
+    assert bilinear_cuda.off_plan_tiles(cuda) == n_off
+    e_p, g_p = dc.value_and_grad(p, plain=True)
+    np.testing.assert_allclose(float(e), float(e_p), rtol=1e-12)
+    np.testing.assert_allclose(g.cpu().numpy(), g_p.cpu().numpy(), rtol=1e-9, atol=1e-12)
+    cost, grad = dc.cost_and_grad(p.cpu().numpy())
+    assert calls == [len(pairs)]
+    np.testing.assert_allclose(cost, float(e_p), rtol=1e-12)
+    np.testing.assert_allclose(grad, g_p.cpu().numpy(), rtol=1e-9, atol=1e-12)
 
 
 def test_pair_maps_uploads_wait_for_queued_work(cuda):

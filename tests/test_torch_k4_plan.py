@@ -14,9 +14,12 @@ its weighted gather (with one), under x64, to 1e-12 of scale (the same
 products, summed in another order), fresh and into an output.  Positions
 are float64 or float32 (widened, exactly), on small grids: rolls of 0-180
 degrees, scales 0.8 and 1.25, shifts, NaN rows, queries off the grid, and
-an output whose last tiles are ragged.  A NaN position adds nothing in the
-port and NaN in the JAX package, so the JAX calls take such a query off the
-grid instead.
+an output whose last tiles are ragged.  A map shrunk 0.1x (SHRUNK) spreads
+a tile's queries over more query rows than the plan kernel's ring holds:
+its plan counts those tiles as overflowed, and K4 takes the off-plan body
+there (bilinear_cuda.plan_route), whose plain version is held to the JAX
+adjoint.  A NaN position adds nothing in the port and NaN in the JAX
+package, so the JAX calls take such a query off the grid instead.
 """
 
 import jax
@@ -39,11 +42,25 @@ NY, NX, QNY, QNX = 100, 93, 90, 97          # ragged against 32 x 32 tiles
 KINDS = ("roll0", "roll15", "roll45", "roll90", "roll180", "scale0.8", "scale1.25", "shift",
          "nan_rows", "off_grid")
 DTYPES = {"f64": torch.float64, "f32": torch.float32}
+# a map shrunk 0.1x and rolled by 30 degrees: 400 x 60 queries on a 64 x 64
+# output, a tile's queries over ~300 query rows
+SHRUNK, SHRUNK_GRID = "shrunk0.1", (400, 60, 64, 64)
+
+
+def _grid(kind):
+    """(qny, qnx, ny, nx) of a case."""
+    return SHRUNK_GRID if kind == SHRUNK else (QNY, QNX, NY, NX)
 
 
 def _positions(kind, seed=0, qny=QNY, qnx=QNX, ny=NY, nx=NX):
     """A pair-map-like (qny, qnx) query grid on a (ny, nx) output: the grid
-    rolled, scaled and shifted about the output's centre."""
+    rolled, scaled and shifted about the output's centre (SHRUNK: its own
+    grid, scaled about the output's corner)."""
+    if kind == SHRUNK:
+        th = np.deg2rad(30)
+        yy, xx = np.mgrid[0:SHRUNK_GRID[0], 0:SHRUNK_GRID[1]].astype(float)
+        return (0.1 * (np.cos(th) * xx - np.sin(th) * yy) + 30.3,
+                0.1 * (np.sin(th) * xx + np.cos(th) * yy) + 5.2)
     rng = np.random.default_rng(seed)
     roll = int(kind[4:]) if kind.startswith("roll") else 30
     scale = float(kind[5:]) if kind.startswith("scale") else 1.0
@@ -66,13 +83,14 @@ def _positions(kind, seed=0, qny=QNY, qnx=QNX, ny=NY, nx=NX):
 
 
 def _case(kind, dtype, seed=0):
+    qny, qnx, ny, nx = _grid(kind)
     xf, yf = _positions(kind, seed)
     rng = np.random.default_rng(seed + 1)
     x = torch.as_tensor(xf).to(DTYPES[dtype])
     y = torch.as_tensor(yf).to(DTYPES[dtype])
-    return (x, y, torch.as_tensor(rng.normal(size=(QNY, QNX))),
-            torch.as_tensor(rng.uniform(0.5, 2.0, (NY, NX))),
-            torch.as_tensor(rng.normal(size=(NY, NX))))
+    return (x, y, torch.as_tensor(rng.normal(size=(qny, qnx))),
+            torch.as_tensor(rng.uniform(0.5, 2.0, (ny, nx))),
+            torch.as_tensor(rng.normal(size=(ny, nx))))
 
 
 def _rel(got, want):
@@ -232,17 +250,25 @@ def test_one_pass_ring_build_gives_the_plan(kind):
 
 def test_plan_of_a_shrunk_map_raises():
     """A map shrunk 0.1x puts a tile's queries over more rows than the
-    kernel's ring holds: the ring build flags those tiles and gives them no
-    band, and the plain builder raises, as the kernel's plan does when it is
-    checked."""
-    th = np.deg2rad(30)
-    yy, xx = np.mgrid[0:400, 0:60].astype(float)
-    xf = torch.as_tensor(0.1 * (np.cos(th) * xx - np.sin(th) * yy) + 30.3)
-    yf = torch.as_tensor(0.1 * (np.sin(th) * xx + np.cos(th) * yy) + 5.2)
-    *_rest, over = _ring_plan(xf, yf, (64, 64))
-    assert over > 0
-    with pytest.raises(ValueError, match="rows or more"):
-        bc.build_adjoint_plan_plain(xf, yf, (64, 64))
+    kernel's ring holds (the name is from when the plan raised there): the
+    ring build flags those tiles and gives them no band, and the plain
+    builder's plan, at either position width, equals it word for word,
+    counts them in `over` (tiles with queries and no band) and sends K4 to
+    the off-plan body (plan_route)."""
+    shape = SHRUNK_GRID[2:]
+    for dtype in DTYPES:
+        x, y, *_ = _case(SHRUNK, dtype)
+        rows, ptr, spans, pairs, window, over = _ring_plan(x, y, shape)
+        plan = bc.build_adjoint_plan_plain(x, y, shape)
+        assert over > 0 and plan.over == over
+        assert bc.plan_route(plan) == "stream"
+        np.testing.assert_array_equal(rows, plan.rows.numpy())
+        np.testing.assert_array_equal(ptr, plan.ptr.numpy())
+        np.testing.assert_array_equal(spans, plan.spans.numpy())
+        assert (pairs, window, len(spans)) == (plan.pairs, plan.window, plan.bands)
+        flagged = (plan.rows[:, 1] >= 0) & (plan.ptr[1:] == plan.ptr[:-1])
+        assert int(flagged.sum()) == over
+        assert bool(((plan.rows[:, 1] - plan.rows[:, 0])[flagged] >= bc.PLAN_RING_ROWS).all())
 
 
 def _jax_adjoint(x, y, values, gain, shape):
@@ -262,23 +288,32 @@ def _jax_adjoint(x, y, values, gain, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + (SHRUNK,))
 def test_planned_traversal_matches_plain_and_jax(kind, dtype):
     """The emulated traversal, with and without a gain, fresh and added into
     an output, against bilinear_scatter_adjoint_plain and the JAX package's
-    adjoint, to 1e-12 of scale."""
+    adjoint, to 1e-12 of scale.  The shrunk map's plan overflows, so K4
+    takes the off-plan body there: its plain version is held to the JAX
+    adjoint."""
     x, y, v, gain, base = _case(kind, dtype)
-    assert int(bilinear.in_bounds(x, y, (NY, NX)).sum()) > 2000
-    plan = bc.build_adjoint_plan(x, y, (NY, NX))
+    shape = _grid(kind)[2:]
+    assert int(bilinear.in_bounds(x, y, shape).sum()) > 2000
+    plan = bc.build_adjoint_plan(x, y, shape)
+    assert bc.plan_route(plan) == ("stream" if kind == SHRUNK else "planned")
     for g in (None, gain):
-        want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, (NY, NX), g)
-        got = planned_adjoint(v, x, y, (NY, NX), plan, g)
-        assert _rel(got, want) < TOL
-        assert _rel(got, torch.as_tensor(np.array(_jax_adjoint(x, y, v, g, (NY, NX))))) < TOL
-        into = planned_adjoint(v, x, y, (NY, NX), plan, g, out=base.clone())
-        assert _rel(into, base + want) < TOL
+        want = bilinear.bilinear_scatter_adjoint_plain(v, x, y, shape, g)
+        jax_want = torch.as_tensor(np.array(_jax_adjoint(x, y, v, g, shape)))
+        if kind == SHRUNK:
+            # the off-plan body's plain version
+            assert _rel(want, jax_want) < TOL
+        else:
+            got = planned_adjoint(v, x, y, shape, plan, g)
+            assert _rel(got, want) < TOL
+            assert _rel(got, jax_want) < TOL
+            into = planned_adjoint(v, x, y, shape, plan, g, out=base.clone())
+            assert _rel(into, base + want) < TOL
         # the dispatch on a CPU tensor is the plain version, plan or none
-        assert torch.equal(bilinear.bilinear_scatter_adjoint(v, x, y, (NY, NX), g, plan=plan),
+        assert torch.equal(bilinear.bilinear_scatter_adjoint(v, x, y, shape, g, plan=plan),
                            want)
 
 
@@ -334,12 +369,63 @@ def test_destripe_cost_plans_equal_across_storage(map_dtype, monkeypatch):
         assert a.pairs > 1000
 
 
+@pytest.mark.parametrize("map_dtype, map_store", [("f64", "device"), ("f32", "host")])
+def test_destripe_cost_with_a_shrunk_pair(map_dtype, map_store, monkeypatch):
+    """A DestripeCost holding a pair whose plan overflows (a map shrunk
+    0.1x), its plans built as on a CUDA device (the builder called on the
+    CPU in their place): nothing raises, the build reads every plan's
+    counts back in one call of check_plans and the costs read none, the
+    shrunk pair's route is the off-plan body and the other pair's the
+    planned one; on the CPU the adjoint is the plain version whatever the
+    plan, so cost and gradient are those of the module without plans, and
+    within the destripe bounds of its plain route."""
+    rng = np.random.default_rng(8)
+    n = 320
+    yy, xx = np.mgrid[0:n, 0:n].astype(float)
+    th = np.deg2rad(30)
+    # pair (0, 1) rolled 0.01 rad and shifted; pair (1, 0) shrunk 0.1x and
+    # rolled 30 degrees, a tile's queries over ~440 query rows
+    xf = [np.cos(0.01) * xx - np.sin(0.01) * yy + 2.3,
+          0.1 * (np.cos(th) * xx - np.sin(th) * yy) + 100.3]
+    yf = [np.sin(0.01) * xx + np.cos(0.01) * yy - 1.7,
+          0.1 * (np.sin(th) * xx + np.cos(th) * yy) + 100.2]
+    pairs = [(0, 1), (1, 0)]
+    args = (rng.normal(size=(2, n, n)), rng.uniform(0.5, 2.0, (2, n, n)),
+            rng.random((2, n, n)) > 0.1, pairs, xf, yf)
+    kw = dict(amp_cols=64, col_boundary_const=2.0, device="cpu", map_dtype=map_dtype,
+              map_store=map_store)
+    bare = DestripeCost(*args, **kw)
+    assert bare.plans == [None, None]
+    calls = []
+
+    def counted(plans):
+        calls.append(len(plans))
+        bc.check_plans(plans)
+
+    monkeypatch.setattr(destripe_device, "_pair_plan", bc.build_adjoint_plan)
+    monkeypatch.setattr(destripe_device, "check_plans", counted)
+    dc = DestripeCost(*args, **kw)
+    assert calls == [2] and all("_counts" in pl.__dict__ for pl in dc.plans)
+    assert [bc.plan_route(pl) for pl in dc.plans] == ["planned", "stream"]
+    assert dc.plans[1].over > 0 and dc.plans[0].over == 0
+    p = rng.normal(scale=0.01, size=2 * dc.np_each)
+    cost, grad = dc.cost_and_grad(p)
+    assert dc.cost(p) == cost and calls == [2]
+    want_cost, want_grad = bare.cost_and_grad(p)
+    assert cost == want_cost and np.array_equal(grad, want_grad)
+    e, g = dc.value_and_grad(torch.as_tensor(p), plain=True)
+    np.testing.assert_allclose(float(e), cost, rtol=1e-12)
+    np.testing.assert_allclose(g.numpy(), grad, rtol=1e-9, atol=1e-12)
+
+
 def _off_plan_reference(xf, yf, shape):
-    """The off-plan body's tiles holding a query in bounds, by a loop."""
+    """The off-plan body's tiles holding a query in bounds, by a loop: none
+    on a grid whose plan (the ring build, _ring_plan) did not overflow."""
     ny, nx = shape
     x = xf.reshape(-1, xf.shape[-1]) if xf.ndim >= 2 else xf.reshape(1, -1)
     y = yf.reshape(x.shape)
-    if x.shape[0] > 1 and x.shape[1] <= bc.PLAN_MAX_COLS:
+    if (x.shape[0] > 1 and x.shape[1] <= bc.PLAN_MAX_COLS
+            and _ring_plan(torch.as_tensor(x), torch.as_tensor(y), shape)[-1] == 0):
         return 0
     th, tw = (1, 1024) if x.shape[0] == 1 else (32, 32)
     n = 0
@@ -351,14 +437,19 @@ def _off_plan_reference(xf, yf, shape):
     return n
 
 
-@pytest.mark.parametrize("case", ["stream", "one_row", "grid", "wide"])
+@pytest.mark.parametrize("case", ["stream", "one_row", "grid", "wide", SHRUNK])
 def test_predict_off_plan_tiles(case):
     """predict_off_plan_tiles (the K4 tiles off the planned route, which
     chip_smoke.py holds the card's count to) against its definition: a
-    planned grid has none; a stream, a one-row grid and a grid wider than
-    PLAN_MAX_COLS count each of their tiles holding a query in bounds."""
+    planned grid has none; a stream, a one-row grid, a grid wider than
+    PLAN_MAX_COLS and a grid whose plan overflowed (the shrunk map) count
+    each of their tiles holding a query in bounds; given the grid's plan,
+    the same count."""
     rng = np.random.default_rng(9)
-    if case == "wide":
+    shape = _grid(case)[2:]
+    if case == SHRUNK:
+        xf, yf = _positions(SHRUNK)
+    elif case == "wide":
         xf = rng.uniform(-20, 120, (2, bc.PLAN_MAX_COLS + 500))
         yf = rng.uniform(-20, 120, xf.shape)
         xf[:, :40000] = -7.0                 # tiles with no query in bounds
@@ -369,6 +460,11 @@ def test_predict_off_plan_tiles(case):
             xf[:3000] = np.nan
         elif case == "one_row":
             xf, yf = xf[:1], yf[:1]
-    got = bc.predict_off_plan_tiles(torch.as_tensor(xf), torch.as_tensor(yf), (NY, NX))
-    assert got == _off_plan_reference(xf, yf, (NY, NX))
+    xt, yt = torch.as_tensor(xf), torch.as_tensor(yf)
+    got = bc.predict_off_plan_tiles(xt, yt, shape)
+    assert got == _off_plan_reference(xf, yf, shape)
     assert (got > 0) == (case != "grid")
+    if case in ("grid", SHRUNK):
+        # the caller's plan of these positions in place of the builder's
+        plan = bc.build_adjoint_plan(xt, yt, shape)
+        assert bc.predict_off_plan_tiles(xt, yt, shape, plan) == got
